@@ -3,9 +3,11 @@ and hand-written CUDA kernels for the NVIDIA H100.
 
 A port of ``avx_sort_merge_joins_tpu`` (JAX and Pallas on a TPU), which
 stays beside it as the reference.  This package imports ``torch`` and
-numpy, never JAX.  Ported so far: the single-device m-way count join, with
-its block sort (K1), multiway merge (K2) and match count (K3) as CUDA C++
-kernels for ``sm_90a`` in ``csrc/``.
+numpy, never JAX.  Ported so far: the single-device m-way, m-pass and mpsm
+count joins, the (key, payload) pair sort and the tag-merge count, with
+the block sorts (K1 keys, K5 pairs), multiway merge (K2), pairwise merge
+pass (K4) and match count (K3) as CUDA C++ kernels for ``sm_90a`` in
+``csrc/``.
 """
 
 import importlib

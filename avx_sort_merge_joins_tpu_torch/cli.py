@@ -4,10 +4,11 @@ src/main.c): the same flags, the same workload construction and the same
 output conventions -- ``Results = N`` on stdout, ``[STATS]``/``[RECORD]``
 on stderr so scripts can split the streams (joincommon.c:175-196).
 
-Ported: the single-device m-way count join, ``-a m-way -n 1 -r -s -x -y
--f --scalarsort --scalarmerge --non-unique``.  Every other algorithm and
+Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
+-x -y -f --nchunks --scalarsort --scalarmerge --non-unique``.  Every other
 flag of the reference is parsed and refused with "not yet ported" and exit
-code 2.  Relations and kernels run on the card when there is one, else on
+code 2.  Relations and kernels run on the card (``--device cuda``, the
+default; without a card the CLI exits 1).  ``--device cpu`` runs them on
 the CPU through the kernels' plain PyTorch versions.
 """
 
@@ -18,17 +19,18 @@ import sys
 import time
 
 NOT_PORTED_EXIT = 2
+NO_DEVICE_EXIT = 1
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="avx_sort_merge_joins_tpu_torch",
         description="sort-merge joins on PyTorch and hand-written CUDA "
-                    "kernels (m-way count join)")
+                    "kernels (count joins)")
     # flag set mirrors main.c:722-745
     p.add_argument("-a", "--algo", default="m-way",
                    choices=["m-way", "m-pass", "mpsm"],
-                   help="join algorithm (only m-way is ported)")
+                   help="join algorithm")
     p.add_argument("-n", "--nthreads", type=int, default=1,
                    help="number of devices (only 1 is ported)")
     p.add_argument("-r", "--r-size", type=int, default=128_000_000)
@@ -55,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multiway merge buffer size in bytes "
                         "(not yet ported)")
     p.add_argument("--nchunks", type=int, default=1,
-                   help="mpsm: number of local S runs (not yet ported)")
+                   help="mpsm: number of local S runs")
     p.add_argument("--materialize", action="store_true",
                    help="produce join output tuples (not yet ported)")
     p.add_argument("--persist", metavar="DIR", default=None,
@@ -68,6 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for flag parity (PCM event config)")
     p.add_argument("--mapping-file", default=None,
                    help="device mapping file (not yet ported)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where relations and kernels run: the card, or "
+                        "the CPU through the kernels' plain PyTorch "
+                        "versions")
     p.add_argument("--verbose", action="store_true")
     return p
 
@@ -75,13 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_ported(args) -> list[str]:
     """The flags of this run that the port does not carry yet."""
     checks = [
-        (args.algo != "m-way", f"-a {args.algo}"),
         (args.nthreads != 1, f"-n {args.nthreads}"),
         (args.skew > 0, "-z"),
         (args.full_range, "--full-range"),
         (args.numastrategy != "NEXT", "-S"),
         (args.mwaybufsize != 0, "-m"),
-        (args.nchunks != 1, "--nchunks"),
         (args.materialize, "--materialize"),
         (args.persist is not None, "--persist"),
         (args.key8b, "--key8b"),
@@ -123,7 +127,6 @@ def make_relations(args, device):
 
 
 def run_join(args, R, S):
-    from .models.mway import sortmergejoin_multiway
     from .types import JoinConfig
 
     config = JoinConfig(
@@ -131,7 +134,28 @@ def run_join(args, R, S):
         scalar_sort=args.scalarsort,
         scalar_merge=args.scalarmerge,
     )
+    if args.algo == "m-pass":
+        from .models.mpass import sortmergejoin_multipass
+        return sortmergejoin_multipass(R, S, config)
+    if args.algo == "mpsm":
+        from .models.mpsm import sortmergejoin_mpsm
+        return sortmergejoin_mpsm(R, S, config, nchunks=args.nchunks)
+    from .models.mway import sortmergejoin_multiway
     return sortmergejoin_multiway(R, S, config, fanin=args.partfanout)
+
+
+def _validate(args) -> str | None:
+    """Parameter checks of the JAX CLI's ``_validate`` (cli.py:344-370,
+    after main.c:860-886): the error that refuses this run, if any."""
+    from .utils.log import warn
+
+    if args.partfanout < 2 or args.partfanout & (args.partfanout - 1):
+        return "partfanout must be a power of 2"
+    if args.nchunks < 1:
+        return "--nchunks must be >= 1"
+    if args.nchunks != 1 and args.algo != "mpsm":
+        warn("--nchunks applies to single-device mpsm only")
+    return None
 
 
 def main(argv=None) -> int:
@@ -142,8 +166,9 @@ def main(argv=None) -> int:
     if missing:
         error(f"not yet ported: {' '.join(missing)}")
         return NOT_PORTED_EXIT
-    if args.partfanout < 2 or args.partfanout & (args.partfanout - 1):
-        error("partfanout must be a power of 2")
+    bad = _validate(args)
+    if bad:
+        error(bad)
         return NOT_PORTED_EXIT
 
     import torch
@@ -152,7 +177,14 @@ def main(argv=None) -> int:
     from .types import default_device, device_name
     from .utils import profiling
 
-    device = default_device()
+    if args.device == "cpu":
+        device = torch.device("cpu")
+    else:
+        try:
+            device = default_device()
+        except RuntimeError as e:
+            error(str(e))
+            return NO_DEVICE_EXIT
     dname = device_name(device)
     info(f"device: {dname}" if device.type == "cuda"
          else "device: cpu (plain PyTorch versions)")

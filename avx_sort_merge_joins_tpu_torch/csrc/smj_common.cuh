@@ -10,8 +10,24 @@
 #include <cuda_runtime.h>
 
 #define SMJ_KEY_POS_INF INT_MAX
+#define SMJ_KEY_NEG_INF INT_MIN
 
 #define SMJ_API extern "C" __attribute__((visibility("default")))
+
+// A (key, payload) int32 pair packed into one int64 whose signed order is
+// the pairs' lexicographic order: the key in the high half, the payload
+// with its sign bit flipped in the low half.  The pads (INT32_MAX,
+// INT32_MAX) and (INT32_MIN, INT32_MIN) pack to LLONG_MAX and LLONG_MIN.
+__device__ __forceinline__ long long smj_pack(int key, int payload) {
+  return (long long)(((unsigned long long)(unsigned)key << 32) |
+                     ((unsigned)payload ^ 0x80000000u));
+}
+
+__device__ __forceinline__ int smj_key(long long v) { return (int)(v >> 32); }
+
+__device__ __forceinline__ int smj_payload(long long v) {
+  return (int)((unsigned)v ^ 0x80000000u);
+}
 
 // First index in a[lo, hi) whose key is >= key.
 __device__ __forceinline__ long long smj_lower_bound(const int* __restrict__ a,

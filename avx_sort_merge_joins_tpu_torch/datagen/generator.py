@@ -17,8 +17,9 @@ The same seed gives the same relations as the JAX package:
 * ``create_relation_nonunique``: keys = RAND_RANGE(maxid), payload = n - i
   (generator.c:215-231,490-505).
 
-Host-built columns are copied to ``device`` once (default: the card when
-there is one).
+Host-built columns are copied to ``device`` once.  The default device is
+the card; without one every entry point raises unless it is given
+``device="cpu"``.
 """
 
 from __future__ import annotations

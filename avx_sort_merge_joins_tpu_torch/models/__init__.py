@@ -1,2 +1,2 @@
-"""Join algorithms (reference: src/joins/): the single-device m-way count
-join."""
+"""Join algorithms (reference: src/joins/): the single-device m-way, m-pass
+and mpsm count joins."""

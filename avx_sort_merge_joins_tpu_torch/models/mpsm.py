@@ -1,0 +1,90 @@
+"""mpsm join on one device, count only (counterpart of
+``avx_sort_merge_joins_tpu/models/mpsm.py:44-203``; Albutiu et al.,
+PVLDB'12, "Massively Parallel Sort-Merge joins in main memory multi-core
+database systems").  The reference registers mpsm but ships only a stub
+(src/joins/sortmergejoin_mpsm.c:38-45); this follows the JAX package.
+
+  "sort"      -- R is multiway-sorted once (K1 + K2); S is cut into
+                 ``nchunks`` chunks and each chunk is sorted on its own,
+                 never merged globally (mpsm's trade: no S shuffle),
+  "mergejoin" -- one K3 count of all of R against each sorted S chunk,
+                 summed.  R is re-read per chunk: that scan of every S run
+                 is mpsm's defining cost.
+
+Keys only and ascending: the TPU package sorts the S chunks negated for
+its count kernel, and the port drops that layout.  ``--scalarsort`` swaps
+the sorts for ``torch.sort`` and keeps K3; ``--scalarmerge`` also swaps
+the counts for the ``torch.sort`` count baseline.  Both keep the chunked
+shape.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import mergejoin, multiwaymerge as mw
+from ..params import BLOCKSIZE_DEFAULT
+from ..types import JoinConfig, JoinResult, Relation
+from . import common
+
+NCHUNKS_DEFAULT = 4
+FANIN_DEFAULT = 16
+BLOCK_MPSM = BLOCKSIZE_DEFAULT
+
+
+def _chunks(nS: int, nchunks: int):
+    """``(start, length)`` of each non-empty S chunk of ``cdiv(nS,
+    nchunks)`` keys; the chunks stop at the first empty one."""
+    chunk = -(-nS // nchunks)
+    out = []
+    for c in range(nchunks):
+        ln = min(chunk, nS - c * chunk)
+        if ln <= 0:
+            break
+        out.append((c * chunk, ln))
+    return out
+
+
+def sortmergejoin_mpsm(R: Relation, S: Relation,
+                       config: JoinConfig | None = None,
+                       nchunks: int = NCHUNKS_DEFAULT,
+                       fanin: int = FANIN_DEFAULT,
+                       block: int = BLOCK_MPSM) -> JoinResult:
+    config = config or JoinConfig()
+    if config.materialize:
+        raise NotImplementedError("not yet ported: --materialize")
+    if nchunks < 1:
+        raise ValueError(f"mpsm: nchunks {nchunks} < 1")
+    nR, nS = R.num_tuples, S.num_tuples
+    chunks = _chunks(nS, nchunks)
+    scalar = config.scalar_sort or config.scalar_merge
+
+    def sort_phase(_):
+        if scalar:
+            return (torch.sort(R.keys[:nR]).values,
+                    [torch.sort(S.keys[lo:lo + ln]).values
+                     for lo, ln in chunks])
+        return (mw.multiway_sort(R.keys, nR, block, fanin),
+                [mw.multiway_sort(S.keys[lo:lo + ln], ln, block, fanin)
+                 for lo, ln in chunks])
+
+    def join_phase(sorted_):
+        rks, schunks = sorted_
+        count = (mergejoin.merge_join_count_torch if config.scalar_merge
+                 else mergejoin.merge_join_count_fused)
+        return [count(rks, sks, nR, ln)
+                for sks, (_, ln) in zip(schunks, chunks)]
+
+    counts, timings = common.run_phases({"sort": sort_phase,
+                                         "mergejoin": join_phase})
+    result = common.make_result(sum(mergejoin.finish_count_fused(c)
+                                    for c in counts), nR, nS, timings)
+    chunk = -(-nS // nchunks)
+    levels = len(mw.merge_levels(nR, block, fanin)) + 1
+    levels_s = len(mw.merge_levels(chunk, block, fanin)) + 1
+    result.bytes_moved = {
+        "sort": 2 * 4 * (nR * levels + nS * levels_s),
+        # every S chunk's count re-reads all of R (the scan-all-runs shape)
+        "mergejoin": 4 * (nR * len(chunks) + nS),
+    }
+    return result

@@ -1,10 +1,13 @@
-"""Merge-join match count: kernel K3, its combine and oracles (counterpart
-of ``avx_sort_merge_joins_tpu/ops/mergejoin.py:432-530,1052-1101``).
+"""Merge-join match count: kernel K3, its combine, the tag-merge count and
+oracles (counterpart of
+``avx_sort_merge_joins_tpu/ops/mergejoin.py:41-100,432-530,1052-1101``).
 
 ``merge_join_count_fused`` returns sum_k cntR(k) * cntS(k) over two
 ascending key columns as an int64 0-d tensor.  On a CUDA tensor it
 launches ``csrc/merge_join_count.cu``; on a CPU tensor it takes the plain
-version ``merge_join_count_fused_plain``.
+version ``merge_join_count_fused_plain``.  ``merge_join_count`` is the
+second, independent exact count: two K4 pair-mode merges of R and S with
+a source flag in the payload.
 
 TPU workarounds dropped: the ``(rows, 128)`` tiles and spare window rows,
 the negated-S layout (S is passed ascending), and the base-2^30 count limbs
@@ -60,6 +63,52 @@ def finish_count_fused(out: torch.Tensor) -> int:
     two base-2^30 limbs here and raises on limb overflow; the port's count
     is already an exact int64."""
     return int(out.item())
+
+
+def _tag_merge(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
+               r_flag: int, s_flag: int) -> torch.Tensor:
+    """The source flags of the merge of ascending R and S keys, each key
+    tagged with its side's flag in the payload, so that the flags break
+    ties (K4 in pair mode over the two-run layout)."""
+    keys, flags, lens = sort_ops.two_run_layout(rk, sk, nR, nS, r_flag,
+                                                s_flag)
+    return sort_ops.merge_pass(keys, flags, lens)[1][:nR + nS]
+
+
+def _position_sum(flags: torch.Tensor, flag: int) -> torch.Tensor:
+    """Sum of the positions that hold ``flag``, in int64."""
+    pos = torch.arange(flags.numel(), dtype=torch.int64, device=flags.device)
+    return torch.where(flags == flag, pos, 0).sum()
+
+
+def merge_join_count(rk_sorted: torch.Tensor, sk_sorted: torch.Tensor,
+                     nR: int, nS: int):
+    """The tag-merge count (counterpart of the JAX ``merge_join_count``,
+    mergejoin.py:41-100): an exact match count independent of K3.
+
+    Let M merge R and S with ties ordering R first (flags R=0, S=1) and M'
+    with S first (R=1, S=0).  An R key's position in M' minus its position
+    in M is its number of S matches, so the count is the sum of R's
+    positions in M' minus the sum in M.  Both keys ascending (the TPU's
+    descending S layout is dropped); the sums are int64 0-d tensors
+    (no per-tile int32 pieces).  Combine with :func:`finish_count`.
+    """
+    sort_ops._check_keys(rk_sorted, nR, "merge_join_count")
+    sort_ops._check_keys(sk_sorted, nS, "merge_join_count")
+    if rk_sorted.device != sk_sorted.device:
+        raise ValueError(f"merge_join_count: R on {rk_sorted.device}, "
+                         f"S on {sk_sorted.device}")
+    r_first = _position_sum(_tag_merge(rk_sorted, sk_sorted, nR, nS, 0, 1),
+                            0)
+    s_first = _position_sum(_tag_merge(rk_sorted, sk_sorted, nR, nS, 1, 0),
+                            1)
+    return r_first, s_first
+
+
+def finish_count(stats) -> int:
+    """The count from :func:`merge_join_count`'s two position sums."""
+    r_first, s_first = stats
+    return int(s_first) - int(r_first)
 
 
 def merge_join_count_torch(rk_sorted: torch.Tensor, sk_sorted: torch.Tensor,

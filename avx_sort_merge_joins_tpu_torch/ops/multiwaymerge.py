@@ -26,27 +26,16 @@ LAUNCHES = 0  # K2 kernel launches since the last reset
 
 
 def _check_uniform(keys: torch.Tensor, fanin: int, uniform_lens) -> None:
-    sort_ops._check_keys(keys, 0, "multiway_merge")
-    nruns, total, span = uniform_lens
+    sort_ops.check_uniform_lens(keys, uniform_lens, "multiway_merge")
     if fanin < 2 or fanin & (fanin - 1):
         raise ValueError(f"multiway_merge: fanin {fanin} is not a power of 2")
-    if span < 1 or not 0 <= total <= keys.numel():
-        raise ValueError(f"multiway_merge: bad span {span} / total {total} "
-                         f"for {keys.numel()} slots")
-    if nruns != max(1, sort_ops.cdiv(total, span)):
-        raise ValueError(f"multiway_merge: {nruns} runs of span {span} "
-                         f"cannot hold exactly {total} keys")
 
 
 def multiway_merge_plain(keys: torch.Tensor, fanin: int,
                          uniform_lens) -> torch.Tensor:
     """Plain version of K2: ``torch.sort`` of each group's slice."""
-    nruns, total, span = uniform_lens
-    group = fanin * span
-    ngroups = sort_ops.cdiv(nruns, fanin)
-    live = sort_ops._padded(keys, total, ngroups * group).view(-1, group).sort(
-        dim=1).values.reshape(-1)[:total]
-    return sort_ops._padded(live, total, keys.numel())
+    _, total, span = uniform_lens
+    return sort_ops.sorted_groups(keys, total, fanin * span)
 
 
 def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens):

@@ -1,15 +1,33 @@
-"""Block sort, keys only: kernel K1 (counterpart of
-``avx_sort_merge_joins_tpu/ops/sort.py:86-145``).
+"""Block sorts (kernels K1 and K5), the pairwise merge pass (kernel K4) and
+the sort built on them (counterpart of
+``avx_sort_merge_joins_tpu/ops/sort.py:86-145,279-527``).
 
-``sort_blocks`` sorts each ``block``-key block of a flat int32 column
-ascending.  On a CUDA tensor it launches ``csrc/block_sort.cu`` (a bitonic
-network in shared memory); on a CPU tensor it takes the plain PyTorch
-version ``sort_blocks_plain``.
+* ``sort_blocks`` sorts each ``block``-key block of a flat int32 column
+  ascending (K1, ``csrc/block_sort.cu``).
+* ``sort_blocks_pairs`` sorts each block of (key, payload) pairs in
+  lexicographic order, every block ascending or every block descending
+  (K5, ``csrc/block_sort_pairs.cu``).
+* ``merge_pass`` merges the run pairs (2j, 2j+1) of a uniform-lens layout
+  into runs of twice the length, keys only or pairs (K4,
+  ``csrc/merge_pass.cu``, merge-path tiles).
+* ``sort``/``sort_descending``: K5, then log2(#blocks) K4 passes;
+  ``sort_torch`` is one ``torch.sort`` of the packed pairs, the
+  ``--scalarsort`` baseline and yardstick.
 
-TPU workarounds dropped here: the ``(rows, 128)`` tiling (columns are
-flat), the alternating ascending/descending block directions (every block
-sorts ascending, as the m-way path needs), and the 65,536-key block of the
-m-way model, which was a VMEM size and does not fit in shared memory.
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
+takes its plain PyTorch version (``*_plain``).  Pairs compare as one int64
+(``pack_pairs``): the key in the high half, the payload with its sign bit
+flipped in the low half, the kernels' ``smj_pack``.
+
+The uniform-lens layout: run r starts at ``r * span`` and holds
+``clip(total - r * span, 0, span)`` elements, slots from ``total`` on hold
+the pad that sorts last.  TPU workarounds dropped here: the ``(rows, 128)``
+tiling with ``prepare``/``padded_rows`` and their spare window rows
+(columns are flat), the alternating ascending/descending block directions
+with ``flip`` and the (asc, desc) run pairs with ``b_asc`` of the merge
+pass (Mosaic has no reverse; here every run goes the output's direction),
+and the 65,536-key block, which was a VMEM size and does not fit in shared
+memory.
 """
 
 from __future__ import annotations
@@ -17,13 +35,18 @@ from __future__ import annotations
 import torch
 
 from ..params import BLOCKSIZE_DEFAULT
-from .bitonic import KEY_POS_INF
+from .bitonic import KEY_NEG_INF, KEY_POS_INF
 
-# block sizes the kernel takes: powers of two whose keys fit in 64 KB of
-# shared memory and give every thread of the CTA at least one pair
+# block sizes the block sorts take: powers of two whose keys (K1) or pairs
+# (K5, 128 KB at 16,384) fit in shared memory and give every thread of the
+# CTA at least one compare-exchange
 SUPPORTED_BLOCKS = (1024, 2048, 4096, 8192, 16384)
 
+_LOW_HALF = 1 << 32  # the payload half of a packed pair
+
 LAUNCHES = 0  # K1 kernel launches since the last reset
+PAIR_SORT_LAUNCHES = 0  # K5
+MERGE_PASS_LAUNCHES = 0  # K4
 
 
 def cdiv(a: int, b: int) -> int:
@@ -41,13 +64,75 @@ def _check_keys(keys: torch.Tensor, n: int, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {keys.device}")
 
 
-def _padded(keys: torch.Tensor, n: int, cap: int) -> torch.Tensor:
-    """keys[:n] followed by +inf pads up to ``cap`` slots."""
-    out = torch.full((cap,), KEY_POS_INF, dtype=torch.int32,
-                     device=keys.device)
-    out[:n] = keys[:n]
+def _check_payloads(keys: torch.Tensor, payloads: torch.Tensor, n: int,
+                    name: str) -> None:
+    _check_keys(payloads, n, name)
+    if payloads.shape != keys.shape or payloads.device != keys.device:
+        raise ValueError(f"{name}: payloads {tuple(payloads.shape)} on "
+                         f"{payloads.device} do not match keys "
+                         f"{tuple(keys.shape)} on {keys.device}")
+
+
+def check_uniform_lens(keys: torch.Tensor, uniform_lens, name: str) -> None:
+    """Raise unless ``(nruns, total, span)`` describes a uniform-lens
+    layout inside ``keys``."""
+    _check_keys(keys, 0, name)
+    nruns, total, span = uniform_lens
+    if span < 1 or not 0 <= total <= keys.numel():
+        raise ValueError(f"{name}: bad span {span} / total {total} "
+                         f"for {keys.numel()} slots")
+    if nruns != max(1, cdiv(total, span)):
+        raise ValueError(f"{name}: {nruns} runs of span {span} "
+                         f"cannot hold exactly {total} keys")
+
+
+def _padded(col: torch.Tensor, n: int, cap: int,
+            fill: int = KEY_POS_INF) -> torch.Tensor:
+    """col[:n] followed by ``fill`` up to ``cap`` slots."""
+    out = torch.full((cap,), fill, dtype=col.dtype, device=col.device)
+    out[:n] = col[:n]
     return out
 
+
+def sorted_groups(col: torch.Tensor, total: int, group: int,
+                  descending: bool = False) -> torch.Tensor:
+    """``torch.sort`` of each ``group``-slot slice of ``col[:total]``,
+    padded to ``col``'s length with the value that sorts last: the plain
+    version of a merge of the runs inside each group."""
+    fill = _pad_of(col.dtype, descending)
+    ngroups = max(1, cdiv(total, group))
+    live = _padded(col, total, ngroups * group, fill).view(-1, group).sort(
+        dim=1, descending=descending).values.reshape(-1)[:total]
+    return _padded(live, total, col.numel(), fill)
+
+
+# --------------------------------------------------------------------------
+# packed pairs
+# --------------------------------------------------------------------------
+
+def pack_pairs(keys: torch.Tensor, payloads: torch.Tensor) -> torch.Tensor:
+    """int32 (key, payload) pairs as int64s whose order is the pairs'
+    lexicographic order; (INT32_MAX, INT32_MAX) packs to the int64 max and
+    (INT32_MIN, INT32_MIN) to the int64 min."""
+    return (keys.to(torch.int64) * _LOW_HALF
+            + (payloads.to(torch.int64) - KEY_NEG_INF))
+
+
+def unpack_pairs(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return ((packed >> 32).to(torch.int32),
+            ((packed & (_LOW_HALF - 1)) + KEY_NEG_INF).to(
+                torch.int32))
+
+
+def _pad_of(dtype: torch.dtype, descending: bool) -> int:
+    """The key (int32) or packed pair (int64) that sorts last."""
+    info = torch.iinfo(dtype)
+    return info.min if descending else info.max
+
+
+# --------------------------------------------------------------------------
+# K1: block sort, keys only
+# --------------------------------------------------------------------------
 
 def sort_blocks_plain(keys: torch.Tensor, n: int,
                       block: int = BLOCKSIZE_DEFAULT) -> torch.Tensor:
@@ -55,6 +140,11 @@ def sort_blocks_plain(keys: torch.Tensor, n: int,
     nblocks = max(1, cdiv(n, block))
     return _padded(keys, n, nblocks * block).view(-1, block).sort(
         dim=1).values.reshape(-1)
+
+
+def _check_block(block: int, name: str) -> None:
+    if block not in SUPPORTED_BLOCKS:
+        raise ValueError(f"{name}: block {block} not in {SUPPORTED_BLOCKS}")
 
 
 def sort_blocks(keys: torch.Tensor, n: int,
@@ -66,9 +156,7 @@ def sort_blocks(keys: torch.Tensor, n: int,
     ragged last block ends in INT32_MAX pads.
     """
     _check_keys(keys, n, "sort_blocks")
-    if block not in SUPPORTED_BLOCKS:
-        raise ValueError(f"sort_blocks: block {block} not in "
-                         f"{SUPPORTED_BLOCKS}")
+    _check_block(block, "sort_blocks")
     if keys.device.type == "cpu":
         return sort_blocks_plain(keys, n, block)
     from ..kernels import _build
@@ -82,3 +170,175 @@ def sort_blocks(keys: torch.Tensor, n: int,
     _build.check("smj_block_sort", code)
     LAUNCHES += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# K5: block sort of (key, payload) pairs
+# --------------------------------------------------------------------------
+
+def sort_blocks_pairs_plain(keys: torch.Tensor, payloads: torch.Tensor,
+                            n: int, block: int = BLOCKSIZE_DEFAULT,
+                            descending: bool = False):
+    """Plain version of K5: ``torch.sort`` of each block row of the packed
+    pairs."""
+    fill = KEY_NEG_INF if descending else KEY_POS_INF
+    cap = max(1, cdiv(n, block)) * block
+    packed = pack_pairs(_padded(keys, n, cap, fill),
+                        _padded(payloads, n, cap, fill))
+    return unpack_pairs(packed.view(-1, block).sort(
+        dim=1, descending=descending).values.reshape(-1))
+
+
+def sort_blocks_pairs(keys: torch.Tensor, payloads: torch.Tensor, n: int,
+                      block: int = BLOCKSIZE_DEFAULT,
+                      descending: bool = False):
+    """Sort the pairs ``(keys[i], payloads[i])``, i < n, in blocks of
+    ``block`` pairs, lexicographically, every block ascending (or every
+    block descending).
+
+    Returns new flat int32 ``(keys, payloads)`` of ``max(1, cdiv(n,
+    block)) * block`` slots; the ragged last block ends in (INT32_MAX,
+    INT32_MAX) pads, or (INT32_MIN, INT32_MIN) when descending.
+    """
+    _check_keys(keys, n, "sort_blocks_pairs")
+    _check_payloads(keys, payloads, n, "sort_blocks_pairs")
+    _check_block(block, "sort_blocks_pairs")
+    if keys.device.type == "cpu":
+        return sort_blocks_pairs_plain(keys, payloads, n, block, descending)
+    from ..kernels import _build
+
+    global PAIR_SORT_LAUNCHES
+    nblocks = max(1, cdiv(n, block))
+    out_k = torch.empty(nblocks * block, dtype=torch.int32,
+                        device=keys.device)
+    out_p = torch.empty_like(out_k)
+    with _build.launching_on(keys) as stream:
+        code = _build.library().smj_block_sort_pairs(
+            keys.data_ptr(), payloads.data_ptr(), out_k.data_ptr(),
+            out_p.data_ptr(), n, block, nblocks, int(descending), stream)
+    _build.check("smj_block_sort_pairs", code)
+    PAIR_SORT_LAUNCHES += 1
+    return out_k, out_p
+
+
+# --------------------------------------------------------------------------
+# K4: pairwise merge pass
+# --------------------------------------------------------------------------
+
+def merge_pass_plain(keys: torch.Tensor, payloads: torch.Tensor | None,
+                     uniform_lens, descending: bool = False):
+    """Plain version of K4: ``torch.sort`` of each ``2 * span`` slice (of
+    the packed pairs in pair mode)."""
+    _, total, span = uniform_lens
+    if payloads is None:
+        return sorted_groups(keys, total, 2 * span, descending), None
+    return unpack_pairs(sorted_groups(pack_pairs(keys, payloads), total,
+                                      2 * span, descending))
+
+
+def merge_pass(keys: torch.Tensor, payloads: torch.Tensor | None,
+               uniform_lens, descending: bool = False):
+    """One pass of pairwise run merges.
+
+    ``uniform_lens=(nruns, total, span)``: run r starts at ``r * span``
+    with length ``clip(total - r * span, 0, span)``, every run sorted in
+    the pass's direction.  Runs 2j and 2j+1 merge into the run at
+    ``2j * span``; a last run without a partner is copied.  With
+    ``payloads`` the pairs merge in lexicographic order; ``payloads=None``
+    merges keys only.  ``keys`` may not reach past the last pair's
+    ``2 * span`` slots.  Returns new ``(keys, payloads or None)`` with as
+    many slots as ``keys``; slots from ``total`` on hold the pad that
+    sorts last (INT32_MAX ascending, INT32_MIN descending).
+    """
+    check_uniform_lens(keys, uniform_lens, "merge_pass")
+    nruns, total, span = uniform_lens
+    if keys.numel() > cdiv(nruns, 2) * 2 * span:
+        raise ValueError(f"merge_pass: {keys.numel()} slots reach past the "
+                         f"last pair of {nruns} runs of span {span}")
+    if payloads is not None:
+        _check_payloads(keys, payloads, 0, "merge_pass")
+    if keys.device.type == "cpu":
+        return merge_pass_plain(keys, payloads, uniform_lens, descending)
+    from ..kernels import _build
+
+    global MERGE_PASS_LAUNCHES
+    out_k = torch.empty_like(keys)
+    out_p = None if payloads is None else torch.empty_like(payloads)
+    with _build.launching_on(keys) as stream:
+        code = _build.library().smj_merge_pass(
+            keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
+            out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
+            keys.numel(), total, span, int(descending), stream)
+    _build.check("smj_merge_pass", code)
+    MERGE_PASS_LAUNCHES += 1
+    return out_k, out_p
+
+
+def pair_levels(n: int, block: int):
+    """``(nruns, span)`` of each pairwise merge pass of an n-element sort
+    from ``block``-element runs: log2(#blocks) passes, the reference's
+    halving loop (sortmergejoin_multipass.c:634-656)."""
+    nruns, span = max(1, cdiv(n, block)), block
+    levels = []
+    while nruns > 1:
+        levels.append((nruns, span))
+        span *= 2
+        nruns = cdiv(nruns, 2)
+    return levels
+
+
+# --------------------------------------------------------------------------
+# composition
+# --------------------------------------------------------------------------
+
+def _sort_pairs(keys, payloads, n, block, descending):
+    if n is None:
+        n = int(keys.numel())
+    ks, ps = sort_blocks_pairs(keys, payloads, n, block, descending)
+    for nruns, span in pair_levels(n, block):
+        ks, ps = merge_pass(ks, ps, (nruns, n, span), descending)
+    return ks[:n], ps[:n]
+
+
+def sort(keys: torch.Tensor, payloads: torch.Tensor, n: int | None = None,
+         block: int = BLOCKSIZE_DEFAULT):
+    """Sort the first ``n`` (key, payload) pairs lexicographically: K5,
+    then log2(#blocks) K4 passes.  Returns the live ``(keys, payloads)``
+    of length n.  The analog of avxsort_tuples (avxsort.h:36-44)."""
+    return _sort_pairs(keys, payloads, n, block, False)
+
+
+def sort_descending(keys: torch.Tensor, payloads: torch.Tensor,
+                    n: int | None = None, block: int = BLOCKSIZE_DEFAULT):
+    """The full descending sort of the first ``n`` pairs."""
+    return _sort_pairs(keys, payloads, n, block, True)
+
+
+def sort_torch(keys: torch.Tensor, payloads: torch.Tensor):
+    """Baseline: one ``torch.sort`` of the packed pairs -- the
+    'scalarsort' analog (reference: src/scalarsort/scalarsort.c) and the
+    yardstick of ``sort``, never its path."""
+    return unpack_pairs(torch.sort(pack_pairs(keys, payloads)).values)
+
+
+def two_run_layout(ka: torch.Tensor, kb: torch.Tensor, na: int, nb: int,
+                   pa: int, pb: int):
+    """The uniform-lens layout of a 2-run merge: run A = ``ka[:na]`` at
+    slot 0, run B = ``kb[:nb]`` at slot ``span = max(na, nb, 1)``, every
+    pair of A with payload ``pa`` and of B with ``pb`` (the tag-merge's
+    source flags).  A's slots from ``na`` to ``span`` hold the pad
+    (INT32_MAX, INT32_MAX), which sorts after every real pair, so the first
+    ``na + nb`` merged pairs are the real ones.  Both runs ascending.
+
+    Returns ``(keys, payloads, uniform_lens)``.
+    """
+    span = max(na, nb, 1)
+    total = span + nb
+    keys = torch.full((total,), KEY_POS_INF, dtype=torch.int32,
+                      device=ka.device)
+    payloads = torch.full_like(keys, KEY_POS_INF)
+    keys[:na] = ka[:na]
+    keys[span:] = kb[:nb]
+    payloads[:na] = pa
+    payloads[span:] = pb
+    return keys, payloads, (max(1, cdiv(total, span)), total, span)

@@ -20,9 +20,14 @@ from .ops.bitonic import KEY_POS_INF as KEY_SENTINEL
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU (where every kernel wrapper
-    takes its plain PyTorch version)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card.  Raises when there is none: the CPU, where every kernel
+    wrapper takes its plain PyTorch version, is used only when a caller
+    names it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
+                           "false); pass device='cpu' (CLI: --device cpu) "
+                           "to run the plain PyTorch versions on the CPU")
+    return torch.device("cuda")
 
 
 def device_name(device: torch.device) -> str:
@@ -64,7 +69,8 @@ class Relation:
         sorted: bool = False,
     ) -> "Relation":
         """Build a relation from host columns, e.g. the JAX package's
-        ``Relation.to_numpy()`` arrays, on ``device`` (default: the CPU)."""
+        ``Relation.to_numpy()`` arrays, on ``device`` (default: the card,
+        see :func:`default_device`; the CPU only when named)."""
         keys = np.asarray(keys, dtype=np.int32)
         n = keys.shape[-1]
         if payloads is None:
@@ -78,7 +84,7 @@ class Relation:
             keys = np.concatenate([keys, np.full(pad, KEY_SENTINEL, np.int32)])
             payloads = np.concatenate([payloads, np.zeros(pad, np.int32)])
         device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+            default_device()
         return cls(torch.tensor(keys, device=device),
                    torch.tensor(payloads, device=device), n, sorted)
 

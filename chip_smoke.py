@@ -6,21 +6,42 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 
 1. Device: require a CUDA card; print its name and power limit.
 2. Build: compile the kernels in avx_sort_merge_joins_tpu_torch/csrc with
-   nvcc and print the build time.
-3. Kernel vs plain: K1 (block sort), K2 (multiway merge, fan-in 2 and 16)
-   and K3 (match count) on seeded inputs of about 2^22 keys -- ragged last
-   block, heavy duplicates, negative keys, the ends of the key domain, a
-   count above 2^31 -- must equal their plain PyTorch versions exactly
-   (integers: tolerance 0).  Then each kernel and its plain version are
-   timed with CUDA events at the main path's shapes (128M keys).
-4. Main path: the CLI's default workload, ``-a m-way -r 128000000 -s
-   128000000`` (unique R, foreign-key S, data made on the card), must print
-   ``Results = 128000000``, and each kernel's launch count must rise.
-5. Non-unique join at 16M x 16M: the count must equal the torch.sort
+   nvcc (one process per source, side by side) and print the build time.
+3. Kernel vs plain, keys only: K1 (block sort), K2 (multiway merge, fan-in
+   2 and 16) and K3 (match count) on seeded inputs of about 2^22 keys --
+   ragged last block, heavy duplicates, negative keys, the ends of the key
+   domain, a count above 2^31 -- must equal their plain PyTorch versions
+   exactly (integers: tolerance 0).  Then each kernel, its plain version
+   and its one-call library yardstick are timed with CUDA events at the
+   main path's shapes (128M keys).
+4. Kernel vs plain, pairs and merge passes, exact: K5 (pair block sort)
+   in both directions at blocks 1,024 and 16,384; K4 (merge pass) keys
+   only over two successive passes (257 -> 129 -> 65 runs: odd counts, a
+   ragged last run), and in pair mode in both directions with duplicate
+   keys and payloads and payloads equal to the pads.  Then all 13 K4
+   passes over one 128M relation and one K5 launch over 128M pairs, timed
+   beside their plain versions and library yardsticks.
+5. Kernel vs plain, exact, at the other shapes the paths of phases 6-7
+   give the kernels: one 32M mpsm S chunk (K1; K2 at each of its levels,
+   fan-in 16, 16, 8; K3 of 128M R against it), and the 16M pair inputs of
+   phase 7 (K5 and every K4 pair-mode pass of ``sort`` and
+   ``sort_descending``, and the tag-merge count's two-run K4 merges).
+6. Join paths, each through the CLI with the launch counts set to 0 just
+   before it and read just after: ``-a m-way``, ``-a m-pass`` and ``-a
+   mpsm --nchunks 4`` at -r 128000000 -s 128000000 (unique R,
+   foreign-key S, data made on the card) must print ``Results =
+   128000000`` and launch their kernels (m-way: K1 K2 K3; m-pass: K1 K4
+   K3; mpsm: K1 K2 K3).
+7. Pair sort and tag-merge count: ``sort``/``sort_descending`` of 16M
+   seeded pairs must equal ``sort_torch`` and its reverse (K5 and K4
+   launching); the tag-merge count of 16M x 16M duplicate-heavy keys
+   (K4 in pair mode) must equal K3's count and the torch.sort baseline.
+8. Non-unique join at 16M x 16M: the count must equal the torch.sort
    baseline on the same relations.
 
-The line before the last is one JSON object with each kernel's launches in
-phase 4, its largest error in phase 3 and its times; the last line is
+The line before the last is one JSON object with each kernel's launches
+over the runs of phases 6 and 7, its largest error in phases 3-5, its
+times, its bound and its library yardstick's time; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -29,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -46,9 +68,30 @@ import torch  # noqa: E402
 
 MAIN_N = 128_000_000
 NONUNIQUE_N = 16_000_000
+PAIR_N = 16_000_000
 CHECK_N = (1 << 22) + 12_345  # ragged: not a multiple of any block
 REPS = 5
 DOMAIN_MAX = 2**31 - 2  # keys lie in [-(2^31 - 2), 2^31 - 2]
+BLOCK = 16_384
+# The least time the card could take: bytes over the H100 SXM's 3.35 TB/s,
+# and compare operations over 67e12 a second, the fp32 rate outside the
+# tensor cores, the only scalar 32-bit rate in the published table (int32
+# compares run at most at it).  The larger of the two bounds the kernel.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+KERNELS = {  # id -> (name, source, TPU kernel it replaces)
+    "K1": ("K1 block_sort", "block_sort.cu", "sort.py:97"),
+    "K2": ("K2 multiway_merge", "multiway_merge.cu", "multiwaymerge.py:85"),
+    "K3": ("K3 merge_join_count", "merge_join_count.cu", "mergejoin.py:179"),
+    "K4": ("K4 merge_pass", "merge_pass.cu", "sort.py:279"),
+    "K5": ("K5 block_sort_pairs", "block_sort_pairs.cu", "sort.py:86"),
+}
+PATHS = {  # join path -> (CLI flags, kernels it must launch)
+    "m-way": (["-a", "m-way"], ("K1", "K2", "K3")),
+    "m-pass": (["-a", "m-pass"], ("K1", "K4", "K3")),
+    "mpsm": (["-a", "mpsm", "--nchunks", "4"], ("K1", "K2", "K3")),
+}
 
 
 def log(msg: str) -> None:
@@ -98,6 +141,37 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+class Timings:
+    """Per kernel: kernel, plain and library milliseconds and the bytes
+    and operations of the same work, summed over the calls timed."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, k: str, ms: float, plain: float, library: float | None,
+            nbytes: float, ops: float) -> None:
+        row = self.rows.setdefault(k, [0.0, 0.0, None, 0.0, 0.0])
+        row[0] += ms
+        row[1] += plain
+        if library is not None:
+            row[2] = (row[2] or 0.0) + library
+        row[3] += nbytes
+        row[4] += ops
+
+    def entry(self, k: str) -> dict:
+        ms, plain, library, nbytes, ops = self.rows[k]
+        bound, by = bound_ms(nbytes, ops)
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "library_ms": library}
+
+
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != "
@@ -118,23 +192,38 @@ def key_cases(n: int, rng: np.random.Generator) -> dict[str, np.ndarray]:
     }
 
 
-def phase_kernels(dev: torch.device) -> tuple[dict, dict]:
+ERR = {k: 0 for k in KERNELS}
+
+
+def record(kernel: str, case: str, got, want) -> None:
+    """Hold a kernel's output (a tensor or a tuple of them) against its
+    plain version's: exact equality."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    e = max(max_abs_err(g, w) for g, w in zip(got, want))
+    log(f"[check] {kernel} {case}: max_abs_err {e}")
+    if e != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{kernel} {case}: kernel != plain")
+    ERR[kernel] = max(ERR[kernel], e)
+
+
+def padded_rows(col: torch.Tensor, n: int, row: int, fill) -> torch.Tensor:
+    """col[:n] padded with ``fill`` to whole rows of ``row`` slots, as a
+    (rows, row) view: the input of a library yardstick."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    rows = max(1, sort_ops.cdiv(n, row))
+    return sort_ops._padded(col, n, rows * row, fill).view(rows, row)
+
+
+def phase_kernels(dev: torch.device, times: Timings) -> None:
     """Exactness of K1/K2/K3 against their plain versions; then their
-    times at the main path's shapes.  Returns (errors, times)."""
+    times at the main path's shapes."""
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     rng = np.random.default_rng(20261016)
-    err = {"K1": 0, "K2": 0, "K3": 0}
-
-    def record(kernel: str, case: str, got, want) -> None:
-        e = max_abs_err(got, want)
-        log(f"[check] {kernel} {case}: max_abs_err {e}")
-        if e != 0 or not torch.equal(got, want):
-            raise AssertionError(f"{kernel} {case}: kernel != plain")
-        err[kernel] = max(err[kernel], e)
-
     for case, host in key_cases(CHECK_N, rng).items():
         keys = torch.from_numpy(host.astype(np.int32)).to(dev)
         n = keys.numel()
@@ -177,45 +266,203 @@ def phase_kernels(dev: torch.device) -> tuple[dict, dict]:
     gen = torch.Generator(device=dev).manual_seed(7)
     keys = torch.randint(1, MAIN_N + 1, (MAIN_N,), generator=gen,
                          dtype=torch.int32, device=dev)
-    times = {}
-    times["K1"] = (time_ms(lambda: sort_ops.sort_blocks(keys, MAIN_N)),
-                   time_ms(lambda: sort_ops.sort_blocks_plain(keys, MAIN_N)))
-    log(f"[time] K1 sort_blocks n={MAIN_N} block=16384: kernel "
-        f"{times['K1'][0]:.3f}"
-        f" ms, plain {times['K1'][1]:.3f} ms")
+    lib_in = padded_rows(keys, MAIN_N, BLOCK, 2**31 - 1)
+    times.add("K1", time_ms(lambda: sort_ops.sort_blocks(keys, MAIN_N)),
+              time_ms(lambda: sort_ops.sort_blocks_plain(keys, MAIN_N)),
+              time_ms(lambda: lib_in.sort(dim=1)),
+              4 * MAIN_N + 4 * lib_in.numel(), MAIN_N * math.log2(BLOCK))
+    del lib_in
+    log(f"[time] K1 sort_blocks n={MAIN_N} block={BLOCK}: "
+        f"{times.entry('K1')}")
     runs = sort_ops.sort_blocks(keys, MAIN_N)
     record("K1", "main_shape", runs, sort_ops.sort_blocks_plain(keys, MAIN_N))
-    k2_ms = k2_plain_ms = 0.0
-    for level in mw.merge_levels(MAIN_N, 16384, 16):
+    for level in mw.merge_levels(MAIN_N, BLOCK, 16):
         _, span, nruns, w = level
         lens = (nruns, MAIN_N, span)
         got = mw.multiway_merge(runs, w, lens)[0]
         want = mw.multiway_merge_plain(runs, w, lens)
         record("K2", f"main_shape level={level}", got, want)
         del got
+        lib_in = padded_rows(runs, MAIN_N, w * span, 2**31 - 1)
         ms = time_ms(lambda: mw.multiway_merge(runs, w, lens))
         plain = time_ms(lambda: mw.multiway_merge_plain(runs, w, lens))
+        library = time_ms(lambda: lib_in.sort(dim=1))
+        del lib_in
+        times.add("K2", ms, plain, library, 8 * MAIN_N,
+                  MAIN_N * math.log2(w))
         log(f"[time] K2 level (stride, span, nruns, w)={level}: "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
-        k2_ms, k2_plain_ms = k2_ms + ms, k2_plain_ms + plain
+            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
+            f"{library:.3f} ms")
         runs = want
-    times["K2"] = (k2_ms, k2_plain_ms)
-    log(f"[time] K2 all levels of an n={MAIN_N} sort: kernel {k2_ms:.3f} ms, "
-        f"plain {k2_plain_ms:.3f} ms")
+    log(f"[time] K2 all levels of an n={MAIN_N} sort: {times.entry('K2')}")
     rk = torch.arange(1, MAIN_N + 1, dtype=torch.int32, device=dev)
     sk = runs[:MAIN_N]
     record("K3", "main_shape", mergejoin.merge_join_count_fused(
         rk, sk, MAIN_N, MAIN_N), mergejoin.merge_join_count_fused_plain(
         rk, sk, MAIN_N, MAIN_N))
-    times["K3"] = (
-        time_ms(lambda: mergejoin.merge_join_count_fused(
-            rk, sk, MAIN_N, MAIN_N)),
-        time_ms(lambda: mergejoin.merge_join_count_fused_plain(
-            rk, sk, MAIN_N, MAIN_N)))
-    log(f"[time] K3 count {MAIN_N} x {MAIN_N}: kernel "
-        f"{times['K3'][0]:.3f} ms, "
-        f"plain {times['K3'][1]:.3f} ms")
-    return err, times
+    # no one PyTorch call computes the count: no library yardstick
+    times.add("K3",
+              time_ms(lambda: mergejoin.merge_join_count_fused(
+                  rk, sk, MAIN_N, MAIN_N)),
+              time_ms(lambda: mergejoin.merge_join_count_fused_plain(
+                  rk, sk, MAIN_N, MAIN_N)),
+              None, 8 * MAIN_N + 8, 2 * MAIN_N)
+    log(f"[time] K3 count {MAIN_N} x {MAIN_N}: {times.entry('K3')}")
+
+
+def seeded_pairs(n: int, rng: np.random.Generator, keys: np.ndarray):
+    """Payloads with duplicates and the two pad values beside ``keys``."""
+    pays = rng.integers(-2, 3, n).astype(np.int32)
+    pays[::101] = 2**31 - 1
+    pays[::103] = -(2**31)
+    return keys.astype(np.int32), pays
+
+
+def phase_pair_kernels(dev: torch.device, times: Timings) -> None:
+    """Exactness of K5 and K4 against their plain versions; then K4's 13
+    passes over a 128M relation and one 128M K5 launch, timed."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    rng = np.random.default_rng(20261017)
+    for case, host in key_cases(CHECK_N, rng).items():
+        k, p = (torch.from_numpy(a).to(dev)
+                for a in seeded_pairs(CHECK_N, rng, host))
+        n = CHECK_N
+        for desc in (False, True):
+            for block in (1024, 16384):
+                record("K5", f"{case} block={block} descending={desc}",
+                       sort_ops.sort_blocks_pairs(k, p, n, block, desc),
+                       sort_ops.sort_blocks_pairs_plain(k, p, n, block,
+                                                        desc))
+        # keys only: 257 -> 129 -> 65 runs, the last one ragged
+        runs = sort_ops.sort_blocks_plain(k, n, BLOCK)
+        for nruns, span in sort_ops.pair_levels(n, BLOCK)[:2]:
+            lens = (nruns, n, span)
+            want, _ = sort_ops.merge_pass_plain(runs, None, lens)
+            record("K4", f"{case} keys span={span} nruns={nruns}",
+                   sort_ops.merge_pass(runs, None, lens)[0], want)
+            runs = want
+        for desc in (False, True):
+            rk, rp = sort_ops.sort_blocks_pairs_plain(k, p, n, BLOCK, desc)
+            for nruns, span in sort_ops.pair_levels(n, BLOCK)[:2]:
+                lens = (nruns, n, span)
+                want = sort_ops.merge_pass_plain(rk, rp, lens, desc)
+                record("K4", f"{case} pairs descending={desc} span={span}",
+                       sort_ops.merge_pass(rk, rp, lens, desc), want)
+                rk, rp = want
+
+    # all 13 K4 passes over one 128M relation, each pass timed
+    gen = torch.Generator(device=dev).manual_seed(11)
+    keys = torch.randint(1, MAIN_N + 1, (MAIN_N,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    runs = sort_ops.sort_blocks(keys, MAIN_N)
+    for nruns, span in sort_ops.pair_levels(MAIN_N, BLOCK):
+        lens = (nruns, MAIN_N, span)
+        got, _ = sort_ops.merge_pass(runs, None, lens)
+        want, _ = sort_ops.merge_pass_plain(runs, None, lens)
+        record("K4", f"main_shape span={span} nruns={nruns}", got, want)
+        del got
+        lib_in = padded_rows(runs, MAIN_N, 2 * span, 2**31 - 1)
+        ms = time_ms(lambda: sort_ops.merge_pass(runs, None, lens))
+        plain = time_ms(lambda: sort_ops.merge_pass_plain(runs, None, lens))
+        library = time_ms(lambda: lib_in.sort(dim=1))
+        del lib_in
+        times.add("K4", ms, plain, library, 4 * MAIN_N + 4 * runs.numel(),
+                  MAIN_N)
+        log(f"[time] K4 pass span={span} nruns={nruns}: kernel {ms:.3f} "
+            f"ms, plain {plain:.3f} ms, library {library:.3f} ms")
+        runs = want
+    log(f"[time] K4 all passes of an n={MAIN_N} sort: {times.entry('K4')}")
+    del runs, want
+
+    # one K5 launch over 128M pairs
+    pays = torch.randint(-2**31, 2**31 - 1, (MAIN_N,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    got = sort_ops.sort_blocks_pairs(keys, pays, MAIN_N)
+    record("K5", "main_shape", got,
+           sort_ops.sort_blocks_pairs_plain(keys, pays, MAIN_N))
+    del got
+    lib_in = padded_rows(sort_ops.pack_pairs(keys, pays), MAIN_N, BLOCK,
+                         2**63 - 1)
+    times.add("K5",
+              time_ms(lambda: sort_ops.sort_blocks_pairs(keys, pays,
+                                                         MAIN_N)),
+              time_ms(lambda: sort_ops.sort_blocks_pairs_plain(keys, pays,
+                                                               MAIN_N)),
+              time_ms(lambda: lib_in.sort(dim=1)),
+              8 * MAIN_N + 8 * lib_in.numel(), MAIN_N * math.log2(BLOCK))
+    log(f"[time] K5 sort_blocks_pairs n={MAIN_N} block={BLOCK}: "
+        f"{times.entry('K5')}")
+
+
+def pair_inputs(dev: torch.device):
+    """The pair phase's seeded inputs: 16M (key, payload) pairs with
+    duplicate keys and pad-valued payloads, and two sorted 16M key columns
+    over 65,536 values for the tag-merge count."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    keys = torch.randint(0, 1 << 20, (PAIR_N,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    pays = torch.randint(-4, 5, (PAIR_N,), generator=gen, dtype=torch.int32,
+                         device=dev)
+    pays[::101] = 2**31 - 1
+    pays[::103] = -(2**31)
+    rk = torch.sort(torch.randint(0, 1 << 16, (PAIR_N,), generator=gen,
+                                  dtype=torch.int32, device=dev)).values
+    sk = torch.sort(torch.randint(0, 1 << 16, (PAIR_N,), generator=gen,
+                                  dtype=torch.int32, device=dev)).values
+    return keys, pays, rk, sk
+
+
+def phase_path_shapes(dev: torch.device) -> None:
+    """Each kernel against its plain version at the shapes the mpsm path
+    and the pair phase give it, beyond phases 3-4's 128M relation."""
+    from avx_sort_merge_joins_tpu_torch.models import mpsm
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    # mpsm: one S chunk of the 4-chunk run, foreign keys over R
+    _, chunk = mpsm._chunks(MAIN_N, 4)[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sk = torch.randint(1, MAIN_N + 1, (chunk,), generator=gen,
+                       dtype=torch.int32, device=dev)
+    runs = sort_ops.sort_blocks_plain(sk, chunk)
+    record("K1", f"mpsm chunk n={chunk}", sort_ops.sort_blocks(sk, chunk),
+           runs)
+    for level in mw.merge_levels(chunk, BLOCK, mpsm.FANIN_DEFAULT):
+        _, span, nruns, w = level
+        lens = (nruns, chunk, span)
+        want = mw.multiway_merge_plain(runs, w, lens)
+        record("K2", f"mpsm chunk level={level}",
+               mw.multiway_merge(runs, w, lens)[0], want)
+        runs = want
+    rk = torch.arange(1, MAIN_N + 1, dtype=torch.int32, device=dev)
+    record("K3", f"mpsm {MAIN_N} x {chunk}",
+           mergejoin.merge_join_count_fused(rk, runs, MAIN_N, chunk),
+           mergejoin.merge_join_count_fused_plain(rk, runs, MAIN_N, chunk))
+    del sk, runs, want, rk
+
+    # the pair phase: K5 and each K4 pass of sort / sort_descending
+    keys, pays, rk, sk = pair_inputs(dev)
+    for desc in (False, True):
+        ks, ps = sort_ops.sort_blocks_pairs_plain(keys, pays, PAIR_N, BLOCK,
+                                                  desc)
+        record("K5", f"pairs n={PAIR_N} descending={desc}",
+               sort_ops.sort_blocks_pairs(keys, pays, PAIR_N, BLOCK, desc),
+               (ks, ps))
+        for nruns, span in sort_ops.pair_levels(PAIR_N, BLOCK):
+            lens = (nruns, PAIR_N, span)
+            want = sort_ops.merge_pass_plain(ks, ps, lens, desc)
+            record("K4", f"pairs n={PAIR_N} descending={desc} span={span}",
+                   sort_ops.merge_pass(ks, ps, lens, desc), want)
+            ks, ps = want
+    # the tag-merge count's two merges: the two-run layout, both flag orders
+    for r_flag, s_flag in ((0, 1), (1, 0)):
+        k, p, lens = sort_ops.two_run_layout(rk, sk, PAIR_N, PAIR_N, r_flag,
+                                             s_flag)
+        record("K4", f"tag merge {PAIR_N} + {PAIR_N} flags R={r_flag} "
+               f"S={s_flag}", sort_ops.merge_pass(k, p, lens),
+               sort_ops.merge_pass_plain(k, p, lens))
 
 
 def run_cli(argv: list[str]) -> tuple[int, str]:
@@ -244,6 +491,7 @@ def reset_launches() -> None:
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     sort_ops.LAUNCHES = mw.LAUNCHES = mergejoin.LAUNCHES = 0
+    sort_ops.MERGE_PASS_LAUNCHES = sort_ops.PAIR_SORT_LAUNCHES = 0
 
 
 def launches() -> dict[str, int]:
@@ -252,27 +500,70 @@ def launches() -> dict[str, int]:
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     return {"K1": sort_ops.LAUNCHES, "K2": mw.LAUNCHES,
-            "K3": mergejoin.LAUNCHES}
+            "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
+            "K5": sort_ops.PAIR_SORT_LAUNCHES}
 
 
-def phase_main_path() -> dict[str, int]:
-    argv = ["-a", "m-way", "-r", str(MAIN_N), "-s", str(MAIN_N)]
+def check_launched(path: str, counts: dict, need) -> None:
+    idle = [k for k in need if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"{path} never launched {idle}")
+
+
+def phase_path(path: str) -> dict[str, int]:
+    flags, need = PATHS[path]
+    argv = [*flags, "-r", str(MAIN_N), "-s", str(MAIN_N)]
     reset_launches()
     t0 = time.perf_counter()
     rc, stdout = run_cli(argv)
     torch.cuda.synchronize()
     counts = launches()
-    log(f"[main] cli.main({argv}) -> rc {rc} in "
+    log(f"[{path}] cli.main({argv}) -> rc {rc} in "
         f"{time.perf_counter() - t0:.3f} s (data generation included); "
         f"launches {counts}")
     if rc != 0:
-        raise AssertionError(f"main path exit code {rc}")
+        raise AssertionError(f"{path} exit code {rc}")
     got = results_of(stdout)
     if got != MAIN_N:
-        raise AssertionError(f"main path: Results = {got} != {MAIN_N}")
-    idle = [k for k, v in counts.items() if v <= 0]
-    if idle:
-        raise AssertionError(f"main path never launched {idle}")
+        raise AssertionError(f"{path}: Results = {got} != {MAIN_N}")
+    check_launched(path, counts, need)
+    return counts
+
+
+def phase_pair_sort(dev: torch.device) -> dict[str, int]:
+    """``sort``/``sort_descending`` and the tag-merge count at 16M, with
+    the launches of those calls alone."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    keys, pays, rk, sk = pair_inputs(dev)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    asc = sort_ops.sort(keys, pays)
+    desc = sort_ops.sort_descending(keys, pays)
+    stats = mergejoin.merge_join_count(rk, sk, PAIR_N, PAIR_N)
+    tag_count = mergejoin.finish_count(stats)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[pairs] sort + sort_descending of {PAIR_N} pairs and the "
+        f"tag-merge count of {PAIR_N} x {PAIR_N}: "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms, launches {counts}")
+    check_launched("pair sort + tag merge", counts, ("K4", "K5"))
+
+    want = sort_ops.sort_torch(keys, pays)
+    if not all(torch.equal(g, w) for g, w in zip(asc, want)):
+        raise AssertionError("sort != sort_torch")
+    if not all(torch.equal(g, w.flip(0)) for g, w in zip(desc, want)):
+        raise AssertionError("sort_descending != reversed sort_torch")
+    k3 = mergejoin.finish_count_fused(mergejoin.merge_join_count_fused(
+        rk, sk, PAIR_N, PAIR_N))
+    base = int(mergejoin.merge_join_count_torch(rk, sk, PAIR_N, PAIR_N))
+    log(f"[pairs] sort and sort_descending equal sort_torch; tag-merge "
+        f"count {tag_count}, K3 count {k3}, torch.sort baseline {base}")
+    if not tag_count == k3 == base:
+        raise AssertionError("tag-merge count != K3 count / baseline")
     return counts
 
 
@@ -300,24 +591,26 @@ def phase_nonunique(dev: torch.device) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    err, times = phase_kernels(dev)
-    counts = phase_main_path()
+    times = Timings()
+    phase_kernels(dev, times)
+    phase_pair_kernels(dev, times)
+    phase_path_shapes(dev)
+    total = {k: 0 for k in KERNELS}
+    for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev)]:
+        for k, v in counts.items():
+            total[k] += v
     phase_nonunique(dev)
     src = "avx_sort_merge_joins_tpu_torch/csrc/"
     ref = "avx_sort_merge_joins_tpu/ops/"
-    rows = [("K1 block_sort", "K1", "block_sort.cu", "sort.py:97"),
-            ("K2 multiway_merge", "K2", "multiway_merge.cu",
-             "multiwaymerge.py:85"),
-            ("K3 merge_join_count", "K3", "merge_join_count.cu",
-             "mergejoin.py:179")]
     kernels = [{"name": name, "route": "cuda", "source": src + f,
-                "replaces": ref + line, "launches": counts[k],
-                "max_abs_err": err[k], "ms": times[k][0],
-                "plain_ms": times[k][1]}
-               for name, k, f, line in rows]
+                "replaces": ref + line, "launches": total[k],
+                "max_abs_err": ERR[k], **times.entry(k)}
+               for k, (name, f, line) in KERNELS.items()]
+    log(f"[done] smoke run {time.perf_counter() - t_start:.1f} s")
     log(card)  # as nvidia-smi prints it: name, power limit
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -106,11 +106,33 @@ def test_device_path_is_the_default_from_2_22():
 
 def test_relation_from_numpy_pads_and_round_trips():
     keys = np.array([5, -3, 9], np.int32)
-    rel = Relation.from_numpy(keys, capacity=6)
+    rel = Relation.from_numpy(keys, capacity=6, device=CPU)
     assert rel.capacity == 6 and rel.num_tuples == 3
     assert rel.keys[3:].tolist() == [2**31 - 1] * 3
     assert rel.payloads.tolist() == [0] * 6
     k, p = rel.to_numpy()
     np.testing.assert_array_equal(k, keys)
     with pytest.raises(ValueError):
-        Relation.from_numpy(keys, capacity=2)
+        Relation.from_numpy(keys, capacity=2, device=CPU)
+
+
+@pytest.mark.parametrize("maker", [
+    lambda **kw: tdg.create_relation_pk(100, **kw),
+    lambda **kw: tdg.create_relation_fk(100, 30, **kw),
+    lambda **kw: tdg.create_relation_nonunique(100, 30, **kw),
+    lambda **kw: tdg.parallel_create_relation(100, 100, 2, **kw),
+    lambda **kw: tdg.parallel_create_relation(100, 100, 2, on_device=True,
+                                              **kw),
+    lambda **kw: Relation.from_numpy(np.arange(100, dtype=np.int32), **kw),
+], ids=["pk", "fk", "nonunique", "parallel", "parallel_device_path",
+        "from_numpy"])
+def test_datagen_without_a_card_needs_the_cpu_named(maker, monkeypatch):
+    """No silent CPU: without a card every generator, and
+    ``Relation.from_numpy``, raises unless it is given device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tdg.seed_generator(5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        maker()
+    tdg.seed_generator(5)
+    rel = maker(device="cpu")
+    assert rel.keys.device == CPU and rel.num_tuples == 100

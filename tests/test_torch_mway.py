@@ -19,7 +19,7 @@ from avx_sort_merge_joins_tpu.types import Relation as JRelation
 from avx_sort_merge_joins_tpu_torch import cli as tcli
 from avx_sort_merge_joins_tpu_torch.models import mway as tmway
 from avx_sort_merge_joins_tpu_torch.types import (JoinConfig, Relation,
-                                                  default_device, device_name)
+                                                  default_device)
 
 ROWS = 8
 BLOCK = ROWS * 128
@@ -42,8 +42,8 @@ def _relations(kind):
     pay = rng.integers(0, 1000, N).astype(np.int32)
     jR, jS = JRelation.from_numpy(rk, pay), JRelation.from_numpy(sk, pay)
     # the port takes the JAX relations' own columns
-    tR = Relation.from_numpy(*jR.to_numpy())
-    tS = Relation.from_numpy(*jS.to_numpy())
+    tR = Relation.from_numpy(*jR.to_numpy(), device="cpu")
+    tS = Relation.from_numpy(*jS.to_numpy(), device="cpu")
     return jR, jS, tR, tS, merge_join_count_numpy(rk, sk)
 
 
@@ -79,30 +79,46 @@ def test_mway_count_past_2_31_at_the_default_block():
                                                             dtype=np.int32)])
     sk = np.concatenate([np.arange(10, 5010, dtype=np.int32),
                          np.full(n, 3, np.int32)])
-    res = tmway.sortmergejoin_multiway(Relation.from_numpy(rk),
-                                       Relation.from_numpy(sk))
+    res = tmway.sortmergejoin_multiway(Relation.from_numpy(rk, device="cpu"),
+                                       Relation.from_numpy(sk, device="cpu"))
     assert res.totalresults == 2**32 + 5000 == merge_join_count_numpy(rk, sk)
 
 
 @pytest.mark.parametrize("config", [JoinConfig(materialize=True),
                                     JoinConfig(mwaybufsize_bytes=1 << 20)])
 def test_mway_unported_options_raise(config):
-    rel = Relation.from_numpy(np.arange(10, dtype=np.int32))
+    rel = Relation.from_numpy(np.arange(10, dtype=np.int32), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmway.sortmergejoin_multiway(rel, rel, config)
 
 
 def test_cli_prints_the_pk_fk_count(capsys):
     assert tcli.main(["-a", "m-way", "-r", "20000", "-s", "20000",
-                      "-x", "42", "-y", "43"]) == 0
+                      "-x", "42", "-y", "43", "--device", "cpu"]) == 0
     out, err = capsys.readouterr()
     assert out.strip().splitlines()[-1] == "Results = 20000"
     assert "[RECORD] m-way 1 20000 20000 0 0 " in err
     # every throughput line names the device it was measured on
-    dname = device_name(default_device())
-    assert f", DEVICE {dname}\n" in err
+    assert ", DEVICE cpu\n" in err
     record = next(ln for ln in err.splitlines() if ln.startswith("[RECORD]"))
-    assert record.split()[-1] == dname.replace(" ", "_")
+    assert record.split()[-1] == "cpu"
+
+
+@pytest.mark.parametrize("algo", ["m-way", "m-pass", "mpsm"])
+def test_cli_without_a_card_runs_only_when_told_cpu(algo, monkeypatch,
+                                                    capsys):
+    """No silent CPU: without a card the CLI exits 1 and prints no result,
+    unless it is given --device cpu."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["-a", algo, "-r", "3000", "-s", "3000"]
+    assert tcli.main(argv) == 1
+    out, err = capsys.readouterr()
+    assert "Results" not in out and "no CUDA device" in err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_device()
+    assert tcli.main([*argv, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == \
+        "Results = 3000"
 
 
 # Results of the compiled reference binary for these flags, pinned in
@@ -118,7 +134,8 @@ def test_cli_prints_the_pk_fk_count(capsys):
      149492),
 ], ids=["nonunique-42", "nonunique-7", "default", "card3"])
 def test_cli_reference_golden_counts(argv, expected, capsys):
-    assert tcli.main(["-a", "m-way", "-n", "1", *argv]) == 0
+    assert tcli.main(["-a", "m-way", "-n", "1", *argv, "--device", "cpu"]) \
+        == 0
     assert capsys.readouterr().out.split("Results = ")[1].split()[0] \
         == str(expected)
 
@@ -134,7 +151,7 @@ def test_cli_builds_the_jax_cli_relations(extra):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("argv", [["-a", "mpsm"], ["-n", "2"],
+@pytest.mark.parametrize("argv", [["-S", "RING"], ["-n", "2"],
                                   ["--materialize"], ["--key8b"],
                                   ["-z", "0.5"], ["-f", "3"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
