@@ -4,10 +4,11 @@ and hand-written CUDA kernels for the NVIDIA H100.
 A port of ``avx_sort_merge_joins_tpu`` (JAX and Pallas on a TPU), which
 stays beside it as the reference.  This package imports ``torch`` and
 numpy, never JAX.  Ported so far: the single-device m-way, m-pass and mpsm
-count joins, the (key, payload) pair sort and the tag-merge count, with
-the block sorts (K1 keys, K5 pairs), multiway merge (K2), pairwise merge
-pass (K4) and match count (K3) as CUDA C++ kernels for ``sm_90a`` in
-``csrc/``.
+count joins, the materializing m-way join, the KEY_8B (64-bit key) count
+join, the (key, payload) pair sorts, the 2-way merge facade and the
+tag-merge count, with the block sorts (K1 keys, K5 pairs), multiway merges
+(K2 keys, K6 pairs), pairwise merge pass (K4) and match counts (K3 int32
+keys, K7 64-bit keys) as CUDA C++ kernels for ``sm_90a`` in ``csrc/``.
 """
 
 import importlib

@@ -1,15 +1,17 @@
 """Command-line entry point of the port (counterpart of
-``avx_sort_merge_joins_tpu/cli.py:19-114,209-296,373-466``; reference:
+``avx_sort_merge_joins_tpu/cli.py:19-114,209-341,373-466``; reference:
 src/main.c): the same flags, the same workload construction and the same
 output conventions -- ``Results = N`` on stdout, ``[STATS]``/``[RECORD]``
 on stderr so scripts can split the streams (joincommon.c:175-196).
 
 Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
--x -y -f --nchunks --scalarsort --scalarmerge --non-unique``.  Every other
-flag of the reference is parsed and refused with "not yet ported" and exit
-code 2.  Relations and kernels run on the card (``--device cuda``, the
-default; without a card the CLI exits 1).  ``--device cpu`` runs them on
-the CPU through the kernels' plain PyTorch versions.
+-x -y -f --nchunks --scalarsort --scalarmerge --non-unique --full-range``,
+the materializing m-way join (``--materialize``), ``--persist DIR`` and the
+64-bit-key count join (``--key8b``).  Every other flag of the reference is
+parsed and refused with "not yet ported" and exit code 2.  Relations and
+kernels run on the card (``--device cuda``, the default; without a card
+the CLI exits 1).  ``--device cpu`` runs them on the CPU through the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="avx_sort_merge_joins_tpu_torch",
         description="sort-merge joins on PyTorch and hand-written CUDA "
-                    "kernels (count joins)")
+                    "kernels")
     # flag set mirrors main.c:722-745
     p.add_argument("-a", "--algo", default="m-way",
                    choices=["m-way", "m-pass", "mpsm"],
@@ -42,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--non-unique", action="store_true",
                    help="R keys drawn uniformly instead of unique 1..|R|")
     p.add_argument("--full-range", action="store_true",
-                   help="R keys span the full 2^31 domain (not yet ported)")
+                   help="R keys span the full 2^31 domain (KEY_8B analog)")
     p.add_argument("--scalarsort", action="store_true",
                    help="use the torch.sort baseline for sorting")
     p.add_argument("--scalarmerge", action="store_true",
@@ -59,11 +61,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nchunks", type=int, default=1,
                    help="mpsm: number of local S runs")
     p.add_argument("--materialize", action="store_true",
-                   help="produce join output tuples (not yet ported)")
+                   help="produce join output tuples, not only the count "
+                        "(m-way)")
     p.add_argument("--persist", metavar="DIR", default=None,
-                   help="write R.tbl/S.tbl/Out.tbl (not yet ported)")
+                   help="write R.tbl/S.tbl/Out.tbl (generator.c:200-213)")
     p.add_argument("--key8b", action="store_true",
-                   help="64-bit keys (not yet ported)")
+                   help="64-bit keys (the KEY_8B build): the count join over "
+                        "(hi, lo) key planes; ignores -a")
     p.add_argument("-o", "--perfout", metavar="DIR", default=None,
                    help="write a profiler trace (not yet ported)")
     p.add_argument("-p", "--perfconf", default=None,
@@ -83,12 +87,8 @@ def _not_ported(args) -> list[str]:
     checks = [
         (args.nthreads != 1, f"-n {args.nthreads}"),
         (args.skew > 0, "-z"),
-        (args.full_range, "--full-range"),
         (args.numastrategy != "NEXT", "-S"),
         (args.mwaybufsize != 0, "-m"),
-        (args.materialize, "--materialize"),
-        (args.persist is not None, "--persist"),
-        (args.key8b, "--key8b"),
         (args.perfout is not None, "-o"),
         (args.mapping_file is not None, "--mapping-file"),
     ]
@@ -101,12 +101,18 @@ def make_relations(args, device):
     default      R = parallel_create_relation(|R|, maxid=|R|)   (unique)
                  S = parallel_create_relation(|S|, maxid=|R|)   (uniform fk)
     --non-unique R, S = create_relation_nonunique(size, |R|)
+    --full-range R = create_relation_nonunique(|R|, INT_MAX)
+                 S = create_relation_fk_from_pk(R, |S|)
     """
     from . import datagen
     from .utils.log import info
 
     datagen.seed_generator(args.r_seed)
-    if args.non_unique:
+    if args.full_range:
+        info(f"Creating full-range R with {args.r_size} tuples")
+        R = datagen.create_relation_nonunique(args.r_size, 2**31 - 1,
+                                              device=device)
+    elif args.non_unique:
         info(f"Creating non-unique R with {args.r_size} tuples")
         R = datagen.create_relation_nonunique(args.r_size, args.r_size,
                                               device=device)
@@ -115,7 +121,10 @@ def make_relations(args, device):
         R = datagen.parallel_create_relation(args.r_size, args.r_size,
                                              args.nthreads, device=device)
     datagen.seed_generator(args.s_seed)
-    if args.non_unique:
+    if args.full_range:
+        info(f"Creating fk-from-pk S with {args.s_size} tuples")
+        S = datagen.create_relation_fk_from_pk(R, args.s_size, device=device)
+    elif args.non_unique:
         info(f"Creating non-unique S with {args.s_size} tuples")
         S = datagen.create_relation_nonunique(args.s_size, args.r_size,
                                               device=device)
@@ -133,6 +142,7 @@ def run_join(args, R, S):
         nthreads=args.nthreads,
         scalar_sort=args.scalarsort,
         scalar_merge=args.scalarmerge,
+        materialize=args.materialize,
     )
     if args.algo == "m-pass":
         from .models.mpass import sortmergejoin_multipass
@@ -144,6 +154,28 @@ def run_join(args, R, S):
     return sortmergejoin_multiway(R, S, config, fanin=args.partfanout)
 
 
+def _run_key8b(args, R, S):
+    """KEY_8B (64-bit-key, 16-byte-tuple) count join of the same seeded
+    relations, their keys widened to (hi, lo) int32 planes (the reference's
+    KEY_8B stores the same key values in 64-bit storage, types.h:23-29):
+    both sides sorted by the pair multiway sort (K5 + K6) and counted by
+    K7.  ``--scalarsort``/``--scalarmerge`` take the ``torch.sort`` route
+    end to end (the reference's only working KEY_8B path, main.c:871-877).
+    The timed window ends after the count is read back."""
+    from .ops import join64
+    from .types import JoinResult
+
+    nR, nS = R.num_tuples, S.num_tuples
+    t0 = time.perf_counter()
+    _, _, count = join64.key8b_join_count(
+        R.keys, S.keys, nR, nS, fanin=args.partfanout,
+        pallas_sort=not (args.scalarsort or args.scalarmerge))
+    cnt = join64.finish_count64(count)
+    dt = time.perf_counter() - t0
+    return JoinResult(totalresults=cnt, resultlist=[], phases={"total": dt},
+                      throughput=(nR + nS) / dt)
+
+
 def _validate(args) -> str | None:
     """Parameter checks of the JAX CLI's ``_validate`` (cli.py:344-370,
     after main.c:860-886): the error that refuses this run, if any."""
@@ -153,6 +185,9 @@ def _validate(args) -> str | None:
         return "partfanout must be a power of 2"
     if args.nchunks < 1:
         return "--nchunks must be >= 1"
+    if args.materialize and args.algo != "m-way" and not args.key8b:
+        return ("--materialize: the JAX package materializes on m-way only "
+                f"(its {args.algo} join ignores the flag)")
     if args.nchunks != 1 and args.algo != "mpsm":
         warn("--nchunks applies to single-device mpsm only")
     return None
@@ -193,11 +228,17 @@ def main(argv=None) -> int:
     # data generation is set-up, not a join phase
     device_sync((R.keys, S.keys))
     info(f"relations ready in {time.perf_counter() - t0:.3f} s")
+    ntotal = R.num_tuples + S.num_tuples
+    if args.key8b:
+        result = _run_key8b(args, R, S)
+        print(f"[STATS] NUMTUPLES {ntotal}, TUPLES-PER-SECOND "
+              f"{result.throughput:.0f}, DEVICE {dname}", file=sys.stderr)
+        print(f"Results = {result.totalresults}")
+        return 0
     result = run_join(args, R, S)
     # statistics to stderr, results to stdout (joincommon.c:175-196 split)
     for name, secs in result.phases.items():
         print(f"[STATS] {name:12s} {secs * 1e6:12.1f} usecs", file=sys.stderr)
-    ntotal = R.num_tuples + S.num_tuples
     total = result.phases.get("total", 0.0) or 1e-12
     print(f"[STATS] NUMTUPLES {ntotal}, TOTAL-TIME-USECS {total*1e6:.1f}, "
           f"TUPLES-PER-SECOND {result.throughput:.0f}, DEVICE {dname}",
@@ -206,6 +247,17 @@ def main(argv=None) -> int:
                                 S.num_tuples, 0, result.phases, dname),
           file=sys.stderr)
     print(f"Results = {result.totalresults}")
+    if args.persist:
+        import os
+
+        from .datagen import write_relation
+
+        os.makedirs(args.persist, exist_ok=True)
+        write_relation(R, os.path.join(args.persist, "R.tbl"))
+        write_relation(S, os.path.join(args.persist, "S.tbl"))
+        if args.materialize and result.resultlist:
+            write_relation(result.resultlist[0].results,
+                           os.path.join(args.persist, "Out.tbl"))
     return 0
 
 

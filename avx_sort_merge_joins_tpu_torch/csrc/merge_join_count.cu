@@ -1,23 +1,31 @@
-// K3: exact match count of two ascending key columns,
-// sum over keys k of cntR(k) * cntS(k), in int64.
+// K3 and K7: exact match count of two ascending key columns,
+// sum over keys k of cntR(k) * cntS(k), in int64.  K3 takes int32 keys; K7
+// takes 64-bit keys, each side given as two int32 planes (hi, lo with its
+// sign bit flipped) whose lexicographic order is the int64 order.
 //
-// Replaces the TPU kernel avx_sort_merge_joins_tpu/ops/mergejoin.py
+// Replaces the TPU kernels avx_sort_merge_joins_tpu/ops/mergejoin.py
 // `_count_kernel` with `_segmented_counts` (reached through
-// `merge_join_count_fused`).  That kernel runs as grid=(1,): one serial
-// read-only pass over R and S (S negated and read back to front), with the
-// count in base-2^30 int32 limbs and an overflow flag.
+// `merge_join_count_fused`) and `_count_kernel64` (reached through
+// `merge_join_count_fused64`).  Those run as grid=(1,): one serial
+// read-only pass over R and S (S negated, or as bitwise-NOT planes, and
+// read back to front), with the count in base-2^30 int32 limbs and an
+// overflow flag.
 //
-// What bounds it on the H100: R is read once (4 B per key); each R key
-// then costs two binary searches over S of log2(nS) dependent loads.
-// Neighbouring threads hold neighbouring R keys, so their searches share
-// the upper levels of the path in L1/L2; the kernel is bound by load
-// latency and L1/L2 throughput.
+// What bounds them on the H100: R is read once (4 B per key, 8 B per
+// 64-bit key); each R key then costs two binary searches over S of
+// log2(nS) dependent steps.  Neighbouring threads hold neighbouring R
+// keys, so their searches share the upper levels of the path in L1/L2;
+// the kernels are bound by load latency and L1/L2 throughput.
 //
 // Design: a grid-stride loop in which each thread adds
 // upper_bound(S, r) - lower_bound(S, r) for its R keys, summed in int64
 // within the warp (shuffles) and the block (shared memory), then one
 // atomicAdd per block.  The count needs no limbs and no overflow flag
-// (nR * nS < 2^62), S stays ascending, and the grid fills all SMs.
+// (nR * nS < 2^62), S stays ascending, and the grid fills all SMs.  K7
+// forms each 64-bit key in registers from its two planes (smj_pack of
+// (hi, lo_biased) is the original int64 key) and probes both S planes on
+// every search step (smj_pair_bound), so equal hi planes with different lo
+// never match.
 #include "smj_common.cuh"
 
 namespace {
@@ -25,21 +33,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 8192;
 
-__global__ void merge_join_count_kernel(const int* __restrict__ r,
-                                        long long nR,
-                                        const int* __restrict__ s,
-                                        long long nS,
-                                        unsigned long long* out) {
+// Adds the block's sum of `acc` to *out: shuffles within the warp, shared
+// memory across warps, one atomicAdd per block.  Every thread calls it.
+__device__ __forceinline__ void block_add(unsigned long long acc,
+                                          unsigned long long* out) {
   __shared__ unsigned long long warp_sums[kThreads / 32];
-  unsigned long long acc = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nR;
-       i += stride) {
-    const int key = r[i];
-    const long long lo = smj_lower_bound(s, 0, nS, key);
-    if (lo < nS && __ldg(s + lo) == key)
-      acc += smj_upper_bound(s, lo + 1, nS, key) - lo;
-  }
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   const int lane = threadIdx.x & 31;
@@ -54,6 +52,42 @@ __global__ void merge_join_count_kernel(const int* __restrict__ r,
   }
 }
 
+__global__ void merge_join_count_kernel(const int* __restrict__ r,
+                                        long long nR,
+                                        const int* __restrict__ s,
+                                        long long nS,
+                                        unsigned long long* out) {
+  unsigned long long acc = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nR;
+       i += stride) {
+    const int key = r[i];
+    const long long lo = smj_lower_bound(s, 0, nS, key);
+    if (lo < nS && __ldg(s + lo) == key)
+      acc += smj_upper_bound(s, lo + 1, nS, key) - lo;
+  }
+  block_add(acc, out);
+}
+
+__global__ void merge_join_count64_kernel(const int* __restrict__ rh,
+                                          const int* __restrict__ rl,
+                                          long long nR,
+                                          const int* __restrict__ sh,
+                                          const int* __restrict__ sl,
+                                          long long nS,
+                                          unsigned long long* out) {
+  unsigned long long acc = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nR;
+       i += stride) {
+    const long long key = smj_pack(rh[i], rl[i]);
+    const long long lo = smj_pair_bound<false>(sh, sl, 0, nS, key);
+    if (lo < nS && smj_pack(__ldg(sh + lo), __ldg(sl + lo)) == key)
+      acc += smj_pair_bound<true>(sh, sl, lo + 1, nS, key) - lo;
+  }
+  block_add(acc, out);
+}
+
 }  // namespace
 
 // Adds the match count of r[0, nR) and s[0, nS) to *out (int64, zeroed by
@@ -66,5 +100,19 @@ SMJ_API int smj_merge_join_count(const int* r, long long nR, const int* s,
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   merge_join_count_kernel<<<(unsigned)blocks, kThreads, 0,
                             (cudaStream_t)stream>>>(r, nR, s, nS, out);
+  return (int)cudaGetLastError();
+}
+
+// The same over 64-bit keys: R as planes (rh, rl)[0, nR), S as planes
+// (sh, sl)[0, nS), both ascending in lexicographic order.
+SMJ_API int smj_merge_join_count64(const int* rh, const int* rl, long long nR,
+                                   const int* sh, const int* sl, long long nS,
+                                   unsigned long long* out, void* stream) {
+  if (nR == 0) return (int)cudaSuccess;
+  long long blocks = (nR + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  merge_join_count64_kernel<<<(unsigned)blocks, kThreads, 0,
+                              (cudaStream_t)stream>>>(rh, rl, nR, sh, sl, nS,
+                                                      out);
   return (int)cudaGetLastError();
 }

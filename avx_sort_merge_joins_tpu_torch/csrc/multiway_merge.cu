@@ -1,72 +1,118 @@
-// K2: merge each group of `fanin` consecutive ascending runs into one
-// ascending run, keys only, in the uniform-lens layout.
+// K2 and K6: merge each group of `fanin` consecutive ascending runs into
+// one ascending run, in the uniform-lens layout.  K2 merges int32 keys; K6
+// merges (key, payload) int32 pairs, given as two columns, in lexicographic
+// order.
 //
 // Replaces the TPU kernel avx_sort_merge_joins_tpu/ops/multiwaymerge.py
-// `_mwaymerge_kernel` (reached through `multiway_merge`, keys-only, with
-// leaf prefetch), which streams each group through a FIFO heap tree in
-// VMEM, one program per group.  Run r starts at r * span and holds
-// clip(total - r * span, 0, span) keys; group g's output starts at
+// `_mwaymerge_kernel` (reached through `multiway_merge`: keys-only with
+// leaf prefetch for K2, `keys_only=False` with two FIFO trees and four
+// head windows for K6), which streams each group through a FIFO heap tree
+// in VMEM, one program per group.  Run r starts at r * span and holds
+// clip(total - r * span, 0, span) elements; group g's output starts at
 // g * fanin * span.
 //
 // What bounds it on the H100: each key is read and written once in device
-// memory (8 B), but finding its output position costs (fanin - 1) binary
-// searches of log2(span) dependent loads.  Neighbouring threads hold
-// neighbouring keys of one sorted run, so their searches walk the same
-// path and hit L1/L2; the kernel is bound by load latency and L1/L2
-// throughput, not by device-memory bandwidth.
+// memory (8 B; 16 B per pair), but finding its output position costs
+// (fanin - 1) binary searches of log2(span) dependent steps.  Neighbouring
+// threads hold neighbouring elements of one sorted run, so their searches
+// walk the same path and hit L1/L2; the kernel is bound by load latency
+// and L1/L2 throughput, not by device-memory bandwidth.  K6 probes both
+// planes on every step (smj_pair_bound): twice K2's loads per step, but
+// the two are independent and cost one round of latency.  Loading the
+// payload plane only after the keys tie saves loads but pays a second,
+// dependent round on every tie, and the (hi, lo) planes of KEY_8B keys
+// that fit in 32 bits tie on every step.  On an NVIDIA H100 80GB HBM3
+// (700 W), the four levels of a 128M-pair sort took 131.6 ms with both
+// planes probed, on any data; probing on a tie only took 115.0 ms on
+// foreign keys with random payloads and 206.1 ms on KEY_8B planes
+// (scripts/exp_torch_k6_probe.py).
 //
-// Design: a rank-scatter merge.  One thread per input key k at index i of
-// run r writes it to
-//   group start + i + sum_{j<r} upper_bound(run j, k)
-//                   + sum_{j>r} lower_bound(run j, k),
-// which is a unique position even under duplicate keys (ties go to the
-// lower run, as the TPU kernel's A-side preference does).  No block waits
-// on another, so the last level -- a single serial stream on the TPU --
-// fills the card like every other level.  Positions total .. cap - 1 get
-// the INT32_MAX pad.
+// Design: a rank-scatter merge.  One thread per input element e at index i
+// of run r writes it to
+//   group start + i + sum_{j<r} upper_bound(run j, e)
+//                   + sum_{j>r} lower_bound(run j, e),
+// which is a unique position even under duplicates: equal elements of an
+// earlier run go first (as the TPU kernel's A-side preference does), so
+// the same (key, payload) pair sitting in several runs of a group still
+// lands in distinct slots.  No block waits on another, so the last level
+// -- a single serial stream on the TPU -- fills the card like every other
+// level.  Positions total .. cap - 1 get the pad: INT32_MAX, on both
+// planes for K6.  A real pair whose payload is INT32_MAX or INT32_MIN
+// still sorts before the pad pair, whose key no real pair has, and the
+// pads lie outside every run's [start, end) so no search sees them.
+// Offsets are 64-bit.
 #include "smj_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void multiway_merge_kernel(const int* __restrict__ in,
-                                      int* __restrict__ out, long long cap,
+// Upper or lower bound of element v in one run: v is an int32 key (K2) or
+// a packed (key, payload) pair (K6).
+template <bool kPairs>
+__device__ __forceinline__ long long bound(const int* __restrict__ k,
+                                           const int* __restrict__ p,
+                                           long long lo, long long hi,
+                                           long long v, bool upper) {
+  if constexpr (kPairs) {
+    return upper ? smj_pair_bound<true>(k, p, lo, hi, v)
+                 : smj_pair_bound<false>(k, p, lo, hi, v);
+  } else {
+    return upper ? smj_upper_bound(k, lo, hi, (int)v)
+                 : smj_lower_bound(k, lo, hi, (int)v);
+  }
+}
+
+template <bool kPairs>
+__global__ void multiway_merge_kernel(const int* __restrict__ in_k,
+                                      const int* __restrict__ in_p,
+                                      int* __restrict__ out_k,
+                                      int* __restrict__ out_p, long long cap,
                                       long long total, long long span,
                                       int fanin) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= cap) return;
-  if (p >= total) {
-    out[p] = SMJ_KEY_POS_INF;
+  const long long at = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (at >= cap) return;
+  if (at >= total) {
+    out_k[at] = SMJ_KEY_POS_INF;
+    if constexpr (kPairs) out_p[at] = SMJ_KEY_POS_INF;
     return;
   }
-  const int key = in[p];
-  const long long r = p / span;
+  const int key = in_k[at];
+  int pay = 0;
+  if constexpr (kPairs) pay = in_p[at];
+  const long long v = kPairs ? smj_pack(key, pay) : (long long)key;
+  const long long r = at / span;
   const long long first = r - r % fanin;  // first run of this group
-  long long dst = first * span + (p - r * span);
+  long long dst = first * span + (at - r * span);
   for (long long j = first; j < first + fanin; ++j) {
     const long long start = j * span;
     if (start >= total) break;
     if (j == r) continue;
     const long long end = start + span < total ? start + span : total;
-    const long long at = j < r ? smj_upper_bound(in, start, end, key)
-                               : smj_lower_bound(in, start, end, key);
-    dst += at - start;
+    dst += bound<kPairs>(in_k, in_p, start, end, v, j < r) - start;
   }
-  out[dst] = key;
+  out_k[dst] = key;
+  if constexpr (kPairs) out_p[dst] = pay;
 }
 
 }  // namespace
 
-// Merges in[0, total) group by group into out[0, cap); cap >= total.  The
-// wrapper makes the tensors' card current.
-SMJ_API int smj_multiway_merge(const int* in, int* out, long long cap,
-                               long long total, long long span, int fanin,
-                               void* stream) {
+// Merges in_k (and in_p, or NULL for keys only) [0, total) group by group
+// into out_k (out_p) [0, cap); cap >= total.  The wrapper makes the
+// tensors' card current.
+SMJ_API int smj_multiway_merge(const int* in_k, const int* in_p, int* out_k,
+                               int* out_p, long long cap, long long total,
+                               long long span, int fanin, void* stream) {
   if (cap == 0) return (int)cudaSuccess;
   const long long blocks = (cap + kThreads - 1) / kThreads;
-  multiway_merge_kernel<<<(unsigned)blocks, kThreads, 0,
-                          (cudaStream_t)stream>>>(in, out, cap, total, span,
-                                                  fanin);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (in_p == nullptr) {
+    multiway_merge_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        in_k, in_p, out_k, out_p, cap, total, span, fanin);
+  } else {
+    multiway_merge_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
+        in_k, in_p, out_k, out_p, cap, total, span, fanin);
+  }
   return (int)cudaGetLastError();
 }

@@ -50,3 +50,21 @@ __device__ __forceinline__ long long smj_upper_bound(const int* __restrict__ a,
   }
   return lo;
 }
+
+// Bounds over a (key, payload) column pair in lexicographic order, the
+// order of smj_pack: the first index in [lo, hi) whose pair is >= v
+// (kUpper false) or > v (kUpper true).  Each step loads both planes at
+// `mid` at once and compares one packed int64: two independent loads, one
+// round of latency, whatever the data (multiway_merge.cu says why not the
+// payload plane on a key tie only).
+template <bool kUpper>
+__device__ __forceinline__ long long smj_pair_bound(
+    const int* __restrict__ k, const int* __restrict__ p, long long lo,
+    long long hi, long long v) {
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    const long long m = smj_pack(__ldg(k + mid), __ldg(p + mid));
+    if (kUpper ? m <= v : m < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}

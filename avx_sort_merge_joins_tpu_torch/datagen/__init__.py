@@ -2,9 +2,13 @@
 
 from .c_rng import RAND_MAX, GlibcRand  # noqa: F401
 from .generator import (  # noqa: F401
+    append_rows,
     create_relation_fk,
+    create_relation_fk_from_pk,
     create_relation_nonunique,
     create_relation_pk,
     parallel_create_relation,
+    read_relation,
     seed_generator,
+    write_relation,
 )

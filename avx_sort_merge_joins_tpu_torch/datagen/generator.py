@@ -1,5 +1,5 @@
 """Workload generators (counterpart of
-``avx_sort_merge_joins_tpu/datagen/generator.py:38-205``; reference:
+``avx_sort_merge_joins_tpu/datagen/generator.py:38-205,221-294``; reference:
 src/datagen/generator.c).
 
 The same seed gives the same relations as the JAX package:
@@ -14,8 +14,13 @@ The same seed gives the same relations as the JAX package:
   glibc draw, so both packages build the same relation.
 * ``create_relation_fk``: consecutive independently shuffled 1..maxid
   blocks plus a shuffled 1..remainder block (generator.c:407-445).
+* ``create_relation_fk_from_pk``: tiled copies of a relation, globally
+  Knuth-shuffled (generator.c:452-488).
 * ``create_relation_nonunique``: keys = RAND_RANGE(maxid), payload = n - i
   (generator.c:215-231,490-505).
+* ``write_relation`` / ``append_rows`` / ``read_relation``: the reference's
+  ``.tbl`` text format, one "key payload" pair per line
+  (generator.c:200-213), through the native writer when it builds.
 
 Host-built columns are copied to ``device`` once.  The default device is
 the card; without one every entry point raises unless it is given
@@ -24,6 +29,7 @@ the card; without one every entry point raises unless it is given
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -182,6 +188,21 @@ def create_relation_fk(num_tuples: int, maxid: int,
     return Relation.from_numpy(keys, payloads, capacity, _device(device))
 
 
+def create_relation_fk_from_pk(pk: Relation, num_tuples: int,
+                               capacity: Optional[int] = None,
+                               device=None) -> Relation:
+    """FK relation as tiled copies of the PK relation, globally shuffled
+    (generator.c:452-488).  The keys take the shuffle; the payloads stay
+    in tiled order, as in the JAX package."""
+    rng = _check_seed()
+    pkk, pkp = pk.to_numpy()
+    reps = -(-num_tuples // pk.num_tuples)
+    keys = np.tile(pkk, reps)[:num_tuples].copy()
+    payloads = np.tile(pkp, reps)[:num_tuples].copy()
+    knuth_shuffle_keys(keys, rng)
+    return Relation.from_numpy(keys, payloads, capacity, _device(device))
+
+
 def create_relation_nonunique(num_tuples: int, maxid: int,
                               capacity: Optional[int] = None,
                               device=None) -> Relation:
@@ -193,3 +214,58 @@ def create_relation_nonunique(num_tuples: int, maxid: int,
     payloads = (num_tuples - np.arange(num_tuples, dtype=np.int64)).astype(
         np.int32)
     return Relation.from_numpy(keys, payloads, capacity, _device(device))
+
+
+def _write_rows(path: str, mode: str, keys: np.ndarray,
+                payloads: np.ndarray) -> None:
+    """Write (mode "w") or append (mode "a") "key payload" rows.  Whether
+    the native writer (csrc/tblio.cc) is there is probed before anything is
+    written, and a write that fails raises: falling back after a partial
+    native write would duplicate rows and hide the I/O error."""
+    from . import native
+
+    if native.tblio_available():
+        (native.tbl_write if mode == "w" else native.tbl_append)(
+            path, keys, payloads)
+        return
+    with open(path, mode) as f:
+        for k, p in zip(np.asarray(keys).tolist(),
+                        np.asarray(payloads).tolist()):
+            f.write(f"{k} {p}\n")
+
+
+def write_relation(rel: Relation, path: str) -> None:
+    """Persist a relation in the reference's .tbl text format
+    (generator.c:200-213): one "key payload" pair per line."""
+    _write_rows(path, "w", *rel.to_numpy())
+
+
+def append_rows(path: str, keys: np.ndarray, payloads: np.ndarray) -> None:
+    """Append "key payload" rows to a .tbl file, so that an output can be
+    written chunk by chunk."""
+    _write_rows(path, "a", keys, payloads)
+
+
+def read_relation(path: str, capacity: Optional[int] = None,
+                  device=None) -> Relation:
+    """Load a .tbl file back into a Relation.  A read that fails raises
+    (the JAX package falls back to its text parser on any error of the
+    native reader)."""
+    from . import native
+
+    if native.tblio_available():
+        # every row takes at least 4 bytes ("k p\n")
+        cap = capacity or max(1, os.path.getsize(path) // 4)
+        keys, payloads = native.tbl_read(path, cap)
+        return Relation.from_numpy(keys, payloads, capacity,
+                                   _device(device))
+    ks, ps = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                ks.append(int(parts[0]))
+                ps.append(int(parts[1]))
+    return Relation.from_numpy(np.asarray(ks, np.int32),
+                               np.asarray(ps, np.int32), capacity,
+                               _device(device))

@@ -1,9 +1,11 @@
-"""ctypes binding of the native Knuth shuffle in the repository's
-``csrc/datagen.c`` (counterpart of
+"""ctypes bindings of the native Knuth shuffle in the repository's
+``csrc/datagen.c`` and of the ``.tbl`` reader and writer in
+``csrc/tblio.cc`` (counterpart of
 ``avx_sort_merge_joins_tpu/datagen/native.py:27-158``).
 
-The unchanged C source is compiled on first use with the system C compiler
-into the port's own build directory (``csrc/build/`` inside this package).
+The unchanged sources are compiled on first use with the system C and C++
+compilers into the port's own build directory (``csrc/build/`` inside this
+package).
 Python's :class:`~.c_rng.GlibcRand` owns the RNG state; its 31-word history
 is passed by pointer, so the NumPy and native paths interleave bit-exactly.
 """
@@ -23,24 +25,29 @@ _lock = threading.Lock()
 _lib = None
 _tried = False
 
-_SRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc",
-                    "datagen.c")
+_CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "csrc", "build")
 
 
-def _build() -> str:
-    src = os.path.abspath(_SRC)
+def _compile(source: str, lib: str, compiler: list[str]) -> str:
+    """Compile ``csrc/<source>`` into ``<lib>`` in the build directory
+    unless it is there and newer; returns the library's path."""
+    src = os.path.abspath(os.path.join(_CSRC, source))
     out_dir = os.path.abspath(_BUILD_DIR)
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libsmjdatagen.so")
+    so = os.path.join(out_dir, lib)
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
         return so
-    cc = os.environ.get("CC", "cc")
     tmp = f"{so}.{os.getpid()}.tmp"
-    subprocess.run([cc, "-O3", "-shared", "-fPIC", src, "-o", tmp],
+    subprocess.run([*compiler, "-shared", "-fPIC", src, "-o", tmp],
                    check=True, capture_output=True)
     os.replace(tmp, so)
     return so
+
+
+def _build() -> str:
+    return _compile("datagen.c", "libsmjdatagen.so",
+                    [os.environ.get("CC", "cc"), "-O3"])
 
 
 def _load():
@@ -78,3 +85,70 @@ def knuth_shuffle(keys: np.ndarray, rng: GlibcRand) -> None:
     if keys.dtype != np.int32 or not keys.flags.c_contiguous:
         raise ValueError("knuth_shuffle needs a contiguous int32 array")
     lib.knuth_shuffle_i32(keys, keys.shape[0], _hist(rng))
+
+
+# --------------------------------------------------------------------------
+# .tbl reader and writer (csrc/tblio.cc)
+# --------------------------------------------------------------------------
+
+_tblio_lib = None
+_tblio_tried = False
+TBLIO_THREADS = 8  # writer threads, as the JAX package's binding passes
+
+
+def _load_tblio():
+    global _tblio_lib, _tblio_tried
+    with _lock:
+        if _tblio_lib is not None or _tblio_tried:
+            return _tblio_lib
+        _tblio_tried = True
+        try:
+            lib = ctypes.CDLL(_compile(
+                "tblio.cc", "libsmjtblio.so",
+                [os.environ.get("CXX", "g++"), "-O3", "-std=c++17",
+                 "-pthread"]))
+        except (OSError, subprocess.CalledProcessError):
+            return None  # no C++ compiler or source: the text path is used
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        for fn in (lib.tbl_write, lib.tbl_append):
+            fn.argtypes = [ctypes.c_char_p, i32p, i32p, ctypes.c_int64,
+                           ctypes.c_int]
+            fn.restype = ctypes.c_int
+        lib.tbl_read.argtypes = [ctypes.c_char_p, i32p, i32p, ctypes.c_int64]
+        lib.tbl_read.restype = ctypes.c_int64
+        _tblio_lib = lib
+        return _tblio_lib
+
+
+def tblio_available() -> bool:
+    return _load_tblio() is not None
+
+
+def _tbl_put(fn_name: str, path: str, keys: np.ndarray,
+             payloads: np.ndarray) -> None:
+    keys = np.ascontiguousarray(keys, np.int32)
+    payloads = np.ascontiguousarray(payloads, np.int32)
+    rc = getattr(_load_tblio(), fn_name)(path.encode(), keys, payloads,
+                                         keys.shape[0], TBLIO_THREADS)
+    if rc != 0:
+        raise IOError(f"{fn_name}({path}) failed with {rc}")
+
+
+def tbl_write(path: str, keys: np.ndarray, payloads: np.ndarray) -> None:
+    """Write "key payload" rows as a new .tbl file."""
+    _tbl_put("tbl_write", path, keys, payloads)
+
+
+def tbl_append(path: str, keys: np.ndarray, payloads: np.ndarray) -> None:
+    """Append rows to an existing (or new) .tbl file."""
+    _tbl_put("tbl_append", path, keys, payloads)
+
+
+def tbl_read(path: str, cap: int):
+    """Read at most ``cap`` rows of a .tbl file; returns (keys, payloads)."""
+    keys = np.empty(cap, np.int32)
+    payloads = np.empty(cap, np.int32)
+    n = _load_tblio().tbl_read(path.encode(), keys, payloads, cap)
+    if n < 0:
+        raise IOError(f"tbl_read({path}) failed with {n}")
+    return keys[:n], payloads[:n]

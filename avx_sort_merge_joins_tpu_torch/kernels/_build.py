@@ -35,9 +35,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "smj_block_sort": (_P, _P, _L, _I, _I, _P),
     "smj_block_sort_pairs": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
-    "smj_multiway_merge": (_P, _P, _L, _L, _L, _I, _P),
+    "smj_multiway_merge": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
     "smj_merge_pass": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
     "smj_merge_join_count": (_P, _L, _P, _L, _P, _P),
+    "smj_merge_join_count64": (_P, _P, _L, _P, _P, _L, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -42,7 +42,8 @@ def sortmergejoin_multipass(R: Relation, S: Relation,
                             block: int = BLOCK_MPASS) -> JoinResult:
     config = config or JoinConfig()
     if config.materialize:
-        raise NotImplementedError("not yet ported: --materialize")
+        raise NotImplementedError(
+            "--materialize: the JAX package materializes on m-way only")
     nR, nS = R.num_tuples, S.num_tuples
 
     if config.scalar_merge or config.scalar_sort:

@@ -52,7 +52,8 @@ def sortmergejoin_mpsm(R: Relation, S: Relation,
                        block: int = BLOCK_MPSM) -> JoinResult:
     config = config or JoinConfig()
     if config.materialize:
-        raise NotImplementedError("not yet ported: --materialize")
+        raise NotImplementedError(
+            "--materialize: the JAX package materializes on m-way only")
     if nchunks < 1:
         raise ValueError(f"mpsm: nchunks {nchunks} < 1")
     nR, nS = R.num_tuples, S.num_tuples

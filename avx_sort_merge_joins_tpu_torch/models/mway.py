@@ -1,5 +1,5 @@
-"""m-way sort-merge join on one device, count only (counterpart of the
-count paths of ``avx_sort_merge_joins_tpu/models/mway.py:35-128,197-310``;
+"""m-way sort-merge join on one device, counting or materializing
+(counterpart of ``avx_sort_merge_joins_tpu/models/mway.py:35-148,197-310``;
 reference: src/joins/sortmergejoin_multiway.c).
 
 The phases of the reference's record structure, each timed on the host
@@ -15,15 +15,20 @@ Both relations sort ascending: the TPU package sorts S negated so that its
 count kernel can read S back to front; the port drops that layout.
 ``--scalarsort`` swaps K1+K2 for ``torch.sort``; ``--scalarmerge`` swaps the
 whole pipeline for ``torch.sort`` and the tagged prefix-sum count.
+
+With ``JoinConfig.materialize`` the join runs as one "sortmerge" phase: R
+keys through K1 + K2, S tuples through K5 + K6 (the payload-carrying
+multiway sort), then the matched S tuples ``<S-key, S-RID>``, replicated
+per match pair when some R key repeats (``ops/materialize.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import mergejoin, multiwaymerge as mw
+from ..ops import materialize, mergejoin, multiwaymerge as mw
 from ..params import BLOCKSIZE_DEFAULT
-from ..types import JoinConfig, JoinResult, Relation
+from ..types import JoinConfig, JoinResult, Relation, ThreadResult
 from . import common
 
 FANIN_DEFAULT = 16
@@ -48,6 +53,16 @@ def _mway_count_device(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
     return mergejoin.merge_join_count_fused(rks, sks, nR, nS)
 
 
+def _mway_materialize_device(rk: torch.Tensor, sk: torch.Tensor,
+                             sp: torch.Tensor, nR: int, nS: int, fanin: int,
+                             block: int):
+    """Materializing m-way join: sort R keys, sort S tuples, emit matched
+    S tuples (<S-key, S-RID>, joincommon.c:272-284)."""
+    rks = mw.multiway_sort(rk, nR, block, fanin)
+    sks, sps = mw.multiway_sort(sk, nS, block, fanin, payloads=sp)
+    return materialize.materialize_matches(rks, nR, sks, sps, nS)
+
+
 def sortmergejoin_multiway(R: Relation, S: Relation,
                            config: JoinConfig | None = None,
                            fanin: int = FANIN_DEFAULT,
@@ -55,9 +70,24 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
     config = config or JoinConfig()
     if config.mwaybufsize_bytes:
         raise NotImplementedError("not yet ported: the -m merge-buffer size")
-    if config.materialize:
-        raise NotImplementedError("not yet ported: --materialize")
     nR, nS = R.num_tuples, S.num_tuples
+
+    if config.materialize:
+        def pipeline(_):
+            return _mway_materialize_device(R.keys, S.keys, S.payloads, nR,
+                                            nS, fanin, block)
+
+        (ok, op, om, nm), timings = common.run_phases({"sortmerge": pipeline})
+        matches = int(om.sum(dtype=torch.int64))
+        if matches != nm:
+            # some R key repeats: one output tuple per match pair
+            # (joincommon.c:266-289 nested duplicate loops)
+            ok, op, _ = materialize.expand_matches(ok, op, om, nm)
+        result = common.make_result(matches, nR, nS, timings)
+        result.resultlist = [ThreadResult(
+            nresults=matches, shard_id=0,
+            results=materialize.materialized_relation(ok, op, matches))]
+        return result
 
     if config.scalar_merge or config.scalar_sort:
         def pipeline(_):

@@ -1,4 +1,5 @@
-"""Operators: block sorts (K1 keys only, K5 pairs), multiway merge (K2),
-pairwise merge pass (K4) and the fused match count (K3), each a CUDA kernel
-with its plain PyTorch version; the pair sort and the tag-merge count built
-on them."""
+"""Operators: block sorts (K1 keys only, K5 pairs), multiway merges (K2 keys
+only, K6 pairs), pairwise merge pass (K4) and the fused match counts (K3
+int32 keys, K7 64-bit keys), each a CUDA kernel with its plain PyTorch
+version; the pair sorts, the 2-way merge facade, the tag-merge count,
+materialization and the KEY_8B join built on them."""

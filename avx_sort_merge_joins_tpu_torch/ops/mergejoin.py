@@ -1,16 +1,19 @@
-"""Merge-join match count: kernel K3, its combine, the tag-merge count and
-oracles (counterpart of
-``avx_sort_merge_joins_tpu/ops/mergejoin.py:41-100,432-530,1052-1101``).
+"""Merge-join match count: kernels K3 and K7, their combine, the tag-merge
+count and oracles (counterpart of
+``avx_sort_merge_joins_tpu/ops/mergejoin.py:41-100,432-530,973-1101``).
 
 ``merge_join_count_fused`` returns sum_k cntR(k) * cntS(k) over two
 ascending key columns as an int64 0-d tensor.  On a CUDA tensor it
 launches ``csrc/merge_join_count.cu``; on a CPU tensor it takes the plain
 version ``merge_join_count_fused_plain``.  ``merge_join_count`` is the
 second, independent exact count: two K4 pair-mode merges of R and S with
-a source flag in the payload.
+a source flag in the payload.  ``merge_join_count_fused64`` is the same
+count over 64-bit keys given as two int32 planes per side (K7, in the same
+source), with ``merge_join_count_fused64_plain`` beside it.
 
-TPU workarounds dropped: the ``(rows, 128)`` tiles and spare window rows,
-the negated-S layout (S is passed ascending), and the base-2^30 count limbs
+TPU workarounds dropped: the ``(rows, 128)`` tiles, the front guard and
+spare window rows, the negated-S and NOT-plane layouts (S is passed
+ascending), and the base-2^30 count limbs
 with their ``CountLimbOverflow`` flag -- the count is int64 throughout, so
 a hot key with cntR * cntS >= 2^29 needs no recount.
 """
@@ -23,6 +26,7 @@ import torch
 from . import sort as sort_ops
 
 LAUNCHES = 0  # K3 kernel launches since the last reset
+LAUNCHES64 = 0  # K7
 
 
 def merge_join_count_fused_plain(rk: torch.Tensor, sk: torch.Tensor,
@@ -55,6 +59,47 @@ def merge_join_count_fused(rk: torch.Tensor, sk: torch.Tensor,
             rk.data_ptr(), nR, sk.data_ptr(), nS, out.data_ptr(), stream)
     _build.check("smj_merge_join_count", code)
     LAUNCHES += 1
+    return out
+
+
+def merge_join_count_fused64_plain(rhi: torch.Tensor, rlo: torch.Tensor,
+                                   shi: torch.Tensor, slo: torch.Tensor,
+                                   nR: int, nS: int) -> torch.Tensor:
+    """Plain version of K7: two ``torch.searchsorted`` per R key over the
+    packed int64 keys (``pack_pairs`` of (hi, lo_biased) is the key)."""
+    return merge_join_count_fused_plain(
+        sort_ops.pack_pairs(rhi[:nR], rlo[:nR]),
+        sort_ops.pack_pairs(shi[:nS], slo[:nS]), nR, nS)
+
+
+def merge_join_count_fused64(rhi: torch.Tensor, rlo: torch.Tensor,
+                             shi: torch.Tensor, slo: torch.Tensor,
+                             nR: int, nS: int) -> torch.Tensor:
+    """Exact match count over 64-bit keys: R and S each as two int32
+    planes (hi, lo with its sign bit flipped), ascending in lexicographic
+    order, which is the int64 order.  Returns an int64 0-d tensor on their
+    device."""
+    name = "merge_join_count_fused64"
+    sort_ops._check_keys(rhi, nR, name)
+    sort_ops._check_payloads(rhi, rlo, nR, name)
+    sort_ops._check_keys(shi, nS, name)
+    sort_ops._check_payloads(shi, slo, nS, name)
+    if rhi.device != shi.device:
+        raise ValueError(f"{name}: R on {rhi.device}, S on {shi.device}")
+    if rhi.device.type == "cpu":
+        return merge_join_count_fused64_plain(rhi, rlo, shi, slo, nR, nS)
+    out = torch.zeros((), dtype=torch.int64, device=rhi.device)
+    if nR == 0 or nS == 0:
+        return out
+    from ..kernels import _build
+
+    global LAUNCHES64
+    with _build.launching_on(rhi) as stream:
+        code = _build.library().smj_merge_join_count64(
+            rhi.data_ptr(), rlo.data_ptr(), nR, shi.data_ptr(),
+            slo.data_ptr(), nS, out.data_ptr(), stream)
+    _build.check("smj_merge_join_count64", code)
+    LAUNCHES64 += 1
     return out
 
 

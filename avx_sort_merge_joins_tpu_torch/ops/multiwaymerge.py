@@ -1,18 +1,24 @@
-"""K-way merge of sorted runs, keys only: kernel K2, and the multiway sort
-built on it (counterpart of
+"""K-way merge of sorted runs, keys only (kernel K2) or (key, payload) pairs
+in lexicographic order (kernel K6), and the multiway sort built on it
+(counterpart of
 ``avx_sort_merge_joins_tpu/ops/multiwaymerge.py:522-631,655-750``).
 
-Layout: a flat int32 column whose run r starts at ``r * span`` and holds
-``clip(total - r * span, 0, span)`` keys -- the TPU package's uniform-lens
-formula, kept as plain arithmetic (the TPU needed it to fit run lengths in
-SMEM; here it is simply the layout).  ``multiway_merge`` merges each group
-of ``fanin`` consecutive runs into one run at ``g * fanin * span``.  On a
-CUDA tensor it launches ``csrc/multiway_merge.cu`` (a rank-scatter merge);
-on a CPU tensor it takes the plain version ``multiway_merge_plain``.
+Layout: flat int32 columns whose run r starts at ``r * span`` and holds
+``clip(total - r * span, 0, span)`` elements -- the TPU package's
+uniform-lens formula, kept as plain arithmetic (the TPU needed it to fit run
+lengths in SMEM; here it is simply the layout).  ``multiway_merge`` merges
+each group of ``fanin`` consecutive runs into one run at ``g * fanin *
+span``.  On CUDA tensors it launches ``csrc/multiway_merge.cu`` (a
+rank-scatter merge); on CPU tensors it takes the plain version
+``multiway_merge_plain``.
 
-TPU workarounds dropped: the ``(rows, 128)`` tiles, the FIFO-tree tile and
-window sizes, and the spare window tile past the data.  Columns carry a
-logical length ``n``; slots from ``n`` on hold the INT32_MAX pad.
+Every function takes the payload column as ``payloads=``; without it the
+result is one key column, with it a ``(keys, payloads)`` tuple of columns.
+
+TPU workarounds dropped: the ``(rows, 128)`` tiles and ``return_2d``, the
+FIFO-tree tile and window sizes, and the spare window tile past the data.
+Columns carry a logical length ``n``; slots from ``n`` on hold the
+INT32_MAX pad, on both columns of a pair.
 """
 
 from __future__ import annotations
@@ -23,57 +29,78 @@ from ..params import BLOCKSIZE_DEFAULT
 from . import sort as sort_ops
 
 LAUNCHES = 0  # K2 kernel launches since the last reset
+PAIR_LAUNCHES = 0  # K6
 
 
-def _check_uniform(keys: torch.Tensor, fanin: int, uniform_lens) -> None:
+def _check_uniform(keys: torch.Tensor, payloads, fanin: int,
+                   uniform_lens) -> None:
     sort_ops.check_uniform_lens(keys, uniform_lens, "multiway_merge")
+    if payloads is not None:
+        sort_ops._check_payloads(keys, payloads, 0, "multiway_merge")
     if fanin < 2 or fanin & (fanin - 1):
         raise ValueError(f"multiway_merge: fanin {fanin} is not a power of 2")
 
 
-def multiway_merge_plain(keys: torch.Tensor, fanin: int,
-                         uniform_lens) -> torch.Tensor:
-    """Plain version of K2: ``torch.sort`` of each group's slice."""
+def multiway_merge_plain(keys: torch.Tensor, fanin: int, uniform_lens,
+                         payloads: torch.Tensor | None = None):
+    """Plain version of K2 and K6: ``torch.sort`` of each group's slice (of
+    the packed pairs when there are payloads)."""
     _, total, span = uniform_lens
-    return sort_ops.sorted_groups(keys, total, fanin * span)
+    if payloads is None:
+        return sort_ops.sorted_groups(keys, total, fanin * span)
+    return sort_ops.unpack_pairs(sort_ops.sorted_groups(
+        sort_ops.pack_pairs(keys, payloads), total, fanin * span))
 
 
-def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens):
+def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens,
+                   payloads: torch.Tensor | None = None):
     """Merge groups of ``fanin`` consecutive ascending runs.
 
     ``uniform_lens=(nruns, total, span)``: run r starts at ``r * span`` with
-    length ``clip(total - r * span, 0, span)``.  Returns ``(merged,
-    new_lens)``: merged run g starts at ``g * fanin * span`` with length
-    ``new_lens[g]``; ``merged`` has as many slots as ``keys``, and slots
-    from ``total`` on hold INT32_MAX.
+    length ``clip(total - r * span, 0, span)``.  With ``payloads`` the runs
+    are ascending in lexicographic (key, payload) order and merge in it.
+    Returns ``(merged, new_lens)``: merged run g starts at ``g * fanin *
+    span`` with length ``new_lens[g]``; ``merged`` (a column, or a ``(keys,
+    payloads)`` tuple) has as many slots as ``keys``, and slots from
+    ``total`` on hold INT32_MAX.
     """
-    _check_uniform(keys, fanin, uniform_lens)
+    _check_uniform(keys, payloads, fanin, uniform_lens)
     nruns, total, span = uniform_lens
     ngroups = sort_ops.cdiv(nruns, fanin)
     new_lens = [max(0, min(total - g * fanin * span, fanin * span))
                 for g in range(ngroups)]
     if keys.device.type == "cpu":
-        return multiway_merge_plain(keys, fanin, uniform_lens), new_lens
+        return multiway_merge_plain(keys, fanin, uniform_lens,
+                                    payloads), new_lens
     from ..kernels import _build
 
-    global LAUNCHES
-    out = torch.empty_like(keys)
+    global LAUNCHES, PAIR_LAUNCHES
+    out_k = torch.empty_like(keys)
+    out_p = None if payloads is None else torch.empty_like(payloads)
     with _build.launching_on(keys) as stream:
         code = _build.library().smj_multiway_merge(
-            keys.data_ptr(), out.data_ptr(), keys.numel(), total, span,
-            fanin, stream)
+            keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
+            out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
+            keys.numel(), total, span, fanin, stream)
     _build.check("smj_multiway_merge", code)
-    LAUNCHES += 1
-    return out, new_lens
+    if payloads is None:
+        LAUNCHES += 1
+        return out_k, new_lens
+    PAIR_LAUNCHES += 1
+    return (out_k, out_p), new_lens
 
 
 def sort_blocks_phase(keys: torch.Tensor, n: int,
-                      block: int = BLOCKSIZE_DEFAULT) -> torch.Tensor:
-    """Phase 1 of the multiway sort: sort each ``block``-key block ascending
-    (the in-cache sort of partitions, sortmergejoin_multiway.c:388-460).
-    Returns the flat padded column of ``max(1, cdiv(n, block)) * block``
-    keys."""
-    return sort_ops.sort_blocks(keys, n, block)
+                      block: int = BLOCKSIZE_DEFAULT,
+                      payloads: torch.Tensor | None = None):
+    """Phase 1 of the multiway sort: sort each ``block``-element block
+    ascending (the in-cache sort of partitions,
+    sortmergejoin_multiway.c:388-460), K1 for keys and K5 for pairs.
+    Returns the flat padded column(s) of ``max(1, cdiv(n, block)) * block``
+    slots."""
+    if payloads is None:
+        return sort_ops.sort_blocks(keys, n, block)
+    return sort_ops.sort_blocks_pairs(keys, payloads, n, block)
 
 
 def merge_levels(n: int, block: int, fanin: int):
@@ -92,23 +119,29 @@ def merge_levels(n: int, block: int, fanin: int):
     return levels
 
 
-def merge_level(keys: torch.Tensor, n: int, level) -> torch.Tensor:
+def merge_level(keys: torch.Tensor, n: int, level,
+                payloads: torch.Tensor | None = None):
     """One k-way merge level over the uniform-lens layout."""
     _, span, nruns, w = level
-    merged, _ = multiway_merge(keys, w, (nruns, n, span))
+    merged, _ = multiway_merge(keys, w, (nruns, n, span), payloads)
     return merged
 
 
 def multiway_sort(keys: torch.Tensor, n: int | None = None,
-                  block: int = BLOCKSIZE_DEFAULT,
-                  fanin: int = 16) -> torch.Tensor:
-    """Full ascending sort of ``keys[:n]``: block sort, then
+                  block: int = BLOCKSIZE_DEFAULT, fanin: int = 16,
+                  payloads: torch.Tensor | None = None):
+    """Full ascending sort of ``keys[:n]``, or of the first ``n`` (key,
+    payload) pairs in lexicographic order: block sort, then
     log_fanin(#blocks) k-way merge levels (avxsort_multiway.c:96-152).
-    Returns the flat padded column; its live prefix is ``[:n]``."""
+    Returns the flat padded column(s); the live prefix is ``[:n]``."""
     if n is None:
         n = int(keys.numel())
-    ks = sort_blocks_phase(keys, n, block)
+    if payloads is None:
+        ks = sort_blocks_phase(keys, n, block)
+        for level in merge_levels(n, block, fanin):
+            ks = merge_level(ks, n, level)
+        return ks
+    ks, ps = sort_blocks_phase(keys, n, block, payloads)
     for level in merge_levels(n, block, fanin):
-        ks = merge_level(ks, n, level)
-    return ks
-
+        ks, ps = merge_level(ks, n, level, ps)
+    return ks, ps

@@ -322,23 +322,27 @@ def sort_torch(keys: torch.Tensor, payloads: torch.Tensor):
 
 
 def two_run_layout(ka: torch.Tensor, kb: torch.Tensor, na: int, nb: int,
-                   pa: int, pb: int):
+                   pa=None, pb=None):
     """The uniform-lens layout of a 2-run merge: run A = ``ka[:na]`` at
-    slot 0, run B = ``kb[:nb]`` at slot ``span = max(na, nb, 1)``, every
-    pair of A with payload ``pa`` and of B with ``pb`` (the tag-merge's
-    source flags).  A's slots from ``na`` to ``span`` hold the pad
-    (INT32_MAX, INT32_MAX), which sorts after every real pair, so the first
-    ``na + nb`` merged pairs are the real ones.  Both runs ascending.
+    slot 0, run B = ``kb[:nb]`` at slot ``span = max(na, nb, 1)``.  ``pa``
+    and ``pb`` fill the payload column: a column each (``pa[:na]``,
+    ``pb[:nb]``), or an int each that every pair of the run gets (the
+    tag-merge's source flags); None for keys only.  A's slots from ``na``
+    to ``span`` hold the pad INT32_MAX (on both columns), which sorts after
+    every real element, so the first ``na + nb`` merged elements are the
+    real ones.  Both runs ascending.
 
-    Returns ``(keys, payloads, uniform_lens)``.
+    Returns ``(keys, payloads or None, uniform_lens)``.
     """
     span = max(na, nb, 1)
     total = span + nb
     keys = torch.full((total,), KEY_POS_INF, dtype=torch.int32,
                       device=ka.device)
-    payloads = torch.full_like(keys, KEY_POS_INF)
     keys[:na] = ka[:na]
     keys[span:] = kb[:nb]
-    payloads[:na] = pa
-    payloads[span:] = pb
+    payloads = None
+    if pa is not None:
+        payloads = torch.full_like(keys, KEY_POS_INF)
+        payloads[:na] = pa if isinstance(pa, int) else pa[:na]
+        payloads[span:] = pb if isinstance(pb, int) else pb[:nb]
     return keys, payloads, (max(1, cdiv(total, span)), total, span)

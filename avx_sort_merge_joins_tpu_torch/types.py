@@ -97,7 +97,7 @@ class JoinConfig:
     scalar_sort: bool = False  # torch.sort instead of K1 + K2
     scalar_merge: bool = False  # torch.sort + tagged-cumsum count instead
     mwaybufsize_bytes: int = 0  # not yet ported: must stay 0
-    materialize: bool = False  # not yet ported: must stay False
+    materialize: bool = False  # produce output tuples (m-way only)
 
 
 @dataclasses.dataclass

@@ -31,18 +31,36 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    mpsm --nchunks 4`` at -r 128000000 -s 128000000 (unique R,
    foreign-key S, data made on the card) must print ``Results =
    128000000`` and launch their kernels (m-way: K1 K2 K3; m-pass: K1 K4
-   K3; mpsm: K1 K2 K3).
+   K3; mpsm: K1 K2 K3).  Phase 9's two paths run here too.
 7. Pair sort and tag-merge count: ``sort``/``sort_descending`` of 16M
    seeded pairs must equal ``sort_torch`` and its reverse (K5 and K4
    launching); the tag-merge count of 16M x 16M duplicate-heavy keys
    (K4 in pair mode) must equal K3's count and the torch.sort baseline.
-8. Non-unique join at 16M x 16M: the count must equal the torch.sort
-   baseline on the same relations.
+8. Kernel vs plain, pair merges and 64-bit counts, exact: K6 (pair
+   multiway merge) at fan-in 2, 4 and 16 over two levels with ragged
+   totals, identical pairs in several runs and pad-valued payloads, then
+   at every level of a 128M-pair sort (fan-in 16, 16, 16, 2; timed) and of
+   a 32M-pair one (16, 16, 8); K7 (64-bit match count) on keys whose hi
+   plane varies, on one hot key whose product passes 2^31, and on 128M x
+   128M sorted planes (timed).
+9. The materializing and KEY_8B paths: ``-a m-way --materialize`` and
+   ``--key8b`` through the CLI at -r 128000000 -s 128000000 must print
+   ``Results = 128000000`` and launch K1 K2 K5 K6, and K5 K6 K7; the same
+   materializing join through ``sortmergejoin_multiway`` in the process
+   must give the plain route's relation row for row (``sort_torch`` of S:
+   R is the primary key, so every S tuple matches once); ``--materialize
+   --persist`` at 1M x 1M must write R.tbl, S.tbl and an Out.tbl that
+   reads back as the output relation; ``--key8b --scalarsort`` at 16M must
+   print the kernel route's count.
+10. Non-unique relations at 16M x 16M (generated once on the host): the
+   count join must equal the torch.sort baseline, and the materializing
+   join must give as many rows as that count and the same expanded rows
+   as the plain route (duplicate R keys: one row per match pair).
 
 The line before the last is one JSON object with each kernel's launches
-over the runs of phases 6 and 7, its largest error in phases 3-5, its
-times, its bound and its library yardstick's time; the last line is
-``{"ok": true, "device": {...}}``.
+over the runs of phases 6, 7 and 9, its largest error in phases 3-5 and
+8, its times, its bound and its library yardstick's time; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,6 +73,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # The smoke uses one card.  Pin the process to the first visible one, so
@@ -86,12 +105,21 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "K3": ("K3 merge_join_count", "merge_join_count.cu", "mergejoin.py:179"),
     "K4": ("K4 merge_pass", "merge_pass.cu", "sort.py:279"),
     "K5": ("K5 block_sort_pairs", "block_sort_pairs.cu", "sort.py:86"),
+    "K6": ("K6 multiway_merge_pairs", "multiway_merge.cu",
+           "multiwaymerge.py:85"),
+    "K7": ("K7 merge_join_count64", "merge_join_count.cu",
+           "mergejoin.py:747"),
 }
 PATHS = {  # join path -> (CLI flags, kernels it must launch)
     "m-way": (["-a", "m-way"], ("K1", "K2", "K3")),
     "m-pass": (["-a", "m-pass"], ("K1", "K4", "K3")),
     "mpsm": (["-a", "mpsm", "--nchunks", "4"], ("K1", "K2", "K3")),
+    "materialize": (["-a", "m-way", "--materialize"],
+                    ("K1", "K2", "K5", "K6")),
+    "key8b": (["--key8b"], ("K5", "K6", "K7")),
 }
+KEY8B_SCALAR_N = 16_000_000
+PERSIST_N = 1_000_000
 
 
 def log(msg: str) -> None:
@@ -492,6 +520,7 @@ def reset_launches() -> None:
 
     sort_ops.LAUNCHES = mw.LAUNCHES = mergejoin.LAUNCHES = 0
     sort_ops.MERGE_PASS_LAUNCHES = sort_ops.PAIR_SORT_LAUNCHES = 0
+    mw.PAIR_LAUNCHES = mergejoin.LAUNCHES64 = 0
 
 
 def launches() -> dict[str, int]:
@@ -501,7 +530,8 @@ def launches() -> dict[str, int]:
 
     return {"K1": sort_ops.LAUNCHES, "K2": mw.LAUNCHES,
             "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
-            "K5": sort_ops.PAIR_SORT_LAUNCHES}
+            "K5": sort_ops.PAIR_SORT_LAUNCHES, "K6": mw.PAIR_LAUNCHES,
+            "K7": mergejoin.LAUNCHES64}
 
 
 def check_launched(path: str, counts: dict, need) -> None:
@@ -568,8 +598,11 @@ def phase_pair_sort(dev: torch.device) -> dict[str, int]:
 
 
 def phase_nonunique(dev: torch.device) -> None:
+    """The count join and the materializing join of one pair of
+    host-generated ``--non-unique`` relations (duplicate R keys)."""
     from avx_sort_merge_joins_tpu_torch import cli
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     args = cli.build_parser().parse_args(
         ["-a", "m-way", "-r", str(NONUNIQUE_N), "-s", str(NONUNIQUE_N),
@@ -589,6 +622,237 @@ def phase_nonunique(dev: torch.device) -> None:
     if res.totalresults != want:
         raise AssertionError("non-unique count != torch.sort baseline")
 
+    args.materialize = True
+    res = cli.run_join(args, R, S)
+    out = res.resultlist[0].results
+    # the plain route: S in (key, payload) order, each tuple once per R
+    # tuple of its key, the multiplicities from the unique R keys' counts
+    sks, sps = sort_ops.sort_torch(S.keys[:S.num_tuples],
+                                   S.payloads[:S.num_tuples])
+    ru, rc = torch.unique(rs, return_counts=True)
+    at = torch.searchsorted(ru, sks).clamp(max=ru.numel() - 1)
+    mult = torch.where(ru[at] == sks, rc[at], 0)
+    ek = torch.repeat_interleave(sks, mult)
+    ep = torch.repeat_interleave(sps, mult)
+    log(f"[nonunique] materialize: Results = {res.totalresults}, "
+        f"{out.num_tuples} output rows, plain route {ek.numel()} rows, "
+        f"phases { {k: round(v * 1e3, 3) for k, v in res.phases.items()} } "
+        f"ms")
+    if not res.totalresults == out.num_tuples == want == ek.numel():
+        raise AssertionError("non-unique materialize: row count != baseline")
+    if not (torch.equal(out.keys, ek) and torch.equal(out.payloads, ep)):
+        raise AssertionError("non-unique materialize: rows != plain route")
+
+
+def wide_planes(n: int, gen: torch.Generator, dev: torch.device):
+    """Sorted (hi, lo_biased) planes of n int64 keys drawn from 2^20 values
+    spread over the int64 range, so that the hi plane varies and keys
+    repeat; and the sorted int64 keys."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    pool = torch.randint(-(2**62), 2**62, (1 << 20,), generator=gen,
+                         dtype=torch.int64, device=dev)
+    keys = torch.sort(pool[torch.randint(0, 1 << 20, (n,), generator=gen,
+                                         device=dev)]).values
+    return (*sort_ops.unpack_pairs(keys), keys)
+
+
+def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
+    """Exactness of K6 and K7 against their plain versions; then their
+    times at the main paths' shapes."""
+    from avx_sort_merge_joins_tpu_torch.ops import join64, mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    rng = np.random.default_rng(20261018)
+    for case, host in key_cases(CHECK_N, rng).items():
+        k, p = (torch.from_numpy(a).to(dev)
+                for a in seeded_pairs(CHECK_N, rng, host))
+        n = CHECK_N
+        for fanin in (2, 4, 16):
+            # two levels; the last group of each has fewer than fanin runs
+            rk, rp = sort_ops.sort_blocks_pairs_plain(k, p, n, BLOCK)
+            span, nruns = BLOCK, sort_ops.cdiv(n, BLOCK)
+            for _ in range(2):
+                lens = (nruns, n, span)
+                want = mw.multiway_merge_plain(rk, fanin, lens, rp)
+                record("K6", f"{case} fanin={fanin} span={span}",
+                       mw.multiway_merge(rk, fanin, lens, rp)[0], want)
+                (rk, rp), span, nruns = (want, span * fanin,
+                                         sort_ops.cdiv(nruns, fanin))
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for n in (MAIN_N, MAIN_N // 4):
+        timed = n == MAIN_N
+        keys = torch.randint(1, n + 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        pays = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        rk, rp = sort_ops.sort_blocks_pairs(keys, pays, n)
+        del keys, pays
+        for level in mw.merge_levels(n, BLOCK, 16):
+            _, span, nruns, w = level
+            lens = (nruns, n, span)
+            got = mw.multiway_merge(rk, w, lens, rp)[0]
+            want = mw.multiway_merge_plain(rk, w, lens, rp)
+            record("K6", f"n={n} level={level}", got, want)
+            del got
+            if timed:
+                lib_in = padded_rows(sort_ops.pack_pairs(rk, rp), n,
+                                     w * span, 2**63 - 1)
+                ms = time_ms(lambda: mw.multiway_merge(rk, w, lens, rp))
+                plain = time_ms(lambda: mw.multiway_merge_plain(rk, w, lens,
+                                                                rp))
+                library = time_ms(lambda: lib_in.sort(dim=1))
+                del lib_in
+                times.add("K6", ms, plain, library, 16 * n, n * math.log2(w))
+                log(f"[time] K6 level (stride, span, nruns, w)={level}: "
+                    f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
+                    f"{library:.3f} ms")
+            rk, rp = want
+        del rk, rp, want
+    log(f"[time] K6 all levels of an n={MAIN_N} pair sort: "
+        f"{times.entry('K6')}")
+
+    # K7: a varying hi plane, with the torch.sort count as a third opinion
+    n = CHECK_N
+    rhi, rlo, r64 = wide_planes(n, gen, dev)
+    shi, slo, s64 = wide_planes(n // 2, gen, dev)
+    # the two sides draw from different pools: make them share keys
+    shi, slo, s64 = (torch.cat([a[:n // 4], b[:n // 2 - n // 4]])
+                     for a, b in ((rhi, shi), (rlo, slo), (r64, s64)))
+    s64, order = torch.sort(s64)
+    shi, slo = shi[order].contiguous(), slo[order].contiguous()
+    got = mergejoin.merge_join_count_fused64(rhi, rlo, shi, slo, n, n // 2)
+    record("K7", "wide_keys", got, mergejoin.merge_join_count_fused64_plain(
+        rhi, rlo, shi, slo, n, n // 2))
+    base = int(join64.merge_join_count_torch64(r64, s64))
+    if int(got) != base or base < n // 4:
+        raise AssertionError(f"K7 wide keys: {int(got)} != baseline {base}")
+    # equal hi planes with different lo planes never match
+    even = torch.arange(0, 2 * n, 2, dtype=torch.int32, device=dev)
+    same_hi = torch.full_like(even, -3)
+    record("K7", "no_matches", mergejoin.merge_join_count_fused64(
+        same_hi, even, same_hi, even + 1, n, n),
+        mergejoin.merge_join_count_fused64_plain(same_hi, even, same_hi,
+                                                 even + 1, n, n))
+    hot = torch.full((1 << 16,), 7, dtype=torch.int32, device=dev)
+    got = mergejoin.merge_join_count_fused64(hot, -hot, hot, -hot, 1 << 16,
+                                             1 << 16)
+    record("K7", "hot_key_2^32", got,
+           mergejoin.merge_join_count_fused64_plain(hot, -hot, hot, -hot,
+                                                    1 << 16, 1 << 16))
+    if int(got) != 1 << 32:
+        raise AssertionError(f"K7 hot key: {int(got)} != 2^32")
+    del rhi, rlo, r64, shi, slo, s64, even, same_hi
+
+    # 128M x 128M: the KEY_8B path's planes (int32 keys widened)
+    rhi, rlo = join64.widen32(torch.arange(1, MAIN_N + 1, dtype=torch.int32,
+                                           device=dev))
+    shi, slo = join64.widen32(torch.sort(torch.randint(
+        1, MAIN_N + 1, (MAIN_N,), generator=gen, dtype=torch.int32,
+        device=dev)).values)
+    got = mergejoin.merge_join_count_fused64(rhi, rlo, shi, slo, MAIN_N,
+                                             MAIN_N)
+    record("K7", "main_shape", got, mergejoin.merge_join_count_fused64_plain(
+        rhi, rlo, shi, slo, MAIN_N, MAIN_N))
+    if int(got) != MAIN_N:
+        raise AssertionError(f"K7 main shape: {int(got)} != {MAIN_N}")
+    # no one PyTorch call computes the count: no library yardstick
+    times.add("K7",
+              time_ms(lambda: mergejoin.merge_join_count_fused64(
+                  rhi, rlo, shi, slo, MAIN_N, MAIN_N)),
+              time_ms(lambda: mergejoin.merge_join_count_fused64_plain(
+                  rhi, rlo, shi, slo, MAIN_N, MAIN_N)),
+              None, 16 * MAIN_N + 8, 2 * MAIN_N)
+    log(f"[time] K7 count {MAIN_N} x {MAIN_N}: {times.entry('K7')}")
+
+
+def phase_materialize_in_process(dev: torch.device) -> dict[str, int]:
+    """The 128M materializing join through ``sortmergejoin_multiway``: the
+    output relation against the plain route's, row for row."""
+    from avx_sort_merge_joins_tpu_torch import cli
+    from avx_sort_merge_joins_tpu_torch.models.mway import \
+        sortmergejoin_multiway
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+    from avx_sort_merge_joins_tpu_torch.types import JoinConfig
+
+    args = cli.build_parser().parse_args(["-r", str(MAIN_N), "-s",
+                                          str(MAIN_N)])
+    R, S = cli.make_relations(args, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = sortmergejoin_multiway(R, S, JoinConfig(materialize=True))
+    torch.cuda.synchronize()
+    counts = launches()
+    out = res.resultlist[0].results
+    secs = res.phases["total"]
+    log(f"[materialize] sortmergejoin_multiway(materialize=True) "
+        f"{MAIN_N} x {MAIN_N}: {res.totalresults} results, "
+        f"{out.num_tuples} output rows in {secs * 1e3:.3f} ms "
+        f"({(2 * MAIN_N) / secs:.0f} tuples/s, "
+        f"{out.num_tuples / secs:.0f} output rows/s); launches {counts}")
+    check_launched("materialize (in process)", counts,
+                   PATHS["materialize"][1])
+    if not res.totalresults == out.num_tuples == MAIN_N:
+        raise AssertionError(f"materialize: {res.totalresults} results, "
+                             f"{out.num_tuples} rows != {MAIN_N}")
+    del R
+    # R is the primary key 1..|R|: every S tuple matches exactly once
+    wk, wp = sort_ops.sort_torch(S.keys, S.payloads)
+    if not (torch.equal(out.keys, wk) and torch.equal(out.payloads, wp)):
+        raise AssertionError("materialize: output relation != plain route")
+    log("[materialize] output relation equals sort_torch(S) row for row")
+    return counts
+
+
+def phase_persist(dev: torch.device) -> None:
+    """``--materialize --persist`` at 1M x 1M: the three files, and Out.tbl
+    read back against the output relation of the same join in process."""
+    from avx_sort_merge_joins_tpu_torch import cli, datagen
+
+    argv = ["-a", "m-way", "--materialize", "-r", str(PERSIST_N), "-s",
+            str(PERSIST_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc, stdout = run_cli([*argv, "--persist", tmp])
+        secs = time.perf_counter() - t0
+        if rc != 0 or results_of(stdout) != PERSIST_N:
+            raise AssertionError(f"persist: rc {rc}, {stdout!r}")
+        sizes = {}
+        for name in ("R.tbl", "S.tbl", "Out.tbl"):
+            path = os.path.join(tmp, name)
+            if not os.path.isfile(path):
+                raise AssertionError(f"persist: {name} missing")
+            sizes[name] = os.path.getsize(path)
+        back = datagen.read_relation(os.path.join(tmp, "Out.tbl"),
+                                     device=dev)
+    args = cli.build_parser().parse_args(argv)
+    out = cli.run_join(args, *cli.make_relations(args, dev)) \
+        .resultlist[0].results
+    log(f"[persist] {PERSIST_N} x {PERSIST_N} in {secs:.3f} s (generation, "
+        f"join and writes), bytes {sizes}; Out.tbl holds "
+        f"{back.num_tuples} rows")
+    if back.num_tuples != PERSIST_N or not (
+            torch.equal(back.keys, out.keys)
+            and torch.equal(back.payloads, out.payloads)):
+        raise AssertionError("persist: Out.tbl != the output relation")
+
+
+def phase_key8b_scalar() -> None:
+    """``--key8b --scalarsort`` against the kernel route at 16M x 16M."""
+    argv = ["--key8b", "-r", str(KEY8B_SCALAR_N), "-s", str(KEY8B_SCALAR_N)]
+    counts = []
+    for extra in ([], ["--scalarsort"]):
+        rc, stdout = run_cli([*argv, *extra])
+        if rc != 0:
+            raise AssertionError(f"key8b {extra}: exit code {rc}")
+        counts.append(results_of(stdout))
+    log(f"[key8b] {KEY8B_SCALAR_N} x {KEY8B_SCALAR_N}: kernel route "
+        f"{counts[0]}, --scalarsort {counts[1]}")
+    if not counts[0] == counts[1] == KEY8B_SCALAR_N:
+        raise AssertionError(f"key8b counts {counts} != {KEY8B_SCALAR_N}")
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -599,10 +863,14 @@ def main() -> int:
     phase_kernels(dev, times)
     phase_pair_kernels(dev, times)
     phase_path_shapes(dev)
+    phase_pair_merge_kernels(dev, times)
     total = {k: 0 for k in KERNELS}
-    for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev)]:
+    for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev),
+                   phase_materialize_in_process(dev)]:
         for k, v in counts.items():
             total[k] += v
+    phase_persist(dev)
+    phase_key8b_scalar()
     phase_nonunique(dev)
     src = "avx_sort_merge_joins_tpu_torch/csrc/"
     ref = "avx_sort_merge_joins_tpu/ops/"

@@ -136,3 +136,53 @@ def test_datagen_without_a_card_needs_the_cpu_named(maker, monkeypatch):
     tdg.seed_generator(5)
     rel = maker(device="cpu")
     assert rel.keys.device == CPU and rel.num_tuples == 100
+
+
+@pytest.mark.parametrize("n_pk,n_fk", [(5000, 12_345), (70_000, 70_001),
+                                       (300, 100)])
+def test_fk_from_pk_matches(n_pk, n_fk):
+    """Tiled copies of a full-range relation, Knuth-shuffled (host shuffle
+    below 65,536 keys, the native one from there on)."""
+    def make(dg, **kw):
+        pk = dg.create_relation_nonunique(n_pk, 2**31 - 1, **kw)
+        dg.seed_generator(n_fk)
+        return dg.create_relation_fk_from_pk(pk, n_fk, **kw)
+
+    trel = _pair(lambda: make(jdg), lambda: make(tdg, device=CPU), seed=n_pk)
+    assert trel.num_tuples == n_fk
+
+
+@pytest.mark.parametrize("native_writer", [True, False],
+                         ids=["native", "text"])
+def test_tbl_files_round_trip_and_match_jax(native_writer, tmp_path,
+                                            monkeypatch):
+    from avx_sort_merge_joins_tpu.datagen import native as jnative
+    from avx_sort_merge_joins_tpu_torch.datagen import native as tnative
+
+    if native_writer:
+        assert tnative.tblio_available() and jnative.tblio_available()
+    else:
+        monkeypatch.setattr(tnative, "tblio_available", lambda: False)
+        monkeypatch.setattr(jnative, "tblio_available", lambda: False)
+    rng = np.random.default_rng(3)
+    keys = rng.integers(-(2**31) + 2, 2**31 - 1, 5000).astype(np.int32)
+    keys[:2] = (-(2**31) + 2, 2**31 - 2)
+    pays = rng.integers(-(2**31), 2**31, 5000).astype(np.int32)
+    tpath, jpath = str(tmp_path / "t.tbl"), str(tmp_path / "j.tbl")
+    tgen.write_relation(Relation.from_numpy(keys[:3000], pays[:3000],
+                                            device=CPU), tpath)
+    tgen.append_rows(tpath, keys[3000:], pays[3000:])
+    jdg.write_relation(jdg.generator.Relation.from_numpy(keys[:3000],
+                                                         pays[:3000]), jpath)
+    jdg.append_rows(jpath, keys[3000:], pays[3000:])
+    with open(tpath, "rb") as t, open(jpath, "rb") as j:
+        assert t.read() == j.read()
+    back = tgen.read_relation(tpath, device=CPU)
+    assert back.num_tuples == 5000
+    np.testing.assert_array_equal(back.to_numpy()[0], keys)
+    np.testing.assert_array_equal(back.to_numpy()[1], pays)
+
+
+def test_tbl_read_of_a_missing_file_raises(tmp_path):
+    with pytest.raises(OSError):
+        tgen.read_relation(str(tmp_path / "none.tbl"), device=CPU)

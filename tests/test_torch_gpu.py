@@ -11,10 +11,12 @@ import torch
 
 from avx_sort_merge_joins_tpu_torch.datagen import generator as tgen
 from avx_sort_merge_joins_tpu_torch.models import mpass, mpsm, mway
+from avx_sort_merge_joins_tpu_torch.ops import join64 as tj
+from avx_sort_merge_joins_tpu_torch.ops import merge as tmg
 from avx_sort_merge_joins_tpu_torch.ops import mergejoin as tmj
 from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as tmw
 from avx_sort_merge_joins_tpu_torch.ops import sort as tsort
-from avx_sort_merge_joins_tpu_torch.types import Relation
+from avx_sort_merge_joins_tpu_torch.types import JoinConfig, Relation
 
 pytestmark = pytest.mark.gpu
 
@@ -49,8 +51,10 @@ def test_multiway_merge_kernel_equals_plain(cuda, n, span, fanin):
     runs = tsort.sort_blocks_plain(_keys(n, fanin, -1000, 1000).to(cuda), n,
                                    span)
     lens = (max(1, -(-n // span)), n, span)
+    before = tmw.LAUNCHES, tmw.PAIR_LAUNCHES
     got, new_lens = tmw.multiway_merge(runs, fanin, lens)
     torch.cuda.synchronize()
+    assert (tmw.LAUNCHES, tmw.PAIR_LAUNCHES) == (before[0] + 1, before[1])
     assert torch.equal(got, tmw.multiway_merge_plain(runs, fanin, lens))
     assert sum(new_lens) == n
 
@@ -177,3 +181,127 @@ def test_mpass_and_mpsm_joins_on_the_card(cuda, algo):
         res = mpsm.sortmergejoin_mpsm(R, S, nchunks=3)
         assert tmj.LAUNCHES - before == 3
     assert res.totalresults == tmj.merge_join_count_numpy(rk, sk)
+
+
+@pytest.mark.parametrize("n,span,fanin", [
+    (1, 1024, 2), (5000, 1024, 4), (70_001, 1024, 16), (70_001, 2048, 2),
+    (300_000, 16384, 16), (2049, 1000, 4)])
+@pytest.mark.parametrize("kmax,pmax", [(500, 2), (1, 0), (2**31 - 2, 2**31 - 2)])
+def test_pair_multiway_merge_kernel_equals_plain(cuda, n, span, fanin, kmax,
+                                                 pmax):
+    """K6: ragged totals, identical pairs in several runs (kmax=1, pmax=0)
+    and payloads equal to the pad values."""
+    k, p = (t.to(cuda) for t in _pairs(n, n + fanin, kmax, pmax))
+    nruns = max(1, -(-n // span))
+    rk, rp = tsort.unpack_pairs(tsort.sorted_groups(tsort.pack_pairs(k, p),
+                                                    n, span))
+    before = tmw.LAUNCHES, tmw.PAIR_LAUNCHES
+    (gk, gp), new_lens = tmw.multiway_merge(rk, fanin, (nruns, n, span), rp)
+    torch.cuda.synchronize()
+    assert (tmw.LAUNCHES, tmw.PAIR_LAUNCHES) == (before[0], before[1] + 1)
+    wk, wp = tmw.multiway_merge_plain(rk, fanin, (nruns, n, span), rp)
+    assert torch.equal(gk, wk) and torch.equal(gp, wp)
+    assert sum(new_lens) == n
+
+
+@pytest.mark.parametrize("n", [1, 16384, 16385, 1_000_003])
+def test_pair_multiway_sort_on_the_card_equals_sort_torch(cuda, n):
+    k, p = (t.to(cuda) for t in _pairs(n, 7, 1000, 5))
+    gk, gp = tmw.multiway_sort(k, n, fanin=4, payloads=p)
+    wk, wp = tsort.sort_torch(k, p)
+    assert torch.equal(gk[:n], wk) and torch.equal(gp[:n], wp)
+    assert bool((gk[n:] == 2**31 - 1).all() and (gp[n:] == 2**31 - 1).all())
+
+
+@pytest.mark.parametrize("na,nb", [(20000, 20000), (16384, 9000), (5, 40000),
+                                   (0, 7), (7, 0)])
+def test_merge_tuples_on_the_card(cuda, na, nb):
+    ka, pa = tsort.sort_torch(*(t.to(cuda) for t in _pairs(max(na, 1), 1,
+                                                           300, 2)))
+    kb, pb = tsort.sort_torch(*(t.to(cuda) for t in _pairs(max(nb, 1), 2,
+                                                           300, 2)))
+    gk, gp = tmg.merge_tuples(ka, pa, kb, pb, na, nb)
+    wk, wp = tmg.scalar_merge_tuples(ka, pa, kb, pb, na, nb)
+    assert torch.equal(gk, wk) and torch.equal(gp, wp)
+    gk, none = tmg.merge_tuples(ka, None, kb, None, na, nb)
+    assert none is None and torch.equal(gk, wk)
+
+
+def _wide_sorted_planes(n, seed, cuda):
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-(2**62), 2**62, max(2, n // 3)).astype(np.int64)
+    pool[0], pool[1] = 2**32 - 1, 2**32
+    keys = np.sort(pool[rng.integers(0, len(pool), n)])
+    hi, lo = tj.split64(keys)
+    return keys, torch.from_numpy(hi).to(cuda), torch.from_numpy(lo).to(cuda)
+
+
+@pytest.mark.parametrize("nR,nS", [(1, 1), (5000, 7000), (200_000, 150_000)])
+def test_count64_kernel_equals_plain(cuda, nR, nS):
+    """K7 on keys whose hi plane varies; equal hi with other lo never
+    matches."""
+    rk, rhi, rlo = _wide_sorted_planes(nR, 3, cuda)
+    sk, shi, slo = _wide_sorted_planes(nS, 3, cuda)
+    before = tmj.LAUNCHES64
+    got = tmj.merge_join_count_fused64(rhi, rlo, shi, slo, nR, nS)
+    torch.cuda.synchronize()
+    assert tmj.LAUNCHES64 == before + 1
+    assert got.dtype == torch.int64 and got.device.type == "cuda"
+    assert int(got) == int(tmj.merge_join_count_fused64_plain(
+        rhi, rlo, shi, slo, nR, nS)) == tj.merge_join_count_numpy64(rk, sk)
+    # the same hi plane against shifted lo planes: no match at all
+    assert int(tmj.merge_join_count_fused64(
+        torch.zeros_like(rhi), torch.arange(nR, dtype=torch.int32,
+                                            device=cuda) * 2,
+        torch.zeros_like(shi), torch.arange(nS, dtype=torch.int32,
+                                            device=cuda) * 2 + 1,
+        nR, nS)) == 0
+
+
+def test_count64_hot_key_passes_2_31(cuda):
+    n = 1 << 16
+    hi = torch.full((n,), 5, dtype=torch.int32, device=cuda)
+    lo = torch.full((n,), -9, dtype=torch.int32, device=cuda)
+    assert int(tmj.merge_join_count_fused64(hi, lo, hi, lo, n, n)) == 2**32
+
+
+@pytest.mark.parametrize("pallas_sort", [True, False])
+def test_key8b_join_on_the_card(cuda, pallas_sort):
+    rng = np.random.default_rng(11)
+    rk = rng.integers(-40_000, 40_000, 300_000).astype(np.int32)
+    sk = rng.integers(-40_000, 40_000, 200_001).astype(np.int32)
+    before = tsort.PAIR_SORT_LAUNCHES, tmw.PAIR_LAUNCHES, tmj.LAUNCHES64
+    (rhi, rlo), (shi, slo), count = tj.key8b_join_count(
+        torch.from_numpy(rk).to(cuda), torch.from_numpy(sk).to(cuda),
+        len(rk), len(sk), pallas_sort=pallas_sort)
+    after = tsort.PAIR_SORT_LAUNCHES, tmw.PAIR_LAUNCHES, tmj.LAUNCHES64
+    # 19 and 13 blocks: K5 per side, two K6 levels for R and one for S,
+    # one K7
+    assert [a - b for a, b in zip(after, before)] == \
+        ([2, 3, 1] if pallas_sort else [0, 0, 0])
+    assert tj.finish_count64(count) == tmj.merge_join_count_numpy(rk, sk)
+    np.testing.assert_array_equal(
+        tj.join64(shi.cpu().numpy(), slo.cpu().numpy()),
+        np.sort(sk.astype(np.int64)))
+
+
+@pytest.mark.parametrize("kind", ["pk_fk", "dup_r"])
+def test_mway_materialize_on_the_card(cuda, kind):
+    rng = np.random.default_rng(13)
+    nR, nS = 300_000, 200_001
+    rk = (rng.permutation(nR) if kind == "pk_fk"
+          else rng.integers(0, 50_000, nR)).astype(np.int32)
+    sk = rng.integers(0, 60_000 if kind == "dup_r" else nR + 999,
+                      nS).astype(np.int32)
+    sp = rng.integers(-3, 4, nS).astype(np.int32)
+    res = mway.sortmergejoin_multiway(
+        Relation.from_numpy(rk, device=cuda),
+        Relation.from_numpy(sk, sp, device=cuda), JoinConfig(materialize=True))
+    ru, rc = np.unique(rk, return_counts=True)
+    order = np.lexsort((sp, sk))
+    at = np.clip(np.searchsorted(ru, sk[order]), 0, len(ru) - 1)
+    mult = np.where(ru[at] == sk[order], rc[at], 0)
+    assert res.totalresults == int(mult.sum())
+    gk, gp = res.resultlist[0].results.to_numpy()
+    np.testing.assert_array_equal(gk, np.repeat(sk[order], mult))
+    np.testing.assert_array_equal(gp, np.repeat(sp[order], mult))

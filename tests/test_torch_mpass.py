@@ -232,7 +232,7 @@ def test_mpass_scalar_swaps_match_jax(swap):
 
 def test_mpass_refuses_materialize():
     rel = Relation.from_numpy(np.arange(10, dtype=np.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="m-way only"):
         tmpass.sortmergejoin_multipass(rel, rel,
                                        JoinConfig(materialize=True))
 

@@ -79,7 +79,7 @@ def test_mpsm_stops_at_empty_chunks(nS, nchunks, live):
 
 def test_mpsm_refuses_what_it_cannot_run():
     rel = Relation.from_numpy(np.arange(10, dtype=np.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="m-way only"):
         tmpsm.sortmergejoin_mpsm(rel, rel, JoinConfig(materialize=True))
     with pytest.raises(ValueError):
         tmpsm.sortmergejoin_mpsm(rel, rel, nchunks=0)

@@ -1,7 +1,8 @@
-"""K2 multiway merge and the multiway sort of the PyTorch port against the
-JAX package (Pallas in interpret mode, 1,024-key runs, 8-row tiles) and
-against numpy, on the CPU path of the wrapper (its plain PyTorch
-version)."""
+"""K2 and K6 multiway merges and the multiway sort of the PyTorch port,
+keys only and with payloads, against the JAX package (Pallas in interpret
+mode, 1,024-key runs, 8-row tiles) and against numpy, on the CPU path of
+the wrapper (its plain PyTorch version).  Tolerance: exact equality on the
+live prefix."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -92,3 +93,106 @@ def test_multiway_merge_rejects_bad_layouts(fanin, lens):
     keys = torch.zeros(4096, dtype=torch.int32)
     with pytest.raises(ValueError):
         tmw.multiway_merge(keys, fanin, lens)
+
+
+# --------------------------------------------------------------------------
+# pair mode: K6 and the payload-carrying multiway sort
+# --------------------------------------------------------------------------
+
+INT_MIN = -(2**31)
+
+
+def _pairs(n, seed, kmax, pmax):
+    """Seeded pairs with duplicate keys and payloads (so that identical
+    pairs sit in several runs) and payloads equal to both pad values."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-kmax, kmax + 1, n).astype(np.int32)
+    p = rng.integers(-pmax, pmax + 1, n).astype(np.int32)
+    p[::7] = INF
+    p[::5] = INT_MIN
+    return k, p
+
+
+def _lex_sorted(k, p):
+    order = np.lexsort((p, k))
+    return k[order], p[order]
+
+
+@pytest.mark.parametrize("n,fanin,kmax,pmax", [
+    (3000, 2, 2**31 - 2, 2**31 - 2),  # both ends of the key domain, 3 runs
+    (4000, 4, 3, 1),     # the same pair in every run, ragged last run
+    (2500, 16, 40, 2),   # 3 runs and 13 empty ones
+    (5000, 4, 0, 0),     # one key: the order is the payloads' alone
+])
+def test_multiway_merge_pairs_matches_jax(n, fanin, kmax, pmax):
+    k, p = _pairs(n, fanin + n, kmax, pmax)
+    rk2, rp2 = jmw.sort_blocks_phase(jnp.asarray(k), jnp.asarray(p), n, ROWS,
+                                     ROWS)
+    rk2, rp2 = np.asarray(rk2), np.asarray(rp2)
+    nruns = -(-n // SPAN)
+    rows = max(-(-nruns // fanin) * fanin * ROWS + 2 * ROWS, rk2.shape[0])
+    pad_k = np.full((rows, 128), INF, np.int32)
+    pad_p = np.full((rows, 128), INF, np.int32)
+    pad_k[:rk2.shape[0]], pad_p[:rp2.shape[0]] = rk2, rp2
+    want_k, want_p, want_lens = jmw.multiway_merge(
+        jnp.asarray(pad_k), jnp.asarray(pad_p), None, ROWS, fanin, ROWS,
+        uniform_lens=(nruns, n, SPAN))
+    flat_k = torch.from_numpy(rk2.reshape(-1)[:nruns * SPAN].copy())
+    flat_p = torch.from_numpy(rp2.reshape(-1)[:nruns * SPAN].copy())
+    (got_k, got_p), lens = tmw.multiway_merge(flat_k, fanin,
+                                              (nruns, n, SPAN), flat_p)
+    assert lens == want_lens
+    assert got_k.shape == got_p.shape == flat_k.shape
+    np.testing.assert_array_equal(got_k[:n].numpy(),
+                                  np.asarray(want_k).reshape(-1)[:n])
+    np.testing.assert_array_equal(got_p[:n].numpy(),
+                                  np.asarray(want_p).reshape(-1)[:n])
+    # slots from n on hold the pad pair (INT32_MAX, INT32_MAX)
+    assert bool((got_k[n:] == INF).all()) and bool((got_p[n:] == INF).all())
+    # every group is the lexicographic sort of its runs
+    for g in range(-(-nruns // fanin)):
+        lo, hi = g * fanin * SPAN, min(n, (g + 1) * fanin * SPAN)
+        ek, ep = _lex_sorted(k[lo:hi], p[lo:hi])
+        np.testing.assert_array_equal(got_k[lo:hi].numpy(), ek)
+        np.testing.assert_array_equal(got_p[lo:hi].numpy(), ep)
+
+
+@pytest.mark.parametrize("n,fanin", [
+    (1, 16),        # a single pair
+    (1024, 16),     # exactly one block: zero levels
+    (1025, 2),      # one block + 1
+    (3000, 4),      # a few blocks, one level
+    (5000, 2),      # five blocks, three levels with odd run counts
+])
+def test_multiway_sort_pairs_matches_jax(n, fanin):
+    k, p = _pairs(n, n, 20, 2)
+    want_k, want_p = jmw.multiway_sort(jnp.asarray(k), jnp.asarray(p), n,
+                                       ROWS, ROWS, fanin)
+    got_k, got_p = tmw.multiway_sort(torch.from_numpy(k), n, SPAN, fanin,
+                                     payloads=torch.from_numpy(p))
+    ek, ep = _lex_sorted(k, p)
+    np.testing.assert_array_equal(np.asarray(want_k), ek)
+    np.testing.assert_array_equal(np.asarray(want_p), ep)
+    np.testing.assert_array_equal(got_k[:n].numpy(), ek)
+    np.testing.assert_array_equal(got_p[:n].numpy(), ep)
+    assert bool((got_k[n:] == INF).all()) and bool((got_p[n:] == INF).all())
+
+
+@pytest.mark.parametrize("n,block,fanin", [
+    (300_001, 1024, 16), (300_001, 16384, 2), (70_000, 2048, 8)])
+def test_multiway_sort_pairs_against_numpy(n, block, fanin):
+    k, p = _pairs(n, fanin, 2**31 - 2, 2**31 - 2)
+    k[::11] = 5  # one hot key across every block
+    got_k, got_p = tmw.multiway_sort(torch.from_numpy(k), n, block, fanin,
+                                     payloads=torch.from_numpy(p))
+    ek, ep = _lex_sorted(k, p)
+    np.testing.assert_array_equal(got_k[:n].numpy(), ek)
+    np.testing.assert_array_equal(got_p[:n].numpy(), ep)
+
+
+def test_multiway_merge_rejects_mismatched_payloads():
+    keys = torch.zeros(4096, dtype=torch.int32)
+    for bad in (torch.zeros(4095, dtype=torch.int32),
+                torch.zeros(4096, dtype=torch.int64)):
+        with pytest.raises((ValueError, TypeError)):
+            tmw.multiway_merge(keys, 2, (4, 4096, 1024), bad)

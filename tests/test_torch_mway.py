@@ -84,7 +84,7 @@ def test_mway_count_past_2_31_at_the_default_block():
     assert res.totalresults == 2**32 + 5000 == merge_join_count_numpy(rk, sk)
 
 
-@pytest.mark.parametrize("config", [JoinConfig(materialize=True),
+@pytest.mark.parametrize("config", [JoinConfig(mwaybufsize_bytes=1),
                                     JoinConfig(mwaybufsize_bytes=1 << 20)])
 def test_mway_unported_options_raise(config):
     rel = Relation.from_numpy(np.arange(10, dtype=np.int32), device="cpu")
@@ -104,13 +104,17 @@ def test_cli_prints_the_pk_fk_count(capsys):
     assert record.split()[-1] == "cpu"
 
 
-@pytest.mark.parametrize("algo", ["m-way", "m-pass", "mpsm"])
-def test_cli_without_a_card_runs_only_when_told_cpu(algo, monkeypatch,
+@pytest.mark.parametrize("flags", [["-a", "m-way"], ["-a", "m-pass"],
+                                   ["-a", "mpsm"], ["--materialize"],
+                                   ["--key8b"],
+                                   ["--key8b", "--scalarsort"]],
+                         ids=lambda f: f[-1])
+def test_cli_without_a_card_runs_only_when_told_cpu(flags, monkeypatch,
                                                     capsys):
     """No silent CPU: without a card the CLI exits 1 and prints no result,
     unless it is given --device cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["-a", algo, "-r", "3000", "-s", "3000"]
+    argv = [*flags, "-r", "3000", "-s", "3000"]
     assert tcli.main(argv) == 1
     out, err = capsys.readouterr()
     assert "Results" not in out and "no CUDA device" in err
@@ -140,7 +144,7 @@ def test_cli_reference_golden_counts(argv, expected, capsys):
         == str(expected)
 
 
-@pytest.mark.parametrize("extra", [[], ["--non-unique"]])
+@pytest.mark.parametrize("extra", [[], ["--non-unique"], ["--full-range"]])
 def test_cli_builds_the_jax_cli_relations(extra):
     argv = ["-r", "30000", "-s", "20000", "-x", "7", "-y", "8", *extra]
     jR, jS = jcli.make_relations(jcli.build_parser().parse_args(argv))
@@ -152,7 +156,10 @@ def test_cli_builds_the_jax_cli_relations(extra):
 
 
 @pytest.mark.parametrize("argv", [["-S", "RING"], ["-n", "2"],
-                                  ["--materialize"], ["--key8b"],
+                                  ["-m", "1048576"], ["-o", "DIR"],
+                                  ["--mapping-file", "F"],
+                                  ["-a", "m-pass", "--materialize"],
+                                  ["-a", "mpsm", "--materialize"],
                                   ["-z", "0.5"], ["-f", "3"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert tcli.main(["-r", "100", "-s", "100", *argv]) == 2
