@@ -1,0 +1,14 @@
+"""Micro-benchmarks of the port (counterpart of
+``avx_sort_merge_joins_tpu/bench/``; reference: src/bench/ -- bench_sort,
+bench_merge, bench_multiwaymerge, bench_partitioning, tputbench).
+
+Run as modules, on the card by default (``--device cpu`` for the plain
+PyTorch versions; without a card they exit 1):
+
+    python -m avx_sort_merge_joins_tpu_torch.bench.sortbench 16 multiway
+    python -m avx_sort_merge_joins_tpu_torch.bench.partitioningbench \
+        8388608 all 7
+
+Each prints the JAX module's record line on stdout and a labelled line
+with the device's name on stderr, after checking its own output.
+"""

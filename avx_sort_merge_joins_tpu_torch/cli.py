@@ -5,13 +5,13 @@ output conventions -- ``Results = N`` on stdout, ``[STATS]``/``[RECORD]``
 on stderr so scripts can split the streams (joincommon.c:175-196).
 
 Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
--x -y -f --nchunks --scalarsort --scalarmerge --non-unique --full-range``,
-the materializing m-way join (``--materialize``), ``--persist DIR`` and the
-64-bit-key count join (``--key8b``).  Every other flag of the reference is
-parsed and refused with "not yet ported" and exit code 2.  Relations and
-kernels run on the card (``--device cuda``, the default; without a card
-the CLI exits 1).  ``--device cpu`` runs them on the CPU through the
-kernels' plain PyTorch versions.
+-x -y -z -f --nchunks --scalarsort --scalarmerge --non-unique
+--full-range``, the materializing m-way join (``--materialize``),
+``--persist DIR`` and the 64-bit-key count join (``--key8b``).  Every
+other flag of the reference is parsed and refused with "not yet ported"
+and exit code 2.  Relations and kernels run on the card (``--device
+cuda``, the default; without a card the CLI exits 1).  ``--device cpu``
+runs them on the CPU through the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-x", "--r-seed", type=int, default=12345)
     p.add_argument("-y", "--s-seed", type=int, default=54321)
     p.add_argument("-z", "--skew", type=float, default=0.0,
-                   help="Zipf skew parameter for S (not yet ported)")
+                   help="Zipf skew parameter for S")
     p.add_argument("--non-unique", action="store_true",
                    help="R keys drawn uniformly instead of unique 1..|R|")
     p.add_argument("--full-range", action="store_true",
@@ -86,7 +86,6 @@ def _not_ported(args) -> list[str]:
     """The flags of this run that the port does not carry yet."""
     checks = [
         (args.nthreads != 1, f"-n {args.nthreads}"),
-        (args.skew > 0, "-z"),
         (args.numastrategy != "NEXT", "-S"),
         (args.mwaybufsize != 0, "-m"),
         (args.perfout is not None, "-o"),
@@ -100,6 +99,7 @@ def make_relations(args, device):
 
     default      R = parallel_create_relation(|R|, maxid=|R|)   (unique)
                  S = parallel_create_relation(|S|, maxid=|R|)   (uniform fk)
+                     or create_relation_zipf(|S|, |R|, z) under --skew
     --non-unique R, S = create_relation_nonunique(size, |R|)
     --full-range R = create_relation_nonunique(|R|, INT_MAX)
                  S = create_relation_fk_from_pk(R, |S|)
@@ -128,6 +128,10 @@ def make_relations(args, device):
         info(f"Creating non-unique S with {args.s_size} tuples")
         S = datagen.create_relation_nonunique(args.s_size, args.r_size,
                                               device=device)
+    elif args.skew > 0:
+        info(f"Creating Zipf S with {args.s_size} tuples, z={args.skew}")
+        S = datagen.create_relation_zipf(args.s_size, args.r_size, args.skew,
+                                         device=device)
     else:
         info(f"Creating uniform fk S with {args.s_size} tuples")
         S = datagen.parallel_create_relation(args.s_size, args.r_size,

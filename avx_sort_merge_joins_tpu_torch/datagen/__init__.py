@@ -7,6 +7,7 @@ from .generator import (  # noqa: F401
     create_relation_fk_from_pk,
     create_relation_nonunique,
     create_relation_pk,
+    create_relation_zipf,
     parallel_create_relation,
     read_relation,
     seed_generator,

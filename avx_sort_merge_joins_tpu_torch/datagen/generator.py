@@ -1,5 +1,5 @@
 """Workload generators (counterpart of
-``avx_sort_merge_joins_tpu/datagen/generator.py:38-205,221-294``; reference:
+``avx_sort_merge_joins_tpu/datagen/generator.py:38-294``; reference:
 src/datagen/generator.c).
 
 The same seed gives the same relations as the JAX package:
@@ -18,6 +18,8 @@ The same seed gives the same relations as the JAX package:
   Knuth-shuffled (generator.c:452-488).
 * ``create_relation_nonunique``: keys = RAND_RANGE(maxid), payload = n - i
   (generator.c:215-231,490-505).
+* ``create_relation_zipf``: Zipf-skewed keys from ``genzipf.gen_zipf``
+  (generator.c:517-534).
 * ``write_relation`` / ``append_rows`` / ``read_relation``: the reference's
   ``.tbl`` text format, one "key payload" pair per line
   (generator.c:200-213), through the native writer when it builds.
@@ -37,6 +39,7 @@ import torch
 
 from ..types import Relation, default_device
 from .c_rng import RAND_MAX, GlibcRand
+from .genzipf import gen_zipf
 
 _global_rng: Optional[GlibcRand] = None
 
@@ -213,6 +216,16 @@ def create_relation_nonunique(num_tuples: int, maxid: int,
     keys = (draws / float(RAND_MAX + 1) * maxid).astype(np.int32)
     payloads = (num_tuples - np.arange(num_tuples, dtype=np.int64)).astype(
         np.int32)
+    return Relation.from_numpy(keys, payloads, capacity, _device(device))
+
+
+def create_relation_zipf(num_tuples: int, maxid: int, zipf_param: float,
+                         capacity: Optional[int] = None,
+                         device=None) -> Relation:
+    """Zipf-skewed foreign-key relation over 1..maxid, payloads 5.. in
+    order (generator.c:517-534, genzipf.c)."""
+    keys = gen_zipf(num_tuples, maxid, zipf_param, _check_seed())
+    payloads = np.arange(5, 5 + num_tuples, dtype=np.int32)
     return Relation.from_numpy(keys, payloads, capacity, _device(device))
 
 

@@ -1,7 +1,7 @@
-"""ctypes bindings of the native Knuth shuffle in the repository's
-``csrc/datagen.c`` and of the ``.tbl`` reader and writer in
+"""ctypes bindings of the native Knuth shuffle and Zipf loops in the
+repository's ``csrc/datagen.c`` and of the ``.tbl`` reader and writer in
 ``csrc/tblio.cc`` (counterpart of
-``avx_sort_merge_joins_tpu/datagen/native.py:27-158``).
+``avx_sort_merge_joins_tpu/datagen/native.py:27-184``).
 
 The unchanged sources are compiled on first use with the system C and C++
 compilers into the port's own build directory (``csrc/build/`` inside this
@@ -62,8 +62,15 @@ def _load():
             return None  # no C compiler or source: the NumPy path is used
         u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         lib.knuth_shuffle_i32.argtypes = [i32p, ctypes.c_int64, u32p]
-        lib.knuth_shuffle_i32.restype = None
+        lib.alphabet_shuffle_i64.argtypes = [i64p, ctypes.c_int64, u32p]
+        lib.zipf_fill_i32.argtypes = [f64p, i64p, ctypes.c_int64, i32p,
+                                      ctypes.c_int64, u32p]
+        for fn in (lib.knuth_shuffle_i32, lib.alphabet_shuffle_i64,
+                   lib.zipf_fill_i32):
+            fn.restype = None
         _lib = lib
         return _lib
 
@@ -85,6 +92,27 @@ def knuth_shuffle(keys: np.ndarray, rng: GlibcRand) -> None:
     if keys.dtype != np.int32 or not keys.flags.c_contiguous:
         raise ValueError("knuth_shuffle needs a contiguous int32 array")
     lib.knuth_shuffle_i32(keys, keys.shape[0], _hist(rng))
+
+
+def alphabet_shuffle(alphabet: np.ndarray, rng: GlibcRand) -> None:
+    """In-place Fisher-Yates of the int64 Zipf alphabet with genzipf's
+    ``k = i * rand() / RAND_MAX`` (genzipf.c:43-51)."""
+    lib = _load()
+    if alphabet.dtype != np.int64 or not alphabet.flags.c_contiguous:
+        raise ValueError("alphabet_shuffle needs a contiguous int64 array")
+    lib.alphabet_shuffle_i64(alphabet, alphabet.shape[0], _hist(rng))
+
+
+def zipf_fill(lut: np.ndarray, alphabet: np.ndarray, n: int,
+              rng: GlibcRand) -> np.ndarray:
+    """``n`` Zipf draws: the first ``lut`` entry >= rand()/RAND_MAX picks
+    the alphabet letter (genzipf.c:97-159).  Returns int32 keys."""
+    lib = _load()
+    out = np.empty(n, dtype=np.int32)
+    alphabet = np.ascontiguousarray(alphabet, np.int64)
+    lib.zipf_fill_i32(np.ascontiguousarray(lut, np.float64), alphabet,
+                      alphabet.shape[0], out, n, _hist(rng))
+    return out
 
 
 # --------------------------------------------------------------------------

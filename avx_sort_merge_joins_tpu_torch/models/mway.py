@@ -15,6 +15,9 @@ Both relations sort ascending: the TPU package sorts S negated so that its
 count kernel can read S back to front; the port drops that layout.
 ``--scalarsort`` swaps K1+K2 for ``torch.sort``; ``--scalarmerge`` swaps the
 whole pipeline for ``torch.sort`` and the tagged prefix-sum count.
+``_mway_count_device`` under ``SMJ_COUNT2=1`` stops both sorts at two runs
+and counts with K10; the phased join ignores the switch, as the JAX one
+does.
 
 With ``JoinConfig.materialize`` the join runs as one "sortmerge" phase: R
 keys through K1 + K2, S tuples through K5 + K6 (the payload-carrying
@@ -23,6 +26,8 @@ per match pair when some R key repeats (``ops/materialize.py``).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -35,21 +40,44 @@ FANIN_DEFAULT = 16
 BLOCK_MWAY = BLOCKSIZE_DEFAULT
 
 
+def _sort_to_two_runs(keys: torch.Tensor, n: int, block: int, levels):
+    """The block sort and the merge levels of ``merge_levels_2runs``: the
+    keys as two ascending runs."""
+    ks = mw.sort_blocks_phase(keys, n, block)
+    for level in levels:
+        ks = mw.merge_level(ks, n, level)
+    return ks
+
+
 def _mway_count_device(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
                        fanin: int, block: int, scalar_sort: bool = False,
                        scalar_merge: bool = False) -> torch.Tensor:
     """Count-only m-way join in one go: keys-only sorts and the fused count
     (an int64 0-d tensor).  ``scalar_sort``/``scalar_merge`` swap in the
     ``torch.sort`` baselines (the reference's --scalarsort/--scalarmerge,
-    main.c:727-728)."""
+    main.c:727-728).
+
+    With ``SMJ_COUNT2=1`` in the environment (the JAX package's own switch,
+    read at call time) both sorts stop at two runs
+    (``merge_levels_2runs``) and the two-run count K10 takes the place of
+    the last merge level; when either side ends at one run, both take the
+    normal route (models/mway.py:97-116 of the JAX package)."""
     if scalar_merge or scalar_sort:
         rks = torch.sort(rk[:nR]).values
         sks = torch.sort(sk[:nS]).values
         if scalar_merge:
             return mergejoin.merge_join_count_torch(rks, sks, nR, nS)
-    else:
-        rks = mw.multiway_sort(rk, nR, block, fanin)
-        sks = mw.multiway_sort(sk, nS, block, fanin)
+        return mergejoin.merge_join_count_fused(rks, sks, nR, nS)
+    if os.environ.get("SMJ_COUNT2", "0") == "1":
+        levels_r, span_r, nruns_r = mw.merge_levels_2runs(nR, block, fanin)
+        levels_s, span_s, nruns_s = mw.merge_levels_2runs(nS, block, fanin)
+        if nruns_r == 2 and nruns_s == 2:
+            return mergejoin.merge_join_count_fused2(
+                _sort_to_two_runs(rk, nR, block, levels_r),
+                _sort_to_two_runs(sk, nS, block, levels_s), nR, nS, span_r,
+                span_s)
+    rks = mw.multiway_sort(rk, nR, block, fanin)
+    sks = mw.multiway_sort(sk, nS, block, fanin)
     return mergejoin.merge_join_count_fused(rks, sks, nR, nS)
 
 

@@ -1,6 +1,7 @@
-"""Merge-join match count: kernels K3 and K7, their combine, the tag-merge
-count and oracles (counterpart of
-``avx_sort_merge_joins_tpu/ops/mergejoin.py:41-100,432-530,973-1101``).
+"""Merge-join match count: kernels K3, K7 and K10, their combine, the
+tag-merge count and oracles (counterpart of
+``avx_sort_merge_joins_tpu/ops/mergejoin.py``, lines 41-100, 432-530,
+692-745 and 973-1101).
 
 ``merge_join_count_fused`` returns sum_k cntR(k) * cntS(k) over two
 ascending key columns as an int64 0-d tensor.  On a CUDA tensor it
@@ -10,12 +11,17 @@ second, independent exact count: two K4 pair-mode merges of R and S with
 a source flag in the payload.  ``merge_join_count_fused64`` is the same
 count over 64-bit keys given as two int32 planes per side (K7, in the same
 source), with ``merge_join_count_fused64_plain`` beside it.
+``merge_join_count_fused2`` is the count where each side holds two
+ascending runs, the output of a multiway sort stopped one level early (K10,
+in the same source), with ``merge_join_count_fused2_plain`` beside it.
 
 TPU workarounds dropped: the ``(rows, 128)`` tiles, the front guard and
 spare window rows, the negated-S and NOT-plane layouts (S is passed
 ascending), and the base-2^30 count limbs
 with their ``CountLimbOverflow`` flag -- the count is int64 throughout, so
-a hot key with cntR * cntS >= 2^29 needs no recount.
+a hot key with cntR * cntS >= 2^29 needs no recount.  K10 also drops the
+4-way tagged select, the double-buffered windows and the ``ensure_rows``
+spare rows: it merges nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from . import sort as sort_ops
 
 LAUNCHES = 0  # K3 kernel launches since the last reset
 LAUNCHES64 = 0  # K7
+LAUNCHES2 = 0  # K10
 
 
 def merge_join_count_fused_plain(rk: torch.Tensor, sk: torch.Tensor,
@@ -100,6 +107,60 @@ def merge_join_count_fused64(rhi: torch.Tensor, rlo: torch.Tensor,
             slo.data_ptr(), nS, out.data_ptr(), stream)
     _build.check("smj_merge_join_count64", code)
     LAUNCHES64 += 1
+    return out
+
+
+def _two_runs(col: torch.Tensor, n: int, span: int):
+    """The two runs of a two-run column: ``[0, min(n, span))`` and
+    ``[span, n)`` (empty when ``n <= span``)."""
+    cut = min(n, span)
+    return col[:cut], col[cut:n]
+
+
+def merge_join_count_fused2_plain(rk: torch.Tensor, sk: torch.Tensor,
+                                  nR: int, nS: int, span_r: int,
+                                  span_s: int) -> torch.Tensor:
+    """Plain version of K10: :func:`merge_join_count_fused_plain` of each R
+    run against each S run, summed."""
+    out = torch.zeros((), dtype=torch.int64, device=rk.device)
+    for r in _two_runs(rk, nR, span_r):
+        for s in _two_runs(sk, nS, span_s):
+            out += merge_join_count_fused_plain(r, s, r.numel(), s.numel())
+    return out
+
+
+def merge_join_count_fused2(rk: torch.Tensor, sk: torch.Tensor, nR: int,
+                            nS: int, span_r: int,
+                            span_s: int) -> torch.Tensor:
+    """Exact match count where each side holds TWO ascending runs: run 0
+    at ``[0, min(n, span))`` and run 1 at ``[span, n)``, the layout a
+    multiway sort leaves when it stops at two runs
+    (``multiwaymerge.merge_levels_2runs``; ``span`` is that side's final
+    span).  Returns an int64 0-d tensor on their device, which
+    :func:`finish_count_fused` takes as it takes K3's."""
+    name = "merge_join_count_fused2"
+    sort_ops._check_keys(rk, nR, name)
+    sort_ops._check_keys(sk, nS, name)
+    for n, span, side in ((nR, span_r, "R"), (nS, span_s, "S")):
+        if span < 1 or n > 2 * span:
+            raise ValueError(f"{name}: {side} has {n} keys, more than two "
+                             f"runs of span {span}")
+    if rk.device != sk.device:
+        raise ValueError(f"{name}: R on {rk.device}, S on {sk.device}")
+    if rk.device.type == "cpu":
+        return merge_join_count_fused2_plain(rk, sk, nR, nS, span_r, span_s)
+    out = torch.zeros((), dtype=torch.int64, device=rk.device)
+    if nR == 0 or nS == 0:
+        return out
+    from ..kernels import _build
+
+    global LAUNCHES2
+    with _build.launching_on(rk) as stream:
+        code = _build.library().smj_merge_join_count2(
+            rk.data_ptr(), nR, sk.data_ptr(), nS, span_s, out.data_ptr(),
+            stream)
+    _build.check("smj_merge_join_count2", code)
+    LAUNCHES2 += 1
     return out
 
 

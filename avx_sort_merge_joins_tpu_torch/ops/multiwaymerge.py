@@ -1,7 +1,8 @@
 """K-way merge of sorted runs, keys only (kernel K2) or (key, payload) pairs
 in lexicographic order (kernel K6), and the multiway sort built on it
 (counterpart of
-``avx_sort_merge_joins_tpu/ops/multiwaymerge.py:522-631,655-750``).
+``avx_sort_merge_joins_tpu/ops/multiwaymerge.py:522-631,655-750``),
+with the schedule that stops at two runs (``merge_levels_2runs``).
 
 Layout: flat int32 columns whose run r starts at ``r * span`` and holds
 ``clip(total - r * span, 0, span)`` elements -- the TPU package's
@@ -117,6 +118,29 @@ def merge_levels(n: int, block: int, fanin: int):
         span *= w
         nruns = -(-nruns // w)
     return levels
+
+
+def merge_levels_2runs(n: int, block: int, fanin: int):
+    """The level schedule that stops at TWO runs instead of one (counterpart
+    of ``avx_sort_merge_joins_tpu/ops/multiwaymerge.py:698-717``): the
+    last merge is left to the two-run count (K10,
+    ``mergejoin.merge_join_count_fused2``).  Where a level's fan-in would
+    finish at one run, it is halved so that two groups remain.  Returns
+    ``(levels, final_span, final_nruns)``, sizes in keys, with
+    ``final_nruns`` 1 (a single block: the caller takes the one-run count)
+    or 2."""
+    nruns = max(1, sort_ops.cdiv(n, block))
+    stride, span = block, block
+    levels = []
+    while nruns > 2:
+        w = min(fanin, 1 << (nruns - 1).bit_length())
+        if w >= nruns:
+            w = max(2, (1 << (nruns - 1).bit_length()) // 2)
+        levels.append((stride, span, nruns, w))
+        stride *= w
+        span *= w
+        nruns = -(-nruns // w)
+    return levels, span, nruns
 
 
 def merge_level(keys: torch.Tensor, n: int, level,

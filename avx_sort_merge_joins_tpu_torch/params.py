@@ -4,7 +4,8 @@
 Sizes are in keys.  The TPU package's VMEM budget, lane width and
 partition slack have no counterpart here: the port's layouts are flat 1-D
 tensors, and its block size follows the H100's shared memory.  The radix
-partitioning constants come with the partitioning port.
+partitioning constants (histogram tile, largest fanout, alignment) live in
+``ops/partition.py``.
 """
 
 from __future__ import annotations

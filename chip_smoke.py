@@ -56,11 +56,34 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    count join must equal the torch.sort baseline, and the materializing
    join must give as many rows as that count and the same expanded rows
    as the plain route (duplicate R keys: one row per match pair).
+11. Kernel vs plain, histograms, exact: K8 per tile and global at every
+   fanout 2^1..2^16 and shifts up to 31 - bits over keys at both ends of
+   the domain with a ragged last tile, on a tile of 65,536 equal keys, and
+   at 128M keys for bits 7, 14 and 16, uniform and Zipf (z = 1.0, made on
+   the host); the 128M calls timed beside the plain version and
+   ``torch.bincount``.
+12. Kernel vs plain, two-run count, exact: K10 at the 128M route's shapes
+   (runs of 67,108,864 and 60,891,136 keys a side; timed, with K3 on the
+   same keys merged), with R's run 1 empty, and on a hot key past 2^31.
+13. The two-run route: ``_mway_count_device`` at 128M x 128M under
+   SMJ_COUNT2=1 must count 128,000,000 with K1 2, K2 6, K10 1 and K3 0
+   launches, and under SMJ_COUNT2=0 with K3 1 and K10 0; both timed.
+14. The partitioning grid: ``partitioningbench`` at 8,388,608 tuples for
+   bits 2, 4, ..., 16 with every variant, and ``hist`` at 128M for bits 7
+   and 14; each row's histogram equals ``radix_hist_torch`` and each
+   partition ``radix_cluster_numpy`` on its live slices.
+15. The other micro-benchmarks once each at their JAX defaults (sortbench
+   multiway, keysonly, pairwise; mergebench fifo2, pairwise;
+   multiwaymergebench; tputbench tput and mpsm), each passing its own
+   check.
+16. ``-z 1.0`` at 16M x 16M: ``-a m-way`` through the CLI, and the m-way
+   and mpsm joins of the CLI's relations, must equal the torch.sort
+   baseline.
 
 The line before the last is one JSON object with each kernel's launches
-over the runs of phases 6, 7 and 9, its largest error in phases 3-5 and
-8, its times, its bound and its library yardstick's time; the last line
-is ``{"ok": true, "device": {...}}``.
+over the runs of phases 6, 7, 9 and 13-15, its largest error in phases
+3-5, 8 and 11-12, its times, its bound and its library yardstick's time;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,6 +132,9 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
            "multiwaymerge.py:85"),
     "K7": ("K7 merge_join_count64", "merge_join_count.cu",
            "mergejoin.py:747"),
+    "K8": ("K8 radix_hist", "radix_hist.cu", "partition.py:62"),
+    "K10": ("K10 merge_join_count2", "merge_join_count.cu",
+            "mergejoin.py:533"),
 }
 PATHS = {  # join path -> (CLI flags, kernels it must launch)
     "m-way": (["-a", "m-way"], ("K1", "K2", "K3")),
@@ -120,6 +146,24 @@ PATHS = {  # join path -> (CLI flags, kernels it must launch)
 }
 KEY8B_SCALAR_N = 16_000_000
 PERSIST_N = 1_000_000
+HIST_CHECK_N = 3 * 65536 + 12_345  # three whole histogram tiles, one ragged
+HIST_BITS = (7, 14, 16)  # K8 timed at 128M keys
+ZIPF_ALPHABET = 1 << 20  # the 128M Zipf keys' alphabet (S's maxid)
+PART_N = 8_388_608  # scripts/partitioning-bench.sh's 8M tuples
+PART_BITS = (2, 4, 6, 8, 10, 12, 14, 16)
+PART_BIG_BITS = (7, 14)  # the 128M `hist` rows
+ZIPF_N = 16_000_000  # -z 1.0 through the CLI
+COUNT2_SPAN = 67_108_864  # run 0 of each side on the 128M two-run route
+BENCHES = [  # (module, argv): each once at its JAX defaults
+    ("sortbench", ["16", "multiway"]), ("sortbench", ["16", "keysonly"]),
+    ("sortbench", ["16", "pairwise"]),
+    ("mergebench", ["8", "--variant", "fifo2"]),
+    ("mergebench", ["8", "--variant", "pairwise"]),
+    ("multiwaymergebench", ["1048576", "16"]),
+    ("tputbench", ["--mode", "tput", "-n", "16777216"]),
+    ("tputbench", ["--mode", "mpsm", "-n", "16777216", "--nchunks", "1",
+                   "4"]),
+]
 
 
 def log(msg: str) -> None:
@@ -516,22 +560,26 @@ def results_of(stdout: str) -> int:
 def reset_launches() -> None:
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import partition
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     sort_ops.LAUNCHES = mw.LAUNCHES = mergejoin.LAUNCHES = 0
     sort_ops.MERGE_PASS_LAUNCHES = sort_ops.PAIR_SORT_LAUNCHES = 0
     mw.PAIR_LAUNCHES = mergejoin.LAUNCHES64 = 0
+    partition.LAUNCHES = mergejoin.LAUNCHES2 = 0
 
 
 def launches() -> dict[str, int]:
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import partition
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     return {"K1": sort_ops.LAUNCHES, "K2": mw.LAUNCHES,
             "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
             "K5": sort_ops.PAIR_SORT_LAUNCHES, "K6": mw.PAIR_LAUNCHES,
-            "K7": mergejoin.LAUNCHES64}
+            "K7": mergejoin.LAUNCHES64, "K8": partition.LAUNCHES,
+            "K10": mergejoin.LAUNCHES2}
 
 
 def check_launched(path: str, counts: dict, need) -> None:
@@ -854,6 +902,270 @@ def phase_key8b_scalar() -> None:
         raise AssertionError(f"key8b counts {counts} != {KEY8B_SCALAR_N}")
 
 
+def domain_keys(n: int, rng: np.random.Generator) -> np.ndarray:
+    """Keys over the whole domain with both of its ends among them."""
+    keys = rng.integers(-DOMAIN_MAX, DOMAIN_MAX + 1, n).astype(np.int32)
+    keys[:4] = [-DOMAIN_MAX, -DOMAIN_MAX + 1, DOMAIN_MAX - 1, DOMAIN_MAX]
+    return keys
+
+
+def phase_hist_kernels(dev: torch.device, times: Timings) -> None:
+    """Exactness of K8 (per tile and global) against its plain version at
+    every fanout and shift, on a one-bin tile and at 128M keys, uniform and
+    Zipf; the 128M calls timed beside the plain version and
+    ``torch.bincount``."""
+    from avx_sort_merge_joins_tpu_torch import datagen
+    from avx_sort_merge_joins_tpu_torch.ops import partition as pt
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    def check(keys, bits, shift, case):
+        want = pt.radix_hist_plain(keys, bits, shift)
+        record("K8", f"{case} bits={bits} shift={shift} per tile + global",
+               (pt.radix_hist(keys, bits, shift),
+                pt.radix_hist_any(keys, bits, shift)),
+               (want, want.sum(0, dtype=torch.int32)))
+
+    keys = torch.from_numpy(domain_keys(
+        HIST_CHECK_N, np.random.default_rng(20261019))).to(dev)
+    for bits in range(1, 17):
+        for shift in sorted({0, (31 - bits) // 2, 31 - bits}):
+            check(keys, bits, shift, f"domain n={HIST_CHECK_N}")
+    # 65,536 equal keys in one bin of one tile, then a ragged tile
+    one_bin = torch.cat([torch.full((pt.HIST_TILE,), 12345, dtype=torch.int32,
+                                    device=dev), keys[:777]])
+    for bits in (1, 7, 16):
+        check(one_bin, bits, 0, "one-bin tile")
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    uniform = torch.randint(1, 2**26, (MAIN_N,), generator=gen,
+                            dtype=torch.int32, device=dev)
+    datagen.seed_generator(31)
+    t0 = time.perf_counter()
+    zipf = datagen.create_relation_zipf(MAIN_N, ZIPF_ALPHABET, 1.0,
+                                        device=dev).keys
+    log(f"[hist] host Zipf generation of {MAIN_N} keys over "
+        f"{ZIPF_ALPHABET} values, z=1.0: {time.perf_counter() - t0:.1f} s")
+    ntiles = sort_ops.cdiv(MAIN_N, pt.HIST_TILE)
+    for dist, k in (("uniform", uniform), ("zipf", zipf)):
+        for bits in HIST_BITS:
+            check(k, bits, 0, f"{dist} n={MAIN_N}")
+            fanout = 1 << bits
+            tile_ms = time_ms(lambda: pt.radix_hist(k, bits))
+            tile_plain = time_ms(lambda: pt.radix_hist_plain(k, bits))
+            ms = time_ms(lambda: pt.radix_hist_any(k, bits))
+            plain = time_ms(lambda: pt.radix_hist_plain(k, bits).sum(
+                0, dtype=torch.int32))
+            library = time_ms(lambda: torch.bincount(
+                pt.partition_ids(k, bits), minlength=fanout))
+            # the JSON row: the global histogram, summed over these calls
+            times.add("K8", ms, plain, library, 4 * MAIN_N + 4 * fanout,
+                      MAIN_N)
+            tile_bound = bound_ms(4 * MAIN_N + 4 * ntiles * fanout, MAIN_N)
+            log(f"[time] K8 {dist} n={MAIN_N} bits={bits}: per tile kernel "
+                f"{tile_ms:.3f} ms, plain {tile_plain:.3f} ms, bound "
+                f"{tile_bound[0]:.3f} ms; global kernel {ms:.3f} ms, plain "
+                f"{plain:.3f} ms, torch.bincount {library:.3f} ms, bound "
+                f"{bound_ms(4 * MAIN_N + 4 * fanout, MAIN_N)[0]:.3f} ms")
+    log(f"[time] K8 global histograms of {MAIN_N} keys, bits {HIST_BITS}, "
+        f"uniform and Zipf, summed: {times.entry('K8')}")
+
+
+def two_run_column(keys: torch.Tensor, span: int) -> torch.Tensor:
+    """``keys`` as two ascending runs, ``[0, span)`` and ``[span, n)``."""
+    return torch.cat([torch.sort(keys[:span]).values,
+                      torch.sort(keys[span:]).values])
+
+
+def phase_count2_kernel(dev: torch.device, times: Timings) -> None:
+    """Exactness of K10 against its plain version at the 128M route's
+    two-run shapes, on a hot key past 2^31 and with run 1 empty on one
+    side; K10 timed there, with K3 on the same keys merged."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+
+    levels, span, nruns = mw.merge_levels_2runs(MAIN_N, BLOCK, 16)
+    log(f"[count2] merge_levels_2runs({MAIN_N}, {BLOCK}, 16): levels "
+        f"{levels}, final span {span}, {nruns} runs")
+    if nruns != 2 or span != COUNT2_SPAN:
+        raise AssertionError(f"the {MAIN_N} schedule does not stop at two "
+                             f"runs of span {COUNT2_SPAN}")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rk = two_run_column(torch.randperm(MAIN_N, generator=gen, device=dev)
+                        .to(torch.int32) + 1, span)
+    sk = two_run_column(torch.randint(1, MAIN_N + 1, (MAIN_N,), generator=gen,
+                                      dtype=torch.int32, device=dev), span)
+    got = mergejoin.merge_join_count_fused2(rk, sk, MAIN_N, MAIN_N, span,
+                                            span)
+    record("K10", f"main_shape runs {span} + {MAIN_N - span}", got,
+           mergejoin.merge_join_count_fused2_plain(rk, sk, MAIN_N, MAIN_N,
+                                                   span, span))
+    if int(got) != MAIN_N:
+        raise AssertionError(f"K10 main shape: {int(got)} != {MAIN_N}")
+    record("K10", f"R run 1 empty: {span} x {MAIN_N}",
+           mergejoin.merge_join_count_fused2(rk, sk, span, MAIN_N, span,
+                                             span),
+           mergejoin.merge_join_count_fused2_plain(rk, sk, span, MAIN_N,
+                                                   span, span))
+    hot = torch.full((1 << 16,), 7, dtype=torch.int32, device=dev)
+    got = mergejoin.merge_join_count_fused2(hot, hot, 1 << 16, 1 << 16,
+                                            40_000, 1 << 15)
+    record("K10", "hot_key_2^32", got,
+           mergejoin.merge_join_count_fused2_plain(hot, hot, 1 << 16,
+                                                   1 << 16, 40_000, 1 << 15))
+    if int(got) != 1 << 32:
+        raise AssertionError(f"K10 hot key: {int(got)} != 2^32")
+    # no one PyTorch call computes the count: no library yardstick
+    times.add("K10",
+              time_ms(lambda: mergejoin.merge_join_count_fused2(
+                  rk, sk, MAIN_N, MAIN_N, span, span)),
+              time_ms(lambda: mergejoin.merge_join_count_fused2_plain(
+                  rk, sk, MAIN_N, MAIN_N, span, span)),
+              None, 8 * MAIN_N + 8, 4 * MAIN_N)
+    rs, ss = torch.sort(rk).values, torch.sort(sk).values
+    k3 = time_ms(lambda: mergejoin.merge_join_count_fused(rs, ss, MAIN_N,
+                                                          MAIN_N))
+    log(f"[time] K10 count {MAIN_N} x {MAIN_N} over two runs a side: "
+        f"{times.entry('K10')}; K3 on the same keys merged: {k3:.3f} ms")
+
+
+def phase_count2_route(dev: torch.device) -> dict[str, int]:
+    """``_mway_count_device`` at 128M x 128M under SMJ_COUNT2=1 (K1 2, K2 6,
+    K10 1, K3 0) and under SMJ_COUNT2=0 (K3 1, K10 0), each timed, then
+    run once with the launch counts set to 0 just before it."""
+    from avx_sort_merge_joins_tpu_torch import cli
+    from avx_sort_merge_joins_tpu_torch.models import mway
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+
+    args = cli.build_parser().parse_args(["-r", str(MAIN_N), "-s",
+                                          str(MAIN_N)])
+    R, S = cli.make_relations(args, dev)
+    torch.cuda.synchronize()
+
+    def join():
+        return mway._mway_count_device(R.keys, S.keys, MAIN_N, MAIN_N, 16,
+                                       BLOCK)
+
+    want = {"1": {"K1": 2, "K2": 6, "K10": 1, "K3": 0},
+            "0": {"K1": 2, "K2": 8, "K10": 0, "K3": 1}}
+    total = {}
+    before = os.environ.get("SMJ_COUNT2")
+    try:
+        for switch in ("1", "0"):
+            os.environ["SMJ_COUNT2"] = switch
+            ms = time_ms(join)
+            reset_launches()
+            count = mergejoin.finish_count_fused(join())
+            torch.cuda.synchronize()
+            counts = launches()
+            log(f"[count2] _mway_count_device {MAIN_N} x {MAIN_N} "
+                f"SMJ_COUNT2={switch}: {ms:.3f} ms (CUDA events, mean of "
+                f"{REPS}), count {count}, launches {counts}")
+            if count != MAIN_N:
+                raise AssertionError(f"SMJ_COUNT2={switch}: {count} != "
+                                     f"{MAIN_N}")
+            bad = {k: counts[k] for k, v in want[switch].items()
+                   if counts[k] != v}
+            if bad:
+                raise AssertionError(f"SMJ_COUNT2={switch}: launches {bad}, "
+                                     f"want {want[switch]}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        if before is None:
+            os.environ.pop("SMJ_COUNT2", None)
+        else:
+            os.environ["SMJ_COUNT2"] = before
+    return total
+
+
+def run_module(module: str, argv: list[str]) -> str:
+    """Run ``avx_sort_merge_joins_tpu_torch.bench.<module>.main(argv)`` in
+    the process; echo its output; raise unless it returns 0; return its
+    stdout."""
+    import importlib
+
+    main_ = importlib.import_module(
+        f"avx_sort_merge_joins_tpu_torch.bench.{module}").main
+    out, errs = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(errs):
+        rc = main_(argv)
+    for line in (errs.getvalue() + out.getvalue()).splitlines():
+        log(f"[{module}] {line}")
+    if rc != 0:
+        raise AssertionError(f"{module} {argv}: exit code {rc}")
+    return out.getvalue()
+
+
+def phase_partitioning() -> dict[str, int]:
+    """The partitioning grid: every variant at 8,388,608 tuples for bits
+    2..16, and ``hist`` at 128M for bits 7 and 14; each row's histogram is
+    checked inside the bench against ``radix_hist_torch`` and the
+    partition against ``radix_cluster_numpy``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    for bits in PART_BITS:
+        rows = run_module("partitioningbench", [str(PART_N), "all",
+                                                str(bits)]).split("\n")
+        if len([r for r in rows if r.strip()]) != 5:
+            raise AssertionError(f"partitioningbench bits={bits}: {rows}")
+    for bits in PART_BIG_BITS:
+        run_module("partitioningbench", [str(MAIN_N), "hist", str(bits)])
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[partitioning] grid in {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    check_launched("partitioning grid", counts, ("K8",))
+    return counts
+
+
+def phase_benches() -> dict[str, int]:
+    """The other micro-benchmarks once each at their JAX defaults; each
+    checks its own output and prints its record line."""
+    reset_launches()
+    t0 = time.perf_counter()
+    for module, argv in BENCHES:
+        if not run_module(module, argv).strip():
+            raise AssertionError(f"{module} {argv}: no record line")
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[benches] {len(BENCHES)} runs in {time.perf_counter() - t0:.1f} "
+        f"s; launches {counts}")
+    check_launched("benches", counts, ("K1", "K2", "K3", "K4", "K5", "K6"))
+    return counts
+
+
+def phase_zipf(dev: torch.device) -> None:
+    """``-z 1.0`` at 16M x 16M: ``-a m-way`` through the CLI, and the m-way
+    and mpsm joins of the CLI's relations, against the torch.sort
+    baseline."""
+    from avx_sort_merge_joins_tpu_torch import cli
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+
+    argv = ["-r", str(ZIPF_N), "-s", str(ZIPF_N), "-z", "1.0"]
+    rc, stdout = run_cli(["-a", "m-way", *argv])
+    if rc != 0:
+        raise AssertionError(f"-z 1.0: exit code {rc}")
+    counts = {"cli m-way": results_of(stdout)}
+    args = cli.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    R, S = cli.make_relations(args, dev)
+    torch.cuda.synchronize()
+    log(f"[zipf] relations of {ZIPF_N} x {ZIPF_N}, S Zipf z=1.0 over "
+        f"{ZIPF_N} values: {time.perf_counter() - t0:.1f} s on the host")
+    for algo in ("m-way", "mpsm"):
+        args.algo = algo
+        res = cli.run_join(args, R, S)
+        counts[algo] = res.totalresults
+        log(f"[zipf] {algo}: Results = {res.totalresults}, phases "
+            f"{ {k: round(v * 1e3, 3) for k, v in res.phases.items()} } ms")
+    base = int(mergejoin.merge_join_count_torch(
+        torch.sort(R.keys).values, torch.sort(S.keys).values, ZIPF_N,
+        ZIPF_N))
+    log(f"[zipf] counts {counts}, torch.sort baseline {base}")
+    if any(c != base for c in counts.values()) or base != ZIPF_N:
+        raise AssertionError(f"-z 1.0: counts {counts} != baseline {base}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -864,14 +1176,19 @@ def main() -> int:
     phase_pair_kernels(dev, times)
     phase_path_shapes(dev)
     phase_pair_merge_kernels(dev, times)
+    phase_hist_kernels(dev, times)
+    phase_count2_kernel(dev, times)
     total = {k: 0 for k in KERNELS}
     for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev),
-                   phase_materialize_in_process(dev)]:
+                   phase_materialize_in_process(dev),
+                   phase_count2_route(dev), phase_partitioning(),
+                   phase_benches()]:
         for k, v in counts.items():
             total[k] += v
     phase_persist(dev)
     phase_key8b_scalar()
     phase_nonunique(dev)
+    phase_zipf(dev)
     src = "avx_sort_merge_joins_tpu_torch/csrc/"
     ref = "avx_sort_merge_joins_tpu/ops/"
     kernels = [{"name": name, "route": "cuda", "source": src + f,

@@ -120,12 +120,13 @@ def test_relation_from_numpy_pads_and_round_trips():
     lambda **kw: tdg.create_relation_pk(100, **kw),
     lambda **kw: tdg.create_relation_fk(100, 30, **kw),
     lambda **kw: tdg.create_relation_nonunique(100, 30, **kw),
+    lambda **kw: tdg.create_relation_zipf(100, 30, 1.0, **kw),
     lambda **kw: tdg.parallel_create_relation(100, 100, 2, **kw),
     lambda **kw: tdg.parallel_create_relation(100, 100, 2, on_device=True,
                                               **kw),
     lambda **kw: Relation.from_numpy(np.arange(100, dtype=np.int32), **kw),
-], ids=["pk", "fk", "nonunique", "parallel", "parallel_device_path",
-        "from_numpy"])
+], ids=["pk", "fk", "nonunique", "zipf", "parallel",
+        "parallel_device_path", "from_numpy"])
 def test_datagen_without_a_card_needs_the_cpu_named(maker, monkeypatch):
     """No silent CPU: without a card every generator, and
     ``Relation.from_numpy``, raises unless it is given device="cpu"."""
@@ -186,3 +187,39 @@ def test_tbl_files_round_trip_and_match_jax(native_writer, tmp_path,
 def test_tbl_read_of_a_missing_file_raises(tmp_path):
     with pytest.raises(OSError):
         tgen.read_relation(str(tmp_path / "none.tbl"), device=CPU)
+
+
+def test_zipf_golden_vs_reference_c():
+    """The first draws of the reference's genzipf.c (the golden values
+    tests/test_datagen.py pins for the JAX generator)."""
+    from avx_sort_merge_joins_tpu_torch.datagen.genzipf import gen_zipf
+
+    golden = {
+        (42, 1000, 1.0): [281, 817, 148, 557, 557, 668],
+        (7, 500, 0.5): [192, 292, 65, 165, 495, 151],
+        (42, 1000, 0.75): [283, 878, 148, 902, 152, 197],
+    }
+    for (seed, alpha, z), expect in golden.items():
+        assert gen_zipf(12, alpha, z, tdg.GlibcRand(seed))[:6].tolist() \
+            == expect, (seed, alpha, z)
+
+
+@pytest.mark.parametrize("n,alphabet,z", [
+    (5000, 1000, 1.0),          # numpy draws and alphabet shuffle
+    (70_000, 3000, 0.5),        # native draws, numpy shuffle
+    (70_000, 100_000, 1.25),    # native draws and shuffle
+])
+def test_zipf_streams_match_jax(n, alphabet, z):
+    from avx_sort_merge_joins_tpu.datagen.genzipf import gen_zipf as jzipf
+    from avx_sort_merge_joins_tpu_torch.datagen.genzipf import gen_zipf
+
+    j, t = jdg.GlibcRand(n), tdg.GlibcRand(n)
+    np.testing.assert_array_equal(gen_zipf(n, alphabet, z, t),
+                                  jzipf(n, alphabet, z, j))
+    assert j.rand() == t.rand()  # the same draws consumed
+
+
+@pytest.mark.parametrize("n,maxid", [(20_000, 5000), (100_000, 70_000)])
+def test_zipf_relation_matches(n, maxid):
+    _pair(lambda: jdg.create_relation_zipf(n, maxid, 0.9),
+          lambda: tdg.create_relation_zipf(n, maxid, 0.9, device=CPU), 77)

@@ -15,6 +15,7 @@ from avx_sort_merge_joins_tpu_torch.ops import join64 as tj
 from avx_sort_merge_joins_tpu_torch.ops import merge as tmg
 from avx_sort_merge_joins_tpu_torch.ops import mergejoin as tmj
 from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as tmw
+from avx_sort_merge_joins_tpu_torch.ops import partition as tpt
 from avx_sort_merge_joins_tpu_torch.ops import sort as tsort
 from avx_sort_merge_joins_tpu_torch.types import JoinConfig, Relation
 
@@ -305,3 +306,114 @@ def test_mway_materialize_on_the_card(cuda, kind):
     gk, gp = res.resultlist[0].results.to_numpy()
     np.testing.assert_array_equal(gk, np.repeat(sk[order], mult))
     np.testing.assert_array_equal(gp, np.repeat(sp[order], mult))
+
+
+def _domain_keys(n, seed):
+    """Keys over the whole domain, both ends among them."""
+    keys = _keys(n, seed)
+    keys[:4] = torch.tensor([-(2**31 - 2), -(2**31 - 3), 2**31 - 3,
+                             2**31 - 2], dtype=torch.int32)
+    return keys
+
+
+@pytest.mark.parametrize("nbits", list(range(1, 17)))
+def test_radix_hist_kernel_equals_plain(cuda, nbits):
+    """K8 per tile and global at every fanout, shifts up to 31 - nbits,
+    three whole tiles and a ragged fourth."""
+    keys = _domain_keys(3 * tpt.HIST_TILE + 4321, nbits).to(cuda)
+    for shift in sorted({0, (31 - nbits) // 2, 31 - nbits}):
+        before = tpt.LAUNCHES
+        tiles = tpt.radix_hist(keys, nbits, shift)
+        total = tpt.radix_hist_any(keys, nbits, shift)
+        torch.cuda.synchronize()
+        assert tpt.LAUNCHES == before + 2
+        want = tpt.radix_hist_plain(keys, nbits, shift)
+        assert tiles.shape == (4, 1 << nbits)
+        assert torch.equal(tiles, want), shift
+        assert torch.equal(total, want.sum(0, dtype=torch.int32)), shift
+
+
+@pytest.mark.parametrize("nbits", [1, 7, 15, 16])
+def test_radix_hist_kernel_one_bin_tile(cuda, nbits):
+    """A tile of 65,536 equal keys (one bin: a 16-bit counter overflows),
+    then a ragged tile of other keys."""
+    keys = torch.cat([torch.full((tpt.HIST_TILE,), 2**31 - 2,
+                                 dtype=torch.int32),
+                      _keys(999, nbits, 1, 70_000)]).to(cuda)
+    got = tpt.radix_hist(keys, nbits)
+    want = tpt.radix_hist_plain(keys, nbits)
+    assert torch.equal(got, want) and int(got[0].max()) == tpt.HIST_TILE
+    assert torch.equal(tpt.radix_hist_any(keys, nbits),
+                       want.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("nbits", [7, 14, 16])
+def test_radix_hist_kernel_zipf_and_unaligned(cuda, nbits):
+    """Zipf keys (most of a warp on a few bins), and a view that starts
+    one key in (no int4 loads)."""
+    tgen.seed_generator(3)
+    keys = tgen.create_relation_zipf(300_001, 70_000, 1.0, device=cuda).keys
+    for k in (keys, keys[1:]):
+        want = tpt.radix_hist_plain(k, nbits)
+        assert torch.equal(tpt.radix_hist(k, nbits), want)
+        assert torch.equal(tpt.radix_hist_any(k, nbits),
+                           tpt.radix_hist_torch(k, nbits))
+
+
+def test_partition_relation_on_the_card(cuda):
+    rng = np.random.default_rng(1)
+    keys = rng.integers(1, 2**26, 200_003).astype(np.int32)
+    pays = np.arange(200_003, dtype=np.int32)
+    pk, pp, off, sz = tpt.partition_relation(
+        torch.from_numpy(keys).to(cuda), torch.from_numpy(pays).to(cuda), 9)
+    ok, op, osz = tpt.radix_cluster_numpy(keys, pays, 9)
+    lk, lp = tpt.partition_live(pk, pp, off, sz)
+    assert np.array_equal(sz.cpu().numpy(), osz)
+    assert np.array_equal(lk.cpu().numpy(), ok)
+    assert np.array_equal(lp.cpu().numpy(), op)
+
+
+def _two_run_column(n, span, seed, width):
+    k = _keys(n, seed, -width, width)
+    return torch.cat([torch.sort(k[:span]).values,
+                      torch.sort(k[span:]).values])
+
+
+@pytest.mark.parametrize("nR,span_r,nS,span_s,width", [
+    (1, 1, 1, 1, 3), (5000, 4096, 7000, 4096, 100),
+    (4096, 4096, 3000, 2048, 100), (200_000, 131_072, 150_000, 131_072,
+                                    2**31 - 2)])
+def test_count2_kernel_equals_plain(cuda, nR, span_r, nS, span_s, width):
+    rk = _two_run_column(nR, span_r, 1, width).to(cuda)
+    sk = _two_run_column(nS, span_s, 2, width).to(cuda)
+    before = tmj.LAUNCHES2
+    got = tmj.merge_join_count_fused2(rk, sk, nR, nS, span_r, span_s)
+    torch.cuda.synchronize()
+    assert tmj.LAUNCHES2 == before + 1
+    assert got.dtype == torch.int64 and got.device.type == "cuda"
+    assert int(got) == int(tmj.merge_join_count_fused2_plain(
+        rk, sk, nR, nS, span_r, span_s))
+
+
+def test_count2_hot_key_passes_2_31(cuda):
+    hot = torch.full((1 << 16,), 7, dtype=torch.int32, device=cuda)
+    got = tmj.merge_join_count_fused2(hot, hot, 1 << 16, 1 << 16, 40_000,
+                                      1 << 15)
+    assert int(got) == 1 << 32
+
+
+def test_mway_count2_route_on_the_card(cuda, monkeypatch):
+    """SMJ_COUNT2=1: 19 blocks a side take one fan-in-16 level to two
+    runs, then K10; K3 is not launched."""
+    monkeypatch.setenv("SMJ_COUNT2", "1")
+    rng = np.random.default_rng(6)
+    rk = rng.integers(0, 50_000, 300_000).astype(np.int32)
+    sk = rng.integers(0, 50_000, 300_001).astype(np.int32)
+    before = tmj.LAUNCHES, tmj.LAUNCHES2, tmw.LAUNCHES
+    got = mway._mway_count_device(torch.from_numpy(rk).to(cuda),
+                                  torch.from_numpy(sk).to(cuda), len(rk),
+                                  len(sk), 16, 16384)
+    torch.cuda.synchronize()
+    assert (tmj.LAUNCHES, tmj.LAUNCHES2, tmw.LAUNCHES) == (
+        before[0], before[1] + 1, before[2] + 2)
+    assert int(got) == tmj.merge_join_count_numpy(rk, sk)

@@ -144,7 +144,8 @@ def test_cli_reference_golden_counts(argv, expected, capsys):
         == str(expected)
 
 
-@pytest.mark.parametrize("extra", [[], ["--non-unique"], ["--full-range"]])
+@pytest.mark.parametrize("extra", [[], ["--non-unique"], ["--full-range"],
+                                   ["-z", "0.75"]])
 def test_cli_builds_the_jax_cli_relations(extra):
     argv = ["-r", "30000", "-s", "20000", "-x", "7", "-y", "8", *extra]
     jR, jS = jcli.make_relations(jcli.build_parser().parse_args(argv))
@@ -155,12 +156,25 @@ def test_cli_builds_the_jax_cli_relations(extra):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("algo", ["m-way", "mpsm"])
+def test_cli_zipf_count_equals_the_jax_cli(algo, capsys):
+    """-z builds S as the JAX CLI does (Zipf over R's keys); the port's
+    count equals the JAX CLI's (its --scalarmerge route: lax.sort, no
+    Pallas kernel) and, R being unique, |S|."""
+    argv = ["-r", "30000", "-s", "20000", "-z", "0.75", "-x", "3", "-y", "4"]
+    assert jcli.main(["-a", "m-way", *argv, "--scalarmerge"]) == 0
+    want = capsys.readouterr().out.split("Results = ")[1].split()[0]
+    assert tcli.main(["-a", algo, *argv, "--device", "cpu"]) == 0
+    got = capsys.readouterr().out.split("Results = ")[1].split()[0]
+    assert got == want == "20000"
+
+
 @pytest.mark.parametrize("argv", [["-S", "RING"], ["-n", "2"],
                                   ["-m", "1048576"], ["-o", "DIR"],
                                   ["--mapping-file", "F"],
                                   ["-a", "m-pass", "--materialize"],
                                   ["-a", "mpsm", "--materialize"],
-                                  ["-z", "0.5"], ["-f", "3"]])
+                                  ["-S", "RANDOM"], ["-f", "3"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert tcli.main(["-r", "100", "-s", "100", *argv]) == 2
     assert "Results" not in capsys.readouterr().out
