@@ -7,9 +7,12 @@ on stderr so scripts can split the streams (joincommon.c:175-196).
 Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
 -x -y -z -f --nchunks --scalarsort --scalarmerge --non-unique
 --full-range``, the materializing m-way join (``--materialize``),
-``--persist DIR`` and the 64-bit-key count join (``--key8b``).  Every
-other flag of the reference is parsed and refused with "not yet ported"
-and exit code 2.  Relations and kernels run on the card (``--device
+``--persist DIR``, the 64-bit-key count join (``--key8b``) and the
+distributed m-way count join ``-a m-way -n N -S NEXT|RING|RANDOM`` on a
+mesh of N shards on one device (``parallel/dist_mway.py``).  Every other
+flag of the reference, and ``-n N`` with the other algorithms,
+``--materialize`` or ``--key8b``, is parsed and refused with "not yet
+ported" and exit code 2.  Relations and kernels run on the card (``--device
 cuda``, the default; without a card the CLI exits 1).  ``--device cpu``
 runs them on the CPU through the kernels' plain PyTorch versions.
 """
@@ -22,6 +25,7 @@ import time
 
 NOT_PORTED_EXIT = 2
 NO_DEVICE_EXIT = 1
+OVERFLOW_EXIT = 1  # the distributed exchange overflowed (cli.py:278-281)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["m-way", "m-pass", "mpsm"],
                    help="join algorithm")
     p.add_argument("-n", "--nthreads", type=int, default=1,
-                   help="number of devices (only 1 is ported)")
+                   help="shards of the mesh; past 1 the distributed m-way "
+                        "join runs N shards on one device")
     p.add_argument("-r", "--r-size", type=int, default=128_000_000)
     p.add_argument("-s", "--s-size", type=int, default=128_000_000)
     p.add_argument("-x", "--r-seed", type=int, default=12345)
@@ -53,8 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multiway merge fan-in (reference PARTFANOUT)")
     p.add_argument("-S", "--numastrategy", default="NEXT",
                    choices=["NEXT", "RING", "RANDOM"],
-                   help="exchange schedule of the multi-device shuffle "
-                        "(not yet ported)")
+                   help="exchange schedule of the multi-shard shuffle")
     p.add_argument("-m", "--mwaybufsize", type=int, default=0,
                    help="multiway merge buffer size in bytes "
                         "(not yet ported)")
@@ -84,9 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> list[str]:
     """The flags of this run that the port does not carry yet."""
+    dist = args.nthreads > 1
     checks = [
-        (args.nthreads != 1, f"-n {args.nthreads}"),
-        (args.numastrategy != "NEXT", "-S"),
+        (dist and args.algo != "m-way", f"-n {args.nthreads} -a {args.algo}"),
+        (dist and args.materialize, f"-n {args.nthreads} --materialize"),
+        (dist and args.key8b, f"-n {args.nthreads} --key8b"),
         (args.mwaybufsize != 0, "-m"),
         (args.perfout is not None, "-o"),
         (args.mapping_file is not None, "--mapping-file"),
@@ -139,8 +145,48 @@ def make_relations(args, device):
     return R, S
 
 
+class BucketOverflow(Exception):
+    """The distributed exchange overflowed its buckets at the largest
+    slack: the count would not be exact."""
+
+
+def _run_dist_mway(args, R, S):
+    """``-a m-way -n N``: the distributed m-way count join on a mesh of N
+    shards on the relations' device, through the phased entry point so that
+    the record row gets SORT / MERGE1 / MJOIN columns (the JAX CLI,
+    cli.py:221-262).  ``--scalarsort``/``--scalarmerge`` select the
+    ``torch.sort`` baseline route."""
+    from .parallel import dist_mway
+    from .parallel.mesh import make_mesh
+    from .types import JoinResult
+    from .utils.log import info
+
+    mesh = make_mesh(args.nthreads, R.keys.device)
+    xpath = ("bulk all_to_all" if args.numastrategy == "NEXT" else
+             f"{args.numastrategy}-scheduled collective_permute rounds")
+    info(f"exchange path: {xpath}, a device-side copy between the "
+         f"{mesh.n} shards on one device ({mesh.device}), not an "
+         "interconnect")
+    cnt, overflow, phases = dist_mway.dist_mway_join_phased(
+        R.keys, S.keys, R.num_tuples, S.num_tuples, mesh,
+        fanin=args.partfanout,
+        use_kernels=not (args.scalarsort or args.scalarmerge),
+        numa_strategy=(args.numastrategy if args.numastrategy != "NEXT"
+                       else None))
+    if overflow:
+        raise BucketOverflow(f"exchange bucket overflow ({overflow} "
+                             "tuples); raise slack")
+    total = phases["total"]
+    return JoinResult(totalresults=cnt, resultlist=[], phases=phases,
+                      throughput=(R.num_tuples + S.num_tuples) / total
+                      if total > 0 else 0.0)
+
+
 def run_join(args, R, S):
     from .types import JoinConfig
+
+    if args.nthreads > 1:
+        return _run_dist_mway(args, R, S)
 
     config = JoinConfig(
         nthreads=args.nthreads,
@@ -189,10 +235,16 @@ def _validate(args) -> str | None:
         return "partfanout must be a power of 2"
     if args.nchunks < 1:
         return "--nchunks must be >= 1"
+    if args.nthreads < 1:
+        return f"-n {args.nthreads}: need at least one shard"
+    if args.nthreads > 1 and args.partfanout < args.nthreads:
+        # the reference requires fanout >= nthreads (main.c:866-869)
+        warn("raising partfanout to the shard count")
+        args.partfanout = 1 << (args.nthreads - 1).bit_length()
     if args.materialize and args.algo != "m-way" and not args.key8b:
         return ("--materialize: the JAX package materializes on m-way only "
                 f"(its {args.algo} join ignores the flag)")
-    if args.nchunks != 1 and args.algo != "mpsm":
+    if args.nchunks != 1 and (args.algo != "mpsm" or args.nthreads > 1):
         warn("--nchunks applies to single-device mpsm only")
     return None
 
@@ -239,7 +291,11 @@ def main(argv=None) -> int:
               f"{result.throughput:.0f}, DEVICE {dname}", file=sys.stderr)
         print(f"Results = {result.totalresults}")
         return 0
-    result = run_join(args, R, S)
+    try:
+        result = run_join(args, R, S)
+    except BucketOverflow as e:
+        error(str(e))
+        return OVERFLOW_EXIT
     # statistics to stderr, results to stdout (joincommon.c:175-196 split)
     for name, secs in result.phases.items():
         print(f"[STATS] {name:12s} {secs * 1e6:12.1f} usecs", file=sys.stderr)

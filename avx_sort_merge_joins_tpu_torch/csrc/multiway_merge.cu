@@ -41,6 +41,14 @@
 // still sorts before the pad pair, whose key no real pair has, and the
 // pads lie outside every run's [start, end) so no search sees them.
 // Offsets are 64-bit.
+//
+// The varlen mode of K2 (smj_multiway_merge_varlen) takes the run lengths
+// from an int32 device vector instead of the uniform formula: the
+// counterpart of the TPU kernel's dynamic-lens mode
+// (ops/multiwaymerge.py:522-560), which the distributed joins use to merge
+// the runs each shard receives.  Runs may be empty, the stride need not be
+// a power of two, and a group whose live keys fall short of its region
+// ends in pads.
 #include "smj_common.cuh"
 
 namespace {
@@ -95,7 +103,68 @@ __global__ void multiway_merge_kernel(const int* __restrict__ in_k,
   if constexpr (kPairs) out_p[dst] = pay;
 }
 
+__device__ __forceinline__ long long run_len(const int* __restrict__ lens,
+                                             long long r, long long stride) {
+  const long long l = __ldg(lens + r);
+  return l < 0 ? 0 : (l > stride ? stride : l);
+}
+
+// K2 with run lengths in device memory (varlen): run r starts at
+// r * stride and holds lens[r] keys (clamped to [0, stride]); group g of
+// `fanin` runs merges into [g * fanin * stride, ...), its live keys first
+// and INT32_MAX after them.  Each thread plays two roles for its slot:
+// as an input slot it scatters its key like the uniform kernel, searching
+// only the live prefix of each other run; as an output slot past its
+// group's live total it writes the pad.  The two sets of writes are
+// disjoint.  Slots past the last group are pads.
+__global__ void multiway_merge_varlen_kernel(const int* __restrict__ in_k,
+                                             const int* __restrict__ lens,
+                                             int* __restrict__ out_k,
+                                             long long cap, long long nruns,
+                                             long long stride, int fanin) {
+  const long long at = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (at >= cap) return;
+  if (at >= nruns * stride) {
+    out_k[at] = SMJ_KEY_POS_INF;
+    return;
+  }
+  const long long r = at / stride;
+  const long long i = at - r * stride;
+  const long long first = r - r % fanin;
+  long long group_total = 0;
+  for (long long j = first; j < first + fanin; ++j)
+    group_total += run_len(lens, j, stride);
+  if (at - first * stride >= group_total) out_k[at] = SMJ_KEY_POS_INF;
+  if (i >= run_len(lens, r, stride)) return;
+  const int key = in_k[at];
+  long long dst = first * stride + i;
+  for (long long j = first; j < first + fanin; ++j) {
+    if (j == r) continue;
+    const long long start = j * stride;
+    const long long end = start + run_len(lens, j, stride);
+    dst += (j < r ? smj_upper_bound(in_k, start, end, key)
+                  : smj_lower_bound(in_k, start, end, key)) - start;
+  }
+  out_k[dst] = key;
+}
+
 }  // namespace
+
+// Varlen K2: merges the groups of `fanin` runs of in_k (run r at r * stride,
+// lens[r] keys, lens an int32 device vector of nruns entries, nruns a
+// multiple of fanin) into out_k [0, cap); cap >= nruns * stride.
+SMJ_API int smj_multiway_merge_varlen(const int* in_k, const int* lens,
+                                      int* out_k, long long cap,
+                                      long long nruns, long long stride,
+                                      int fanin, void* stream) {
+  if (cap == 0) return (int)cudaSuccess;
+  const long long blocks = (cap + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  multiway_merge_varlen_kernel<<<(unsigned)blocks, kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      in_k, lens, out_k, cap, nruns, stride, fanin);
+  return (int)cudaGetLastError();
+}
 
 // Merges in_k (and in_p, or NULL for keys only) [0, total) group by group
 // into out_k (out_p) [0, cap); cap >= total.  The wrapper makes the

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "smj_block_sort": (_P, _P, _L, _I, _I, _P),
     "smj_block_sort_pairs": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "smj_multiway_merge": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
+    "smj_multiway_merge_varlen": (_P, _P, _P, _L, _L, _L, _I, _P),
+    "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I,
+                              _P),
+    "smj_chunk_gated_merge_tile": (),
     "smj_merge_pass": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
     "smj_merge_join_count": (_P, _L, _P, _L, _P, _P),
     "smj_merge_join_count64": (_P, _P, _L, _P, _P, _L, _P, _P),

@@ -11,7 +11,10 @@ lengths in SMEM; here it is simply the layout).  ``multiway_merge`` merges
 each group of ``fanin`` consecutive runs into one run at ``g * fanin *
 span``.  On CUDA tensors it launches ``csrc/multiway_merge.cu`` (a
 rank-scatter merge); on CPU tensors it takes the plain version
-``multiway_merge_plain``.
+``multiway_merge_plain``.  With ``lens=`` (an int32 device vector) and
+``stride=`` it merges runs of any lengths at a fixed stride, keys only
+(the varlen K2, plain version ``multiway_merge_varlen_plain``): the
+distributed joins' merge of the runs each shard receives.
 
 Every function takes the payload column as ``payloads=``; without it the
 result is one key column, with it a ``(keys, payloads)`` tuple of columns.
@@ -28,6 +31,7 @@ import torch
 
 from ..params import BLOCKSIZE_DEFAULT
 from . import sort as sort_ops
+from .bitonic import KEY_NEG_INF, KEY_POS_INF
 
 LAUNCHES = 0  # K2 kernel launches since the last reset
 PAIR_LAUNCHES = 0  # K6
@@ -53,8 +57,75 @@ def multiway_merge_plain(keys: torch.Tensor, fanin: int, uniform_lens,
         sort_ops.pack_pairs(keys, payloads), total, fanin * span))
 
 
-def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens,
-                   payloads: torch.Tensor | None = None):
+def _check_varlen(keys: torch.Tensor, fanin: int, lens: torch.Tensor,
+                  stride) -> None:
+    sort_ops._check_keys(keys, 0, "multiway_merge")
+    if fanin < 2 or fanin & (fanin - 1):
+        raise ValueError(f"multiway_merge: fanin {fanin} is not a power of 2")
+    if not isinstance(lens, torch.Tensor) or lens.dtype != torch.int32 \
+            or lens.dim() != 1 or lens.device != keys.device \
+            or not lens.is_contiguous():
+        raise ValueError("multiway_merge: lens must be a contiguous 1-D int32 "
+                         f"tensor on {keys.device}")
+    if stride is None or stride < 1:
+        raise ValueError(f"multiway_merge: lens needs a stride >= 1, got "
+                         f"{stride}")
+    if lens.numel() == 0 or lens.numel() % fanin:
+        raise ValueError(f"multiway_merge: {lens.numel()} runs are not whole "
+                         f"groups of {fanin}")
+    if keys.numel() < lens.numel() * stride:
+        raise ValueError(f"multiway_merge: {keys.numel()} slots hold fewer "
+                         f"than {lens.numel()} runs of stride {stride}")
+
+
+def multiway_merge_varlen_plain(keys: torch.Tensor, fanin: int,
+                                lens: torch.Tensor, stride: int):
+    """Plain version of the varlen K2: one ``torch.sort`` of the live keys
+    tagged with their group, each group's sorted keys put at its region's
+    start."""
+    dev = keys.device
+    nruns = lens.numel()
+    ln = lens.to(torch.int64).clamp(0, stride)
+    slot = torch.arange(nruns * stride, dtype=torch.int64, device=dev)
+    run = slot // stride
+    live = slot - run * stride < ln[run]
+    group = run[live] // fanin
+    tagged = torch.sort(group * (1 << 32) + (
+        keys[:nruns * stride][live].to(torch.int64) - KEY_NEG_INF)).values
+    gsorted = tagged >> 32
+    glen = ln.view(-1, fanin).sum(1)
+    first = torch.cumsum(glen, 0) - glen  # live keys before each group
+    rank = torch.arange(tagged.numel(), dtype=torch.int64, device=dev) \
+        - first[gsorted]
+    out = torch.full_like(keys, KEY_POS_INF)
+    out[gsorted * fanin * stride + rank] = (
+        (tagged & 0xFFFFFFFF) + KEY_NEG_INF).to(torch.int32)
+    return out, glen.to(torch.int32)
+
+
+def _multiway_merge_varlen(keys: torch.Tensor, fanin: int,
+                           lens: torch.Tensor, stride: int):
+    _check_varlen(keys, fanin, lens, stride)
+    if keys.device.type == "cpu":
+        return multiway_merge_varlen_plain(keys, fanin, lens, stride)
+    from ..kernels import _build
+
+    global LAUNCHES
+    out = torch.empty_like(keys)
+    with _build.launching_on(keys) as stream:
+        code = _build.library().smj_multiway_merge_varlen(
+            keys.data_ptr(), lens.data_ptr(), out.data_ptr(), keys.numel(),
+            lens.numel(), stride, fanin, stream)
+    _build.check("smj_multiway_merge_varlen", code)
+    LAUNCHES += 1
+    return out, lens.view(-1, fanin).clamp(0, stride).sum(
+        1, dtype=torch.int32)
+
+
+def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens=None,
+                   payloads: torch.Tensor | None = None, *,
+                   lens: torch.Tensor | None = None,
+                   stride: int | None = None):
     """Merge groups of ``fanin`` consecutive ascending runs.
 
     ``uniform_lens=(nruns, total, span)``: run r starts at ``r * span`` with
@@ -64,7 +135,20 @@ def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens,
     span`` with length ``new_lens[g]``; ``merged`` (a column, or a ``(keys,
     payloads)`` tuple) has as many slots as ``keys``, and slots from
     ``total`` on hold INT32_MAX.
+
+    Varlen mode, keys only (``lens=``, ``stride=``): run r starts at ``r *
+    stride`` and holds ``lens[r]`` keys, ``lens`` an int32 tensor on the
+    keys' device whose length is a multiple of ``fanin`` (the dynamic-lens
+    mode of the JAX ``multiway_merge``, ops/multiwaymerge.py:522-560).
+    Merged group g starts at ``g * fanin * stride``; every slot past a
+    group's live keys holds INT32_MAX.  ``new_lens`` is then the group sums
+    as an int32 tensor on the device: no host sync.
     """
+    if lens is not None:
+        if uniform_lens is not None or payloads is not None:
+            raise ValueError("multiway_merge: lens= takes keys only and no "
+                             "uniform_lens")
+        return _multiway_merge_varlen(keys, fanin, lens, stride)
     _check_uniform(keys, payloads, fanin, uniform_lens)
     nruns, total, span = uniform_lens
     ngroups = sort_ops.cdiv(nruns, fanin)

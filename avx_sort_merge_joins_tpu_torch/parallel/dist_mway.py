@@ -1,0 +1,445 @@
+"""Distributed m-way count join over a mesh of shards (counterpart of
+``avx_sort_merge_joins_tpu/parallel/dist_mway.py:54-100,185-780``;
+reference: src/joins/sortmergejoin_multiway.c, whose threads sort their
+partitions, gather one partition's sorted runs from every thread, the
+remote reads of :504-518, and multi-way merge them).
+
+Per shard, written SPMD-style with an explicit ``me`` between the mesh's
+collectives (``parallel/mesh.py``):
+
+  sort       -- the shard's keys sorted by the multiway sort (K1 + K2);
+  exchange   -- equi-depth splitters from 16 quantiles per relation per
+                shard (an all-gather); each shard cuts its sorted run into
+                one contiguous bucket per destination and the buckets move
+                by all-to-all, by NEXT/RING/RANDOM permute rounds, or in two
+                stages on a 2-D mesh;
+  merge      -- the received runs k-way merged: the varlen K2 with run
+                lengths in a device vector, or the chunk-gated receiver
+                merge K9 (``remote_pull="emulate"``), or, with
+                ``overlap=True``, group merges in arrival order and a final
+                two-way merge;
+  mergejoin  -- K3 per shard over its owned key range, in int64; the count
+                is the host sum over shards (disjoint key ranges).
+
+``use_kernels=False`` takes the ``torch.sort`` baseline route (the JAX
+package's ``use_pallas=False``): the local sorts and the merge of the
+received runs are ``torch.sort``.  On a mesh on the CPU every kernel takes
+its plain version; on the card it launches or raises.
+
+TPU workarounds dropped: the ``(rows, 128)`` layouts and spare window rows,
+the base-2^30 count limbs and ``CountLimbOverflow`` (the count is int64, so
+a hot key with cntR * cntS >= 2^29 on one shard counts exactly), and the
+jit caches of the shard programs.  The bucket alignment stays the JAX
+package's 16,384 keys (its ``tile_rows * 128``), so capacities, overflow
+and the slack-doubling retry match its own.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from ..models.common import device_sync
+from ..ops import mergejoin, multiwaymerge as mw
+from ..ops.bitonic import KEY_POS_INF
+from ..params import BLOCKSIZE_DEFAULT
+from ..types import NumaStrategy
+from ..utils.log import warn
+from . import exchange as ex
+from . import remote_fifo as rf
+from .mesh import (Mesh, chips_per_host_of, host_shape, is_2d,
+                   shuffle_order)
+
+FANIN_DEFAULT = 16
+# Bucket capacities align to the JAX package's merge tile (128 x 128 keys)
+# so that they, and with them overflow and the retry, equal its own.
+TILE_ELEMS = 128 * 128
+NQ = 16  # splitter samples per relation per shard
+BOUND_MIN = -(2**31) + 1  # bounds[0]: below every live key
+
+
+def _pow2_runs(n: int) -> int:
+    return n if n & (n - 1) == 0 else 1 << (n - 1).bit_length()
+
+
+def _local_sorted(keys: torch.Tensor, block: int, fanin: int,
+                  use_kernels: bool) -> torch.Tensor:
+    """One shard's keys ascending, pads (INT32_MAX) last: the multiway sort
+    (K1 + K2), or ``torch.sort`` on the baseline route.  The live prefix is
+    ``[:keys.numel()]``."""
+    if use_kernels:
+        return mw.multiway_sort(keys, keys.numel(), block, fanin)
+    return torch.sort(keys).values
+
+
+def _slice_buckets(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
+                   n_chips: int, cap: int):
+    """Cut one shard's sorted column into per-destination buckets: bucket d
+    holds the live keys in [bounds[d], bounds[d+1]), a contiguous slice
+    found by a rank search.  Everything past ``n_valid`` is masked to +inf
+    first: a k-way merge leaves garbage past its live prefix.  Returns
+    ``((n_chips*cap,) keys, int32 counts, overflow)``."""
+    dev = ks.device
+    kv = torch.full((n_valid + cap,), KEY_POS_INF, dtype=torch.int32,
+                    device=dev)
+    kv[:n_valid] = ks[:n_valid]
+    inner = torch.searchsorted(kv[:n_valid], bounds[1:]) if n_chips > 1 \
+        else torch.zeros(0, dtype=torch.int64, device=dev)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), inner,
+                        torch.full((1,), n_valid, dtype=torch.int64,
+                                   device=dev)])
+    ln = starts[1:] - starts[:-1]
+    lane = torch.arange(cap, dtype=torch.int64, device=dev)
+    vals = kv[starts[:-1, None] + lane[None, :]]
+    vals = torch.where(lane[None, :] < ln[:, None], vals, KEY_POS_INF)
+    overflow = torch.clamp(ln - cap, min=0).sum()
+    return (vals.reshape(-1), torch.clamp(ln, max=cap).to(torch.int32),
+            overflow)
+
+
+def _equidepth_bounds(mesh: Mesh, r_sorted, s_sorted, nvr, nvs):
+    """Equi-depth splitters: each shard samples ``NQ`` quantiles of each
+    sorted relation, at ``(nv // NQ) * j`` clamped to the live prefix (an
+    empty shard reads its +inf pad at index 0, as the JAX package's clamped
+    ``dynamic_slice`` does); the gathered samples, sorted, give bounds[d]
+    = samples[(ns * d) // n].  Returns an int32 tensor of n bounds,
+    bounds[0] = -2^31 + 1."""
+    n = mesh.n
+    rows = []
+    for me in range(n):
+        pos_r = [min((int(nvr[me]) // NQ) * j, max(int(nvr[me]) - 1, 0))
+                 for j in range(NQ)]
+        pos_s = [min((int(nvs[me]) // NQ) * j, max(int(nvs[me]) - 1, 0))
+                 for j in range(NQ)]
+        rows.append(torch.stack([r_sorted[me][pos_r], s_sorted[me][pos_s]],
+                                dim=1).reshape(-1))
+    samples = torch.sort(mesh.all_gather(torch.stack(rows))).values
+    ns = samples.numel()
+    pick = torch.tensor([(ns * d) // n for d in range(1, n)],
+                        dtype=torch.int64, device=mesh.device)
+    return torch.cat([torch.full((1,), BOUND_MIN, dtype=torch.int32,
+                                 device=mesh.device), samples[pick]])
+
+
+def _exchange(mesh: Mesh, bflat: torch.Tensor, cap: int, schedule,
+              hier=None) -> torch.Tensor:
+    """Deliver bucket d of every shard to shard d.  ``schedule=None``: one
+    all-to-all; otherwise a list of rotation offsets
+    (:func:`mesh.shuffle_order`) run as collective-permute rounds.  On a 2-D
+    mesh (``hier``) the two-stage exchange, the schedule applied to the
+    host tier."""
+    if hier is not None:
+        return ex.exchange_hier(mesh, bflat, cap, host_schedule=schedule)
+    if schedule is None:
+        return mesh.all_to_all(bflat)
+    n = mesh.n
+    me = torch.arange(n, device=bflat.device)
+    b3 = bflat.reshape(n, n, cap)
+    out = torch.zeros_like(b3)
+    for off in schedule:
+        off = int(off)
+        # shard x sends its bucket for (x + off) mod n to that shard
+        piece = b3[me, (me + off) % n]
+        if off != 0:
+            piece = mesh.ppermute(piece, [(x, (x + off) % n)
+                                          for x in range(n)])
+        out[me, (me - off) % n] = piece
+    return out.reshape(n, -1)
+
+
+def _merge_levels_varlen(keys: torch.Tensor, lens: torch.Tensor,
+                         stride: int, nruns: int, fanin: int):
+    """k-way merge levels of the varlen K2 until one run is left."""
+    while nruns > 1:
+        w = min(max(2, fanin), nruns)
+        keys, lens = mw.multiway_merge(keys, w, lens=lens, stride=stride)
+        stride *= w
+        nruns = -(-nruns // w)
+    return keys, lens
+
+
+def _pad_runs(recv: torch.Tensor, counts: torch.Tensor, n: int, cap: int,
+              nruns: int):
+    """One shard's received runs padded to ``nruns`` with empty ones."""
+    extra = nruns - n
+    if extra == 0:
+        return recv, counts
+    dev = recv.device
+    return (torch.cat([recv, torch.full((extra * cap,), KEY_POS_INF,
+                                        dtype=torch.int32, device=dev)]),
+            torch.cat([counts, torch.zeros(extra, dtype=torch.int32,
+                                           device=dev)]))
+
+
+def _merge_received(recv: torch.Tensor, counts: torch.Tensor, n: int,
+                    cap: int, fanin: int,
+                    use_kernels: bool) -> torch.Tensor:
+    """One shard's received runs (run s at ``[s*cap, s*cap + counts[s])``)
+    k-way merged into one ascending column: the varlen K2 with fan-in
+    ``min(fanin, nruns)`` per level, a shard count that is not a power of
+    two padded with empty runs; ``torch.sort`` on the baseline route."""
+    if not use_kernels:
+        return torch.sort(recv).values
+    nruns = _pow2_runs(n)
+    keys, lens = _pad_runs(recv, counts, n, cap, nruns)
+    return _merge_levels_varlen(keys, lens, cap, nruns, fanin)[0]
+
+
+def _merge_received_gated(recv: torch.Tensor, counts: torch.Tensor, n: int,
+                          cap: int, pull_rate: int):
+    """One shard's received runs merged by the chunk-gated receiver K9,
+    under an arrival schedule shaped like the push schedule's chunk-major
+    walk (``pull_rate`` merge rounds per push round).  At least two strips
+    (a one-shard mesh gets an empty second one).  Returns (merged,
+    violation)."""
+    nruns = max(2, _pow2_runs(n))
+    landing, lens = _pad_runs(recv, counts, n, cap, nruns)
+    chunk = rf.pick_chunk_elems(cap, TILE_ELEMS, nruns)
+    arrive = rf.arrival_schedule(nruns, cap // chunk, rate=pull_rate)
+    merged, _waited, viol = rf.chunk_gated_merge(landing, lens, cap, chunk,
+                                                 arrive)
+    return merged, viol
+
+
+def _overlap_receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
+                     cap: int, fanin: int, ngroups: int = 2):
+    """Permute-round delivery with group merges as the groups fill: round t
+    brings each shard the bucket of shard (me - t); the runs of each
+    ``n / ngroups`` consecutive rounds k-way merge as one group (the
+    reference's merge-while-reading, sortmergejoin_multiway.c:494-518),
+    and one two-way merge of the groups finishes.  Returns the merged
+    column of each shard."""
+    n = mesh.n
+    me = torch.arange(n, device=bflat.device)
+    b3 = bflat.reshape(n, n, cap)
+    pieces, cnts = [], []
+    for t in range(n):
+        piece, cnt = b3[me, (me + t) % n], counts[me, (me + t) % n]
+        if t:
+            perm = [(x, (x + t) % n) for x in range(n)]
+            piece, cnt = mesh.ppermute(piece, perm), mesh.ppermute(cnt, perm)
+        pieces.append(piece)
+        cnts.append(cnt)
+    per_group = n // ngroups
+    merged = []
+    for m in range(n):
+        groups, glens = [], []
+        for g in range(ngroups):
+            rounds = range(g * per_group, (g + 1) * per_group)
+            keys, lens = _merge_levels_varlen(
+                torch.cat([pieces[t][m] for t in rounds]),
+                torch.stack([cnts[t][m] for t in rounds]), cap, per_group,
+                fanin)
+            groups.append(keys)
+            glens.append(lens)
+        out, _ = mw.multiway_merge(torch.cat(groups), ngroups,
+                                   lens=torch.cat(glens),
+                                   stride=per_group * cap)
+        merged.append(out)
+    return merged
+
+
+def _stage(keys, n_keys: int, shard: int, mesh: Mesh,
+           pre_sharded: bool) -> torch.Tensor:
+    """The ``(n, shard)`` stack of one relation on the mesh's device:
+    ``keys[:n_keys]`` padded with +inf, or an already sharded array."""
+    if pre_sharded:
+        out = torch.as_tensor(keys, dtype=torch.int32, device=mesh.device)
+        if tuple(out.shape) != (mesh.n, shard):
+            raise ValueError(f"pre_sharded: shape {tuple(out.shape)}, want "
+                             f"{(mesh.n, shard)}")
+        return out.contiguous()
+    return ex.pad_column(keys[:n_keys], shard * mesh.n, KEY_POS_INF,
+                         device=mesh.device).reshape(mesh.n, shard)
+
+
+def _schedule(mesh: Mesh, numa_strategy, next_as_rounds: bool):
+    """The exchange's rotation offsets, or None for one all-to-all: on a
+    2-D mesh the strategy schedules the host tier; RING strides by the
+    mesh's host granularity (numa_shuffle.c:80)."""
+    if is_2d(mesh):
+        if numa_strategy is None:
+            return None
+        return shuffle_order(numa_strategy, mesh.hosts[0], 1).tolist()
+    if numa_strategy is not None and numa_strategy != NumaStrategy.NEXT:
+        return shuffle_order(numa_strategy, mesh.n,
+                             chips_per_host_of(mesh)).tolist()
+    if numa_strategy == NumaStrategy.NEXT and next_as_rounds:
+        return list(range(mesh.n))
+    return None
+
+
+def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
+          block: int, fanin: int, use_kernels: bool, schedule,
+          pre_sharded: bool, overlap_ok: bool, remote_pull, pull_rate: int):
+    """One run of the pipeline at one slack: (count, overflow, phases),
+    each phase timed on the host clock after a device sync."""
+    n = mesh.n
+    hier = host_shape(mesh) if is_2d(mesh) else None
+    shard_r, shard_s = -(-n_r // n), -(-n_s // n)
+    cap_r = ex.bucket_cap(shard_r, n, slack, TILE_ELEMS)
+    cap_s = ex.bucket_cap(shard_s, n, slack, TILE_ELEMS)
+    nv_r = ex.valid_counts(n_r, shard_r, n)
+    nv_s = ex.valid_counts(n_s, shard_s, n)
+    rk = _stage(rkeys, n_r, shard_r, mesh, pre_sharded)
+    sk = _stage(skeys, n_s, shard_s, mesh, pre_sharded)
+    device_sync(sk)
+    phases = {}
+
+    t0 = time.perf_counter()
+    r_sorted = [_local_sorted(rk[me], block, fanin, use_kernels)
+                for me in range(n)]
+    s_sorted = [_local_sorted(sk[me], block, fanin, use_kernels)
+                for me in range(n)]
+    device_sync(s_sorted)
+    phases["sort"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bounds = _equidepth_bounds(mesh, r_sorted, s_sorted, nv_r, nv_s)
+    merged, totals, overflow, viols = {}, {}, [], []
+    for side, ks, nv, cap in (("r", r_sorted, nv_r, cap_r),
+                              ("s", s_sorted, nv_s, cap_s)):
+        cut = [_slice_buckets(ks[me], int(nv[me]), bounds, n, cap)
+               for me in range(n)]
+        del ks[:]  # free each phase's buffers before the next
+        bflat = torch.stack([c[0] for c in cut])
+        counts = torch.stack([c[1] for c in cut])
+        overflow += [c[2] for c in cut]
+        del cut
+        if overlap_ok:
+            merged[side] = _overlap_receive(mesh, bflat, counts, cap, fanin)
+            totals[side] = counts.sum(0)
+            continue
+        recv = _exchange(mesh, bflat, cap, schedule, hier)
+        rcounts = ex.exchange_hier(mesh, counts, 1) if hier else \
+            mesh.all_to_all(counts)
+        del bflat
+        totals[side] = rcounts.sum(1)
+        if remote_pull == "emulate":
+            out = [_merge_received_gated(recv[me], rcounts[me], n, cap,
+                                         pull_rate) for me in range(n)]
+            merged[side] = [o[0] for o in out]
+            viols += [o[1] for o in out]
+        else:
+            merged[side] = [_merge_received(recv[me], rcounts[me], n, cap,
+                                            fanin, use_kernels)
+                            for me in range(n)]
+        del recv
+    device_sync(merged["s"])
+    phases["merge1"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tr, ts = torch.stack([totals["r"], totals["s"]]).tolist()
+    counts = torch.stack([mergejoin.merge_join_count_fused(
+        merged["r"][me], merged["s"][me], tr[me], ts[me])
+        for me in range(n)])
+    count = sum(counts.tolist())
+    phases["mergejoin"] = time.perf_counter() - t0
+    phases["total"] = phases["sort"] + phases["merge1"] + phases["mergejoin"]
+    if viols and int(torch.stack(viols).sum()):
+        raise RuntimeError("chunk-gated merge read past a delivered prefix: "
+                           "the remote-pull gating arithmetic regressed")
+    return count, int(torch.stack(overflow).sum()), phases
+
+
+def _check_fanin(fanin: int) -> None:
+    if fanin < 2 or fanin & (fanin - 1):
+        raise ValueError(
+            f"fanin must be a power of two >= 2, got {fanin} (the k-way "
+            "merge's group math requires it)")
+
+
+def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
+                         slack: float = 2.0, block: int = BLOCKSIZE_DEFAULT,
+                         fanin: int = FANIN_DEFAULT,
+                         use_kernels: bool = True,
+                         numa_strategy: Optional[str] = None,
+                         pre_sharded: bool = False,
+                         overlap: bool = False,
+                         remote_pull: Optional[str] = None,
+                         pull_rate: int = 1):
+    """Distributed m-way equi-join match count over ``mesh``.
+
+    Returns (count, overflow) as host ints; overflow must be 0.  A bucket
+    overflow doubles the slack and retries, up to 16, as the JAX package
+    does; past that it is returned.
+
+    ``rkeys``/``skeys`` are 1-D key columns (numpy or torch, anywhere) of
+    logical sizes ``n_r``/``n_s``, or with ``pre_sharded`` the ``(n,
+    shard)`` arrays of JAX's pre-sharded input, sizes dividing evenly.
+    A 2-D mesh (``make_mesh2d``) exchanges in two stages, the NEXT/RING/
+    RANDOM schedule applied to the host tier.
+
+    ``overlap=True`` delivers the buckets in permute rounds and merges the
+    runs in two groups as they arrive, then the groups: one more k-way
+    pass.  It needs the kernel pipeline, a flat mesh and a power-of-two
+    shard count >= 4, and falls back loudly otherwise.
+
+    ``remote_pull="emulate"`` merges the received runs through the
+    chunk-gated receiver K9, as if they arrived chunk by chunk
+    (``pull_rate`` merge rounds per push round), and raises on a gating
+    violation.  It needs the kernel pipeline on a flat mesh without
+    overlap and falls back loudly otherwise; ``"dma"``, the real push
+    across cards, raises.
+    """
+    _check_fanin(fanin)
+    n = mesh.n
+    hier = host_shape(mesh) if is_2d(mesh) else None
+    overlap_ok = (overlap and use_kernels and hier is None and n >= 4
+                  and n & (n - 1) == 0)
+    if overlap and not overlap_ok:
+        warn("dist m-way overlap=True requires the kernel pipeline, a flat "
+             "mesh, and a power-of-two shard count >= 4 "
+             f"(use_kernels={use_kernels}, n_chips={n}, "
+             f"mesh_axes={mesh.axis_names}); running the bulk all_to_all "
+             "path")
+    if remote_pull is not None:
+        if remote_pull != "emulate":
+            raise ValueError(
+                "remote_pull='dma' needs multi-chip hardware (a mesh of "
+                "cards; see parallel/remote_fifo.py) -- only 'emulate' is "
+                "runnable here")
+        if overlap_ok or hier is not None or not use_kernels:
+            warn("remote_pull='emulate' requires the kernel pipeline on a "
+                 "flat mesh without overlap; running the bulk path")
+            remote_pull = None
+    if (overlap_ok and numa_strategy is not None
+            and numa_strategy != NumaStrategy.NEXT):
+        warn(f"overlap=True ignores numa_strategy={numa_strategy} "
+             "(the permute rounds are sequential by construction)")
+    schedule = _schedule(mesh, numa_strategy, next_as_rounds=True)
+    while True:
+        count, ov, _ = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
+                             fanin, use_kernels, schedule, pre_sharded,
+                             overlap_ok, remote_pull, pull_rate)
+        if ov == 0 or slack >= 16.0:
+            return count, ov
+        # extreme skew overflowed a bucket: retry with doubled capacity
+        slack *= 2
+
+
+def dist_mway_join_phased(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
+                          slack: float = 2.0,
+                          block: int = BLOCKSIZE_DEFAULT,
+                          fanin: int = FANIN_DEFAULT,
+                          use_kernels: bool = True,
+                          numa_strategy: Optional[str] = None,
+                          pre_sharded: bool = False):
+    """The distributed m-way count with per-phase times: (count, overflow,
+    phases), phases sort / merge1 (splitters, exchange and merge of the
+    received runs) / mergejoin / total in seconds, each on the host clock
+    after ``torch.cuda.synchronize`` (the reference's SORT / MERGE1 / MJOIN
+    record columns, joincommon.c:175-196).  NEXT exchanges by one
+    all-to-all here, as in the JAX package.  The times of the run that
+    returns, after any slack retry."""
+    _check_fanin(fanin)
+    schedule = _schedule(mesh, numa_strategy, next_as_rounds=False)
+    while True:
+        count, ov, phases = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
+                                  fanin, use_kernels, schedule, pre_sharded,
+                                  False, None, 1)
+        if ov == 0 or slack >= 16.0:
+            return count, ov, phases
+        slack *= 2

@@ -1,0 +1,274 @@
+"""The remote-pull receiver: host helpers of the chunked push schedule and
+the chunk-gated merge, kernel K9 (counterpart of
+``avx_sort_merge_joins_tpu/parallel/remote_fifo.py:74-269``; reference:
+src/merge/avx_multiwaymerge.c:605-728 readmerge, which reads remote NUMA
+runs through the merge, and sortmergejoin_multiway.c:494-518).
+
+In the remote pull, every shard pushes its bucket for shard d to d in
+fixed-size chunks, and d's k-way merge reads each source's landing strip
+as a leaf that becomes readable chunk by chunk.  :func:`chunk_gated_merge`
+runs the receiver's side with the arrivals emulated: an arrival-round
+table says when chunk j of strip r lands, the merge consumes only
+delivered prefixes, and it reports the chunk waits per strip and a flag
+that is set if it would ever read past a delivered prefix.  On a CUDA
+tensor it launches ``csrc/chunk_gated_merge.cu``; on a CPU tensor it takes
+the plain version :func:`chunk_gated_merge_plain`.
+
+The host helpers are the JAX package's, line for line, with its
+``max_entries=512`` in :func:`pick_chunk_elems`: it fixes the chunk size,
+and with it the wait counters.  The real push and pull across devices
+(the TPU kernel ``_remote_pull_kernel`` and ``remote_pull_exchange_merge``)
+needs a mesh of cards and is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.bitonic import KEY_POS_INF
+
+LAUNCHES = 0  # K9 kernel launches since the last reset
+
+# Output keys per merge tile: the kernel's kTile (smj_chunk_gated_merge_tile
+# reports it on the card), and the tiles the plain version gates with.
+GATE_TILE = 4096
+
+
+def remote_dma_enabled() -> bool:
+    """The dark-launch flag of the real push pipeline (``SMJ_REMOTE_DMA``,
+    the JAX package's switch): set only when explicitly requested."""
+    return os.environ.get("SMJ_REMOTE_DMA", "0") == "1"
+
+
+@dataclass(frozen=True)
+class ChunkPush:
+    """One scheduled push: chunk ``chunk`` of my bucket for ``dst``."""
+    round: int
+    dst: int
+    chunk: int
+    start: int    # element offset within my bucket for dst
+    size: int     # elements in this chunk (last chunk may be short)
+
+
+def push_schedule(n_chips: int, me: int, bucket_lens, chunk_elems: int,
+                  order=None) -> List[ChunkPush]:
+    """The source side's push order: destinations in ``order`` (shuffle
+    offsets; default NEXT), chunk-major, so round r pushes chunk r of every
+    bucket that still has data and every destination's earliest chunks
+    arrive first."""
+    if order is None:
+        order = list(range(n_chips))
+    plan: List[ChunkPush] = []
+    nchunks = [max(0, -(-int(bucket_lens[d]) // chunk_elems))
+               for d in range(n_chips)]
+    max_chunks = max(nchunks) if nchunks else 0
+    for r in range(max_chunks):
+        for off in order:
+            d = (me + off) % n_chips
+            if r < nchunks[d]:
+                start = r * chunk_elems
+                size = min(chunk_elems, int(bucket_lens[d]) - start)
+                plan.append(ChunkPush(r, d, r, start, size))
+    return plan
+
+
+def landing_layout(n_chips: int, cap: int, chunk_elems: int
+                   ) -> Tuple[int, int]:
+    """(strip_elems, chunks_per_strip) of the receiver's landing buffer:
+    source s's strip at [s*strip_elems, (s+1)*strip_elems), chunk j at
+    strip offset j*chunk_elems -- the bulk exchange's received layout."""
+    assert cap % chunk_elems == 0, "cap must be whole chunks"
+    return cap, cap // chunk_elems
+
+
+def leaf_wait_chunk(consumed_elem: int, window_elems: int,
+                    chunk_elems: int) -> int:
+    """Index of the last chunk a leaf window read touches: the reader must
+    have waited for chunks [0 .. this] of that source before loading."""
+    return (consumed_elem + window_elems - 1) // chunk_elems
+
+
+def expected_sem_waits(total_windows: int, window_elems: int,
+                       chunk_elems: int) -> List[int]:
+    """For a leaf consuming ``total_windows`` windows in sequence, the chunk
+    index each window load must wait for."""
+    return [leaf_wait_chunk(w * window_elems, window_elems, chunk_elems)
+            for w in range(total_windows)]
+
+
+def arrival_schedule(n_src: int, chunks_per_strip: int, rate: int = 1,
+                     order=None) -> np.ndarray:
+    """(n_src, chunks_per_strip) arrival-round table: chunk j of source s
+    arrives at round ``(j * n_src + pos(s)) * rate``, the receiver's view of
+    :func:`push_schedule`'s chunk-major walk (rate 0: everything delivered
+    at once, the bulk exchange).  Rows are non-decreasing, as
+    :func:`chunk_gated_merge` requires."""
+    if order is None:
+        order = list(range(n_src))
+    assert sorted(order) == list(range(n_src)), \
+        "order must be a permutation of range(n_src)"
+    pos = {s: i for i, s in enumerate(order)}
+    out = np.zeros((n_src, chunks_per_strip), dtype=np.int32)
+    for s in range(n_src):
+        for j in range(chunks_per_strip):
+            out[s, j] = (j * n_src + pos[s]) * rate
+    return out
+
+
+def pick_chunk_elems(cap: int, tile_elems: int, n_src: int,
+                     max_entries: int = 512) -> int:
+    """Largest-granularity chunk size (whole tiles, dividing ``cap``) that
+    keeps the (n_src, chunks_per_strip) table within ``max_entries``."""
+    assert cap % tile_elems == 0
+    tiles = cap // tile_elems
+    max_chunks = max(1, min(tiles, max_entries // n_src))
+    per = -(-tiles // max_chunks)
+    while tiles % per:
+        per += 1
+    return per * tile_elems
+
+
+def push_window() -> int:
+    """In-flight bound on outstanding pushes per shard
+    (``SMJ_REMOTE_WINDOW``, default 32)."""
+    return max(1, int(os.environ.get("SMJ_REMOTE_WINDOW", "32")))
+
+
+def chunks_needed(consumed: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """Chunks a reader must have received to have read a strip's prefix of
+    ``consumed`` keys: ``leaf_wait_chunk(0, consumed, chunk) + 1``, and 0
+    for an empty prefix."""
+    return (consumed + chunk_elems - 1) // chunk_elems
+
+
+def _checked(landing: torch.Tensor, lens: torch.Tensor, stride: int,
+             chunk_elems: int, arrive_rounds) -> torch.Tensor:
+    """Raise on what the merge does not take (the JAX wrapper's asserts,
+    remote_fifo.py:219-228, less its TPU tiling and SMEM budget); return
+    the arrival table as int32 on the landing's device."""
+    arrive = np.asarray(arrive_rounds.cpu() if isinstance(
+        arrive_rounds, torch.Tensor) else arrive_rounds)
+    if arrive.ndim != 2:
+        raise ValueError(f"chunk_gated_merge: arrival table of shape "
+                         f"{arrive.shape}, not (W, max_chunks)")
+    W, max_chunks = arrive.shape
+    if W < 2 or W & (W - 1) or W > 1024:
+        raise ValueError(f"chunk_gated_merge: {W} strips; pad the sources "
+                         "to a power of two in [2, 1024]")
+    if np.any(np.diff(arrive.astype(np.int64), axis=1) < 0):
+        raise ValueError("chunk_gated_merge: arrival rounds must be "
+                         "non-decreasing per source")
+    if arrive.size and (arrive.min() < np.iinfo(np.int32).min
+                        or arrive.max() > np.iinfo(np.int32).max):
+        raise ValueError("chunk_gated_merge: arrival rounds outside int32")
+    if chunk_elems < 1 or stride < 1 or stride % chunk_elems:
+        raise ValueError(f"chunk_gated_merge: strips of {stride} keys do "
+                         f"not hold whole chunks of {chunk_elems}")
+    if stride // chunk_elems > max_chunks:
+        raise ValueError(f"chunk_gated_merge: {stride // chunk_elems} chunks "
+                         f"a strip, the table has {max_chunks}")
+    if landing.dtype != torch.int32 or landing.dim() != 1 \
+            or not landing.is_contiguous():
+        raise ValueError("chunk_gated_merge: landing must be a contiguous "
+                         "1-D int32 tensor")
+    if landing.numel() < W * stride:
+        raise ValueError(f"chunk_gated_merge: {landing.numel()} slots hold "
+                         f"fewer than {W} strips of {stride}")
+    if lens.dtype != torch.int32 or lens.shape != (W,) \
+            or lens.device != landing.device or not lens.is_contiguous():
+        raise ValueError(f"chunk_gated_merge: lens must be a contiguous "
+                         f"int32[{W}] on {landing.device}")
+    return torch.as_tensor(arrive.astype(np.int32), device=landing.device)
+
+
+def chunk_gated_merge_plain(landing: torch.Tensor, lens: torch.Tensor,
+                            stride: int, chunk_elems: int, arrive_rounds,
+                            tile: int = GATE_TILE):
+    """Plain version of K9: the kernel's tile, need, ready, round and
+    violation arithmetic in torch, and the merge as a stable sort of the
+    live keys (ties in strip order, as the kernel's co-ranks take them)."""
+    arrive = _checked(landing, lens, stride, chunk_elems,
+                      arrive_rounds).to(torch.int64)
+    W = arrive.shape[0]
+    dev = landing.device
+    ln = lens.to(torch.int64).clamp(0, stride)
+    host_ln = ln.tolist()
+    vals = torch.cat([landing[r * stride:r * stride + host_ln[r]]
+                      for r in range(W)])
+    src = torch.repeat_interleave(torch.arange(W, device=dev), ln)
+    merged, perm = torch.sort(vals, stable=True)
+    total = vals.numel()
+    out = torch.full_like(landing, KEY_POS_INF)
+    out[:total] = merged
+    violation = torch.zeros((), dtype=torch.int32, device=dev)
+    waited = torch.zeros(W, dtype=torch.int32, device=dev)
+    ntiles = -(-total // tile)
+    if ntiles == 0:
+        return out, waited, violation
+    t = torch.arange(ntiles, dtype=torch.int64, device=dev)
+    ends = torch.clamp((t + 1) * tile, max=total)
+    src = src[perm]
+    # consumed[r][t]: strip r's keys among the first ends[t] merged keys
+    consumed = torch.stack([
+        torch.searchsorted(torch.nonzero(src == r).flatten(), ends)
+        for r in range(W)])
+    need = chunks_needed(consumed, chunk_elems)
+    at = torch.gather(arrive, 1, (need - 1).clamp(min=0))
+    ready = torch.where(need > 0, at, 0).amax(0)
+    # rho(t) = max(rho(t-1) + 1, ready(t)), rho(-1) = -1, as a prefix max
+    rho = t + torch.cummax(ready - t, 0).values.clamp(min=0)
+    delivered = torch.searchsorted(
+        arrive, rho.expand(W, ntiles).contiguous(), right=True)
+    violation |= (need > delivered).any().to(torch.int32)
+    waited = need.amax(1).to(torch.int32)
+    return out, waited, violation
+
+
+def chunk_gated_merge(landing: torch.Tensor, lens: torch.Tensor,
+                      stride: int, chunk_elems: int, arrive_rounds):
+    """Receiver-side merge of W landing strips whose data arrives chunk by
+    chunk (the emulated remote-pull merge).
+
+    ``landing``       -- flat int32 buffer, strip r at ``[r*stride, ...)``,
+                         ascending, ``lens[r]`` live keys (the bulk
+                         exchange's received layout); W a power of two.
+    ``lens``          -- int32[W] on the landing's device.
+    ``arrive_rounds`` -- (W, max_chunks) int32 table: the merge round at
+                         which chunk j of strip r becomes readable, rows
+                         non-decreasing (:func:`arrival_schedule`); all
+                         zeros is the bulk delivery.
+    Returns ``(merged, waited, violation)``: the merged column (as many
+    slots as ``landing``, INT32_MAX past the live total), the chunks each
+    strip's reader waited for (ceil(lens[r] / chunk_elems)), and an int32
+    0-d flag that is non-zero if the merge would have read past a
+    delivered prefix.  Outputs stay on the device: no host sync."""
+    if landing.device.type == "cpu":
+        return chunk_gated_merge_plain(landing, lens, stride, chunk_elems,
+                                       arrive_rounds)
+    arrive = _checked(landing, lens, stride, chunk_elems, arrive_rounds)
+    from ..kernels import _build
+
+    global LAUNCHES
+    W, max_chunks = arrive.shape
+    nbounds = -(-(W * stride) // GATE_TILE) + 1
+    out = torch.empty_like(landing)
+    corank = torch.empty(nbounds * W, dtype=torch.int64,
+                         device=landing.device)
+    stats = torch.empty(W + 1, dtype=torch.int32, device=landing.device)
+    lib = _build.library()
+    if lib.smj_chunk_gated_merge_tile() != GATE_TILE:
+        raise RuntimeError("chunk_gated_merge: the kernel's tile is not "
+                           f"GATE_TILE = {GATE_TILE}")
+    with _build.launching_on(landing) as stream:
+        code = lib.smj_chunk_gated_merge(
+            landing.data_ptr(), lens.data_ptr(), arrive.data_ptr(),
+            out.data_ptr(), corank.data_ptr(), stats.data_ptr(),
+            landing.numel(), stride, chunk_elems, W, max_chunks, stream)
+    _build.check("smj_chunk_gated_merge", code)
+    LAUNCHES += 1
+    return out, stats[:W], stats[W]

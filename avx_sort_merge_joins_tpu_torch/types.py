@@ -89,11 +89,21 @@ class Relation:
                    torch.tensor(payloads, device=device), n, sorted)
 
 
+class NumaStrategy:
+    """Exchange-scheduling order of the multi-shard shuffle, mirroring the
+    reference's NEXT/RING/RANDOM NUMA shuffle strategies
+    (reference: src/util/numa_shuffle.c:55-85)."""
+
+    NEXT = "NEXT"
+    RING = "RING"
+    RANDOM = "RANDOM"
+
+
 @dataclasses.dataclass
 class JoinConfig:
     """Mirror of the reference joinconfig_t (src/types.h:88-98)."""
 
-    nthreads: int = 1  # devices to shard over (only 1 is ported)
+    nthreads: int = 1  # shards of the mesh (parallel/dist_mway.py past 1)
     scalar_sort: bool = False  # torch.sort instead of K1 + K2
     scalar_merge: bool = False  # torch.sort + tagged-cumsum count instead
     mwaybufsize_bytes: int = 0  # not yet ported: must stay 0

@@ -79,11 +79,29 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 16. ``-z 1.0`` at 16M x 16M: ``-a m-way`` through the CLI, and the m-way
    and mpsm joins of the CLI's relations, must equal the torch.sort
    baseline.
+17. Kernel vs plain, the distributed m-way join's shapes, exact: shard 0's
+   received runs of the 128M x 128M join over 8 shards (8 strips of
+   4,014,080 slots, 81,920-key chunks) through K9 under four arrival
+   schedules (all at once, the push schedule at rates 1 and 3, a late
+   strip and a slow one), waiting ceil(len / 81,920) chunks a strip with
+   no violation, and through the varlen K2; K3 of the two merged columns;
+   K9 at W = 2, 4, 16 with an empty strip and one chunk a strip; the
+   varlen K2 at fan-in 2, 4, 16 with ragged and empty runs; K1 and K2 at
+   one shard's 16M shapes.  K9 timed beside its plain version and
+   torch.sort of the landing column, and the ungated varlen K2 on it.
+18. The distributed m-way paths, each with the launch counts set to 0 just
+   before it and read just after: ``-a m-way -n 8`` at 128M x 128M and
+   with ``-S RING``, ``-S RANDOM`` and ``-z 1.0`` at 16M x 16M through the
+   CLI (``Results = |S|``, K1 K2 K3, three phase times);
+   ``dist_mway_join_count(..., remote_pull="emulate")`` at 128M x 128M
+   with pull rates 1 and 3 (count 128,000,000, K9 launched 16 times a
+   run, no violation); a 2 x 4 ``make_mesh2d`` run and ``overlap=True`` at
+   16M; ``dist_join_count`` at 16M against the torch.sort baseline.
 
 The line before the last is one JSON object with each kernel's launches
-over the runs of phases 6, 7, 9 and 13-15, its largest error in phases
-3-5, 8 and 11-12, its times, its bound and its library yardstick's time;
-the last line is ``{"ok": true, "device": {...}}``.
+over the runs of phases 6, 7, 9, 13-15 and 18, its largest error in
+phases 3-5, 8, 11-12 and 17, its times, its bound and its library
+yardstick's time; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -123,18 +141,22 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
-    "K1": ("K1 block_sort", "block_sort.cu", "sort.py:97"),
-    "K2": ("K2 multiway_merge", "multiway_merge.cu", "multiwaymerge.py:85"),
-    "K3": ("K3 merge_join_count", "merge_join_count.cu", "mergejoin.py:179"),
-    "K4": ("K4 merge_pass", "merge_pass.cu", "sort.py:279"),
-    "K5": ("K5 block_sort_pairs", "block_sort_pairs.cu", "sort.py:86"),
+    "K1": ("K1 block_sort", "block_sort.cu", "ops/sort.py:97"),
+    "K2": ("K2 multiway_merge", "multiway_merge.cu",
+           "ops/multiwaymerge.py:85"),
+    "K3": ("K3 merge_join_count", "merge_join_count.cu",
+           "ops/mergejoin.py:179"),
+    "K4": ("K4 merge_pass", "merge_pass.cu", "ops/sort.py:279"),
+    "K5": ("K5 block_sort_pairs", "block_sort_pairs.cu", "ops/sort.py:86"),
     "K6": ("K6 multiway_merge_pairs", "multiway_merge.cu",
-           "multiwaymerge.py:85"),
+           "ops/multiwaymerge.py:85"),
     "K7": ("K7 merge_join_count64", "merge_join_count.cu",
-           "mergejoin.py:747"),
-    "K8": ("K8 radix_hist", "radix_hist.cu", "partition.py:62"),
+           "ops/mergejoin.py:747"),
+    "K8": ("K8 radix_hist", "radix_hist.cu", "ops/partition.py:62"),
+    "K9": ("K9 chunk_gated_merge", "chunk_gated_merge.cu",
+           "parallel/remote_fifo.py:181"),
     "K10": ("K10 merge_join_count2", "merge_join_count.cu",
-            "mergejoin.py:533"),
+            "ops/mergejoin.py:533"),
 }
 PATHS = {  # join path -> (CLI flags, kernels it must launch)
     "m-way": (["-a", "m-way"], ("K1", "K2", "K3")),
@@ -153,6 +175,11 @@ PART_N = 8_388_608  # scripts/partitioning-bench.sh's 8M tuples
 PART_BITS = (2, 4, 6, 8, 10, 12, 14, 16)
 PART_BIG_BITS = (7, 14)  # the 128M `hist` rows
 ZIPF_N = 16_000_000  # -z 1.0 through the CLI
+DIST_SHARDS = 8  # the distributed m-way paths' mesh
+DIST_SMALL_N = 16_000_000  # -S RING/RANDOM, 2 x 4, overlap, -z, dist_join
+DIST_CAP = 4_014_080  # bucket cap of 16M-key shards over 8 at slack 2
+DIST_CHUNK = 81_920  # pick_chunk_elems(DIST_CAP, 16384, 8): 49 a strip
+VARLEN_STRIDE = 1_000_003  # varlen K2 checks: an odd stride
 COUNT2_SPAN = 67_108_864  # run 0 of each side on the 128M two-run route
 BENCHES = [  # (module, argv): each once at its JAX defaults
     ("sortbench", ["16", "multiway"]), ("sortbench", ["16", "keysonly"]),
@@ -537,9 +564,9 @@ def phase_path_shapes(dev: torch.device) -> None:
                sort_ops.merge_pass_plain(k, p, lens))
 
 
-def run_cli(argv: list[str]) -> tuple[int, str]:
+def run_cli_full(argv: list[str]) -> tuple[int, str, str]:
     """Run the port's CLI in-process; echo its output; return
-    (exit code, stdout)."""
+    (exit code, stdout, stderr)."""
     from avx_sort_merge_joins_tpu_torch import cli
 
     out, errs = io.StringIO(), io.StringIO()
@@ -547,7 +574,12 @@ def run_cli(argv: list[str]) -> tuple[int, str]:
         rc = cli.main(argv)
     for line in (errs.getvalue() + out.getvalue()).splitlines():
         log(f"[cli] {line}")
-    return rc, out.getvalue()
+    return rc, out.getvalue(), errs.getvalue()
+
+
+def run_cli(argv: list[str]) -> tuple[int, str]:
+    """:func:`run_cli_full` without the stderr."""
+    return run_cli_full(argv)[:2]
 
 
 def results_of(stdout: str) -> int:
@@ -563,10 +595,12 @@ def reset_launches() -> None:
     from avx_sort_merge_joins_tpu_torch.ops import partition
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo
+
     sort_ops.LAUNCHES = mw.LAUNCHES = mergejoin.LAUNCHES = 0
     sort_ops.MERGE_PASS_LAUNCHES = sort_ops.PAIR_SORT_LAUNCHES = 0
     mw.PAIR_LAUNCHES = mergejoin.LAUNCHES64 = 0
-    partition.LAUNCHES = mergejoin.LAUNCHES2 = 0
+    partition.LAUNCHES = mergejoin.LAUNCHES2 = remote_fifo.LAUNCHES = 0
 
 
 def launches() -> dict[str, int]:
@@ -575,11 +609,13 @@ def launches() -> dict[str, int]:
     from avx_sort_merge_joins_tpu_torch.ops import partition
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo
+
     return {"K1": sort_ops.LAUNCHES, "K2": mw.LAUNCHES,
             "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
             "K5": sort_ops.PAIR_SORT_LAUNCHES, "K6": mw.PAIR_LAUNCHES,
             "K7": mergejoin.LAUNCHES64, "K8": partition.LAUNCHES,
-            "K10": mergejoin.LAUNCHES2}
+            "K9": remote_fifo.LAUNCHES, "K10": mergejoin.LAUNCHES2}
 
 
 def check_launched(path: str, counts: dict, need) -> None:
@@ -1166,6 +1202,307 @@ def phase_zipf(dev: torch.device) -> None:
         raise AssertionError(f"-z 1.0: counts {counts} != baseline {base}")
 
 
+def dist_landings(dev: torch.device):
+    """Shard 0's received runs of R and S in the 128M x 128M distributed
+    m-way join over 8 shards (the CLI's relations, made on the card): the
+    landing buffers and lens that K9 and the varlen K2 get on that path;
+    and shard 0's 16M-key R shard before its sort."""
+    from avx_sort_merge_joins_tpu_torch import cli
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import exchange as ex
+    from avx_sort_merge_joins_tpu_torch.parallel import mesh as pm
+
+    args = cli.build_parser().parse_args(
+        ["-n", str(DIST_SHARDS), "-r", str(MAIN_N), "-s", str(MAIN_N)])
+    R, S = cli.make_relations(args, dev)
+    mesh = pm.make_mesh(DIST_SHARDS, dev)
+    shard = MAIN_N // DIST_SHARDS
+    nv = ex.valid_counts(MAIN_N, shard, DIST_SHARDS)
+    cap = ex.bucket_cap(shard, DIST_SHARDS, 2.0, dm.TILE_ELEMS)
+    stacks = [dm._stage(k, MAIN_N, shard, mesh, False)
+              for k in (R.keys, S.keys)]
+    del R, S
+    first_shard = stacks[0][0].clone()
+    sorted_ = [[dm._local_sorted(st[me], BLOCK, 16, True)
+                for me in range(DIST_SHARDS)] for st in stacks]
+    del stacks
+    bounds = dm._equidepth_bounds(mesh, *sorted_, nv, nv)
+    out = []
+    for ks in sorted_:
+        cut = [dm._slice_buckets(ks[me], shard, bounds, DIST_SHARDS, cap)
+               for me in range(DIST_SHARDS)]
+        recv = mesh.all_to_all(torch.stack([c[0] for c in cut]))
+        counts = mesh.all_to_all(torch.stack([c[1] for c in cut]))
+        out.append((recv[0].clone(), counts[0].clone()))
+        del cut, recv
+    return out, cap, first_shard
+
+
+def gate_schedules(W: int, nch: int) -> dict:
+    """The four arrival tables of tests/test_remote_fifo.py, at W strips of
+    nch chunks: everything at round 0, the push schedule at rates 1 and 3,
+    and one strip arriving whole at round 9 and another one chunk every 5
+    rounds."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+
+    late = np.zeros((W, nch), np.int32)
+    late[W // 2] = 9
+    late[-1] = 5 * np.arange(nch)
+    return {"bulk": np.zeros((W, nch), np.int32),
+            "push-next": rf.arrival_schedule(W, nch, 1),
+            "slow": rf.arrival_schedule(W, nch, 3), "late-leaf": late}
+
+
+def sorted_strips(W: int, stride: int, gen: torch.Generator,
+                  dev: torch.device):
+    """W ascending strips of ``stride`` keys with many duplicates across
+    strips, and int32 lens with strip 0 empty and the last one full."""
+    keys = torch.randint(-5000, 5000, (W, stride), generator=gen,
+                         dtype=torch.int32, device=dev).sort(dim=1).values
+    lens = torch.randint(0, stride + 1, (W,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    lens[0], lens[-1] = 0, stride
+    return keys.reshape(-1).contiguous(), lens
+
+
+def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
+    """Exactness of K9 and the varlen K2 against their plain versions at the
+    128M x 128M distributed join's shapes (8 strips of 4,014,080 slots,
+    81,920-key chunks) under the four schedules, then K9 at W = 2, 4, 16
+    and the varlen K2 at fan-in 2, 4, 16 with ragged and empty runs; K1,
+    K2 and K3 at one shard's 16M shapes.  K9, its plain version and
+    torch.sort of the landing column timed, and the ungated varlen K2 on
+    the same landing buffer."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+
+    t0 = time.perf_counter()
+    landings, cap, shard = dist_landings(dev)
+    (land_r, lens_r), (land_s, lens_s) = landings
+    del landings
+    W = DIST_SHARDS
+    chunk = rf.pick_chunk_elems(cap, dm.TILE_ELEMS, W)
+    nch = cap // chunk
+    log(f"[dist] shard 0's landing of {MAIN_N} x {MAIN_N} over {W} shards "
+        f"in {time.perf_counter() - t0:.1f} s: cap {cap}, chunk {chunk} "
+        f"({nch} a strip), R lens {lens_r.tolist()}, S lens "
+        f"{lens_s.tolist()}")
+    if (cap, chunk) != (DIST_CAP, DIST_CHUNK):
+        raise AssertionError(f"cap {cap} / chunk {chunk} != {DIST_CAP} / "
+                             f"{DIST_CHUNK}")
+    merged = {}
+    for side, land, lens in (("R", land_r, lens_r), ("S", land_s, lens_s)):
+        host = lens.tolist()
+        live = torch.cat([land[r * cap:r * cap + n]
+                          for r, n in enumerate(host)])
+        for case, arrive in gate_schedules(W, nch).items():
+            got = rf.chunk_gated_merge(land, lens, cap, chunk, arrive)
+            record("K9", f"{side} W={W} {case}", got,
+                   rf.chunk_gated_merge_plain(land, lens, cap, chunk,
+                                              arrive))
+            if got[1].tolist() != [-(-n // chunk) for n in host] \
+                    or int(got[2]) != 0:
+                raise AssertionError(f"K9 {case}: waited {got[1].tolist()}"
+                                     f", violation {int(got[2])}")
+        if not torch.equal(got[0][:live.numel()], torch.sort(live).values):
+            raise AssertionError("K9 merged prefix != torch.sort")
+        merged[side] = (got[0], live.numel())
+        got = mw.multiway_merge(land, W, lens=lens, stride=cap)
+        record("K2", f"varlen {side} fanin={W} stride={cap}", got,
+               mw.multiway_merge_varlen_plain(land, W, lens, cap))
+    (mr, tr), (ms, ts) = merged["R"], merged["S"]
+    record("K3", f"dist shard 0: {tr} x {ts}",
+           mergejoin.merge_join_count_fused(mr, ms, tr, ts),
+           mergejoin.merge_join_count_fused_plain(mr, ms, tr, ts))
+    del merged, mr, ms
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for w in (2, 4, 16):  # chunk = a whole strip, one strip empty
+        land, lens = sorted_strips(w, cap, gen, dev)
+        for arrive in (np.zeros((w, 1), np.int32),
+                       rf.arrival_schedule(w, 1, 1)):
+            record("K9", f"W={w} chunk=strip={cap} rounds "
+                   f"{arrive.max()}", rf.chunk_gated_merge(
+                       land, lens, cap, cap, arrive),
+                   rf.chunk_gated_merge_plain(land, lens, cap, cap, arrive))
+    for fanin in (2, 4, 16):  # two groups of ragged and empty runs
+        land, lens = sorted_strips(2 * fanin, VARLEN_STRIDE, gen, dev)
+        lens[fanin] = 0
+        record("K2", f"varlen fanin={fanin} stride={VARLEN_STRIDE}",
+               mw.multiway_merge(land, fanin, lens=lens,
+                                 stride=VARLEN_STRIDE),
+               mw.multiway_merge_varlen_plain(land, fanin, lens,
+                                              VARLEN_STRIDE))
+    del land, lens
+
+    # one shard's local sort at its 16M shape
+    n = shard.numel()
+    runs = sort_ops.sort_blocks_plain(shard, n)
+    record("K1", f"dist shard n={n}", sort_ops.sort_blocks(shard, n), runs)
+    for level in mw.merge_levels(n, BLOCK, 16):
+        _, span, nruns, w = level
+        lens3 = (nruns, n, span)
+        want = mw.multiway_merge_plain(runs, w, lens3)
+        record("K2", f"dist shard level={level}",
+               mw.multiway_merge(runs, w, lens3)[0], want)
+        runs = want
+    del runs, want, shard
+
+    # times at the main path's shape: shard 0's R landing, push schedule
+    total = int(lens_r.sum())
+    arrive = rf.arrival_schedule(W, nch, 1)
+    ms = time_ms(lambda: rf.chunk_gated_merge(land_r, lens_r, cap, chunk,
+                                              arrive))
+    plain = time_ms(lambda: rf.chunk_gated_merge_plain(land_r, lens_r, cap,
+                                                       chunk, arrive))
+    library = time_ms(lambda: torch.sort(land_r))
+    # live keys read once, every slot of the merged column written once
+    times.add("K9", ms, plain, library,
+              4 * total + 4 * land_r.numel() + 4 * W * (nch + 2),
+              total * math.log2(W))
+    varlen = time_ms(lambda: mw.multiway_merge(land_r, W, lens=lens_r,
+                                               stride=cap))
+    vbound = bound_ms(4 * total + 4 * land_r.numel(), total * math.log2(W))
+    log(f"[time] K9 {W} strips of {cap} ({total} live keys), chunk {chunk}, "
+        f"push schedule: {times.entry('K9')}; the ungated varlen K2 "
+        f"(fan-in {W}) on the same landing: {varlen:.3f} ms (bound "
+        f"{vbound[0]:.3f} ms)")
+
+
+def phase_dist_cli(flags: list[str], n: int) -> dict[str, int]:
+    """``-a m-way -n 8`` through the CLI: ``Results = |S|`` (unique R,
+    foreign-key or Zipf S), K1 K2 K3 launched, the three phase times
+    printed."""
+    argv = ["-a", "m-way", "-n", str(DIST_SHARDS), *flags, "-r", str(n),
+            "-s", str(n)]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, stdout, stderr = run_cli_full(argv)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[dist] cli.main({argv}) -> rc {rc} in "
+        f"{time.perf_counter() - t0:.3f} s (data generation included); "
+        f"launches {counts}")
+    if rc != 0 or results_of(stdout) != n:
+        raise AssertionError(f"dist {argv}: rc {rc}, {stdout!r}")
+    for ph in ("sort", "merge1", "mergejoin"):
+        m = re.search(rf"^\[STATS\] {ph}\s+([\d.]+) usecs", stderr, re.M)
+        if m is None or float(m.group(1)) <= 0:
+            raise AssertionError(f"dist {argv}: no {ph} phase time")
+    check_launched(f"dist {argv}", counts, ("K1", "K2", "K3"))
+    return counts
+
+
+def dist_relations(n: int, dev: torch.device):
+    from avx_sort_merge_joins_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        ["-n", str(DIST_SHARDS), "-r", str(n), "-s", str(n)])
+    R, S = cli.make_relations(args, dev)
+    torch.cuda.synchronize()
+    return R, S
+
+
+def phase_dist_emulate(dev: torch.device) -> dict[str, int]:
+    """``dist_mway_join_count(..., remote_pull="emulate")`` at 128M x 128M
+    over 8 shards, pull rates 1 and 3: count 128,000,000, K9 launched 16
+    times a run (8 shards x 2 relations), each call waiting ceil(len /
+    81,920) chunks a strip with no violation."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    R, S = dist_relations(MAIN_N, dev)
+    mesh = make_mesh(DIST_SHARDS, dev)
+    real, calls = rf.chunk_gated_merge, []
+
+    def spy(landing, lens, stride, chunk, arrive):
+        out = real(landing, lens, stride, chunk, arrive)
+        calls.append((lens, chunk, out[1], out[2]))  # read after the run
+        return out
+
+    total = {}
+    rf.chunk_gated_merge = spy
+    try:
+        for rate in (1, 3):
+            calls.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            count, ov = dm.dist_mway_join_count(
+                R.keys, S.keys, MAIN_N, MAIN_N, mesh, remote_pull="emulate",
+                pull_rate=rate)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launches()
+            waits = [(c[0].tolist(), c[1], c[2].tolist(), int(c[3]))
+                     for c in calls]
+            log(f"[dist] remote_pull=emulate pull_rate={rate} {MAIN_N} x "
+                f"{MAIN_N} over {DIST_SHARDS} shards: count {count}, "
+                f"overflow {ov}, {secs:.3f} s on the host clock (staging "
+                f"included), launches {counts}; waits of the first call "
+                f"{waits[0][2]} for lens {waits[0][0]}")
+            if (count, ov) != (MAIN_N, 0) or counts["K9"] != 16 \
+                    or len(waits) != 16:
+                raise AssertionError(f"emulate rate {rate}: {count}, {ov}, "
+                                     f"K9 {counts['K9']}")
+            for lens, chunk, waited, viol in waits:
+                if chunk != DIST_CHUNK or viol != 0 or \
+                        waited != [-(-n // chunk) for n in lens]:
+                    raise AssertionError(f"emulate rate {rate}: chunk "
+                                         f"{chunk}, waited {waited}, lens "
+                                         f"{lens}, violation {viol}")
+            check_launched("dist emulate", counts, ("K1", "K2", "K3", "K9"))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        rf.chunk_gated_merge = real
+    return total
+
+
+def phase_dist_small(dev: torch.device) -> dict[str, int]:
+    """At 16M x 16M: a 2 x 4 ``make_mesh2d`` run and ``overlap=True`` on 8
+    shards (counted), and ``dist_join_count`` against the torch.sort
+    baseline."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_join, dist_mway
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import (make_mesh,
+                                                              make_mesh2d)
+
+    n = DIST_SMALL_N
+    R, S = dist_relations(n, dev)
+    total = {}
+    for name, mesh, kw in (("2x4 mesh", make_mesh2d(2, 4, dev), {}),
+                           ("overlap", make_mesh(DIST_SHARDS, dev),
+                            {"overlap": True})):
+        reset_launches()
+        t0 = time.perf_counter()
+        got = dist_mway.dist_mway_join_count(R.keys, S.keys, n, n, mesh,
+                                             **kw)
+        torch.cuda.synchronize()
+        counts = launches()
+        log(f"[dist] {name} {n} x {n}: {got} in "
+            f"{time.perf_counter() - t0:.3f} s, launches {counts}")
+        if got != (n, 0):
+            raise AssertionError(f"dist {name}: {got}")
+        check_launched(f"dist {name}", counts, ("K1", "K2", "K3"))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    t0 = time.perf_counter()
+    got = dist_join.dist_join_count(R.keys, R.payloads, S.keys, S.payloads,
+                                    n, n, make_mesh(DIST_SHARDS, dev))
+    secs = time.perf_counter() - t0
+    base = int(mergejoin.merge_join_count_torch(
+        torch.sort(R.keys).values, torch.sort(S.keys).values, n, n))
+    log(f"[dist] dist_join_count {n} x {n}: {got} in {secs:.3f} s; "
+        f"torch.sort baseline {base}")
+    if got != (base, 0) or base != n:
+        raise AssertionError(f"dist_join_count {got} != baseline {base}")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1178,11 +1515,16 @@ def main() -> int:
     phase_pair_merge_kernels(dev, times)
     phase_hist_kernels(dev, times)
     phase_count2_kernel(dev, times)
+    phase_dist_kernels(dev, times)
     total = {k: 0 for k in KERNELS}
     for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev),
                    phase_materialize_in_process(dev),
                    phase_count2_route(dev), phase_partitioning(),
-                   phase_benches()]:
+                   phase_benches(), phase_dist_cli([], MAIN_N),
+                   phase_dist_cli(["-S", "RING"], DIST_SMALL_N),
+                   phase_dist_cli(["-S", "RANDOM"], DIST_SMALL_N),
+                   phase_dist_emulate(dev), phase_dist_small(dev),
+                   phase_dist_cli(["-z", "1.0"], DIST_SMALL_N)]:
         for k, v in counts.items():
             total[k] += v
     phase_persist(dev)
@@ -1190,7 +1532,7 @@ def main() -> int:
     phase_nonunique(dev)
     phase_zipf(dev)
     src = "avx_sort_merge_joins_tpu_torch/csrc/"
-    ref = "avx_sort_merge_joins_tpu/ops/"
+    ref = "avx_sort_merge_joins_tpu/"
     kernels = [{"name": name, "route": "cuda", "source": src + f,
                 "replaces": ref + line, "launches": total[k],
                 "max_abs_err": ERR[k], **times.entry(k)}

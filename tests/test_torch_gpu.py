@@ -417,3 +417,117 @@ def test_mway_count2_route_on_the_card(cuda, monkeypatch):
     assert (tmj.LAUNCHES, tmj.LAUNCHES2, tmw.LAUNCHES) == (
         before[0], before[1] + 1, before[2] + 2)
     assert int(got) == tmj.merge_join_count_numpy(rk, sk)
+
+
+def _landing(lens, stride, seed, kmax=10**6, extra=0):
+    """Ascending strips of seeded keys (duplicates within and across
+    strips) in a landing buffer on the CPU."""
+    rng = np.random.default_rng(seed)
+    land = np.full(len(lens) * stride + extra, 2**31 - 1, np.int32)
+    for s, ln in enumerate(lens):
+        land[s * stride:s * stride + ln] = np.sort(
+            rng.integers(-kmax, kmax + 1, ln).astype(np.int32))
+    return torch.from_numpy(land)
+
+
+def _gate_schedules(W, nch):
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+
+    late = np.zeros((W, nch), np.int32)
+    late[W // 2] = 9
+    late[-1] = 5 * np.arange(nch)
+    return {"bulk": np.zeros((W, nch), np.int32),
+            "push-next": trf.arrival_schedule(W, nch, 1),
+            "slow": trf.arrival_schedule(W, nch, 3), "late-leaf": late}
+
+
+@pytest.mark.parametrize("W", [2, 4, 8, 16])
+@pytest.mark.parametrize("whole_strip", [False, True])
+def test_chunk_gated_merge_kernel_equals_plain(cuda, W, whole_strip):
+    """K9 over the four schedules: merged column, waits and violation flag
+    equal the plain version's; one strip empty, one full, duplicates
+    across strips (tie order), chunk = a whole strip or a 64th of it."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+
+    stride = 64 * 1024
+    chunk = stride if whole_strip else stride // 64
+    rng = np.random.default_rng(W)
+    lens = rng.integers(0, stride + 1, W)
+    lens[0], lens[-1] = 0, stride
+    land = _landing(lens, stride, W, kmax=1000, extra=777).to(cuda)
+    tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for case, arrive in _gate_schedules(W, stride // chunk).items():
+        before = trf.LAUNCHES
+        got = trf.chunk_gated_merge(land, tlens, stride, chunk, arrive)
+        torch.cuda.synchronize()
+        assert trf.LAUNCHES == before + 1
+        want = trf.chunk_gated_merge_plain(land, tlens, stride, chunk,
+                                           arrive)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), case
+        assert got[1].tolist() == [-(-int(n) // chunk) for n in lens]
+        assert int(got[2]) == 0
+
+
+def test_chunk_gated_merge_kernel_small_and_empty(cuda):
+    """A strip of one key, all strips empty, and a landing shorter than
+    one merge tile."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+
+    for lens in ([1, 0], [0, 0, 0, 0], [3, 5, 0, 1]):
+        land = _landing(lens, 8, len(lens), extra=3).to(cuda)
+        tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        arrive = trf.arrival_schedule(len(lens), 2, 1)
+        got = trf.chunk_gated_merge(land, tlens, 8, 4, arrive)
+        want = trf.chunk_gated_merge_plain(land, tlens, 8, 4, arrive)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), lens
+    # a strided lens vector (a column of the exchanged counts) is refused,
+    # not read as if it were flat
+    strided = torch.zeros((4, 4), dtype=torch.int32, device=cuda)[:, 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        trf.chunk_gated_merge(land, strided, 8, 4, arrive)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmw.multiway_merge(land, 2, lens=strided, stride=8)
+
+
+@pytest.mark.parametrize("fanin", [2, 4, 8, 16])
+@pytest.mark.parametrize("stride", [1000, 4_014_080 // 64, 16384])
+def test_varlen_multiway_merge_kernel_equals_plain(cuda, fanin, stride):
+    """Varlen K2: ragged, empty and full runs, strides that are not powers
+    of two, two groups, spare slots past the last group."""
+    rng = np.random.default_rng(fanin + stride)
+    lens = rng.integers(0, stride + 1, 2 * fanin)
+    lens[0], lens[1] = 0, stride
+    land = _landing(lens, stride, fanin, kmax=500, extra=99).to(cuda)
+    tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tmw.LAUNCHES
+    got, glens = tmw.multiway_merge(land, fanin, lens=tlens, stride=stride)
+    torch.cuda.synchronize()
+    assert tmw.LAUNCHES == before + 1 and glens.device.type == "cuda"
+    want, wlens = tmw.multiway_merge_varlen_plain(land, fanin, tlens, stride)
+    assert torch.equal(got, want) and torch.equal(glens, wlens)
+
+
+@pytest.mark.parametrize("remote_pull", [None, "emulate"])
+def test_dist_mway_join_on_the_card(cuda, remote_pull):
+    """A small 8-shard distributed m-way join on the card: K1, K2, K3 (and
+    K9 once a shard and relation with remote_pull) launch, the count is
+    the oracle's."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as tdm
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(8)
+    nR, nS = 300_007, 200_003
+    rk = rng.integers(0, 50_000, nR).astype(np.int32)
+    sk = rng.integers(0, 50_000, nS).astype(np.int32)
+    before = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES)
+    got = tdm.dist_mway_join_count(rk, sk, nR, nS, make_mesh(8, cuda),
+                                   remote_pull=remote_pull, pull_rate=3)
+    torch.cuda.synchronize()
+    assert got == (tmj.merge_join_count_numpy(rk, sk), 0)
+    after = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES)
+    assert after[0] - before[0] == 16 and after[2] - before[2] == 8
+    assert after[3] - before[3] == (16 if remote_pull else 0)
+    assert after[1] > before[1]
