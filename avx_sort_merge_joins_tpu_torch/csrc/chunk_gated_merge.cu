@@ -15,7 +15,8 @@
 // 2) belong to that schedule and are not carried over; the chunk size,
 // and with it the wait counters, stays the caller's.
 //
-// Design: merge-path tiles of kTile output keys, three launches.
+// Design: merge-path tiles of kTile output keys, three launches; the
+// co-rank search and the tile merge are merge_tile.cuh's, shared with K11.
 //   1. corank_kernel, one warp per tile boundary b = min(t * kTile,
 //      total): a binary search over the key domain finds v, the key at
 //      merged position b - 1, and each strip contributes its keys < v,
@@ -39,7 +40,7 @@
 // costs (W - 1) * log2(kTile / W) shared-memory steps a key, and the
 // co-rank search 32 * W * log2(len) dependent loads per tile boundary.
 // Offsets are 64-bit.
-#include "smj_common.cuh"
+#include "merge_tile.cuh"
 
 namespace {
 
@@ -55,20 +56,6 @@ __device__ __forceinline__ long long strip_len(const int* __restrict__ lens,
   return l < 0 ? 0 : (l > stride ? stride : l);
 }
 
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ long long warp_inclusive_sum(long long v,
-                                                        int lane) {
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += n;
-  }
-  return v;
-}
-
 __device__ __forceinline__ long long warp_inclusive_max(long long v,
                                                         int lane) {
   for (int o = 1; o < 32; o <<= 1) {
@@ -76,16 +63,6 @@ __device__ __forceinline__ long long warp_inclusive_max(long long v,
     if (lane >= o && n > v) v = n;
   }
   return v;
-}
-
-// Bounds over a shared-memory slice a[lo, hi).
-__device__ __forceinline__ int shared_bound(const int* a, int lo, int hi,
-                                            int key, bool upper) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (upper ? a[mid] <= key : a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 // c[t][r] for every tile boundary t in [0, nbounds): one warp a boundary,
@@ -100,52 +77,11 @@ __global__ void corank_kernel(const int* __restrict__ landing,
   if (t >= nbounds) return;  // t is the same for the whole warp
   long long total = 0;
   for (int r = lane; r < W; r += 32) total += strip_len(lens, r, stride);
-  total = warp_sum(total);
+  total = smj_warp_sum(total);
   const long long b = t * kTile < total ? t * kTile : total;
-  long long* row = corank + t * W;
-  if (b == 0 || b == total) {
-    for (int r = lane; r < W; r += 32)
-      row[r] = b == 0 ? 0 : strip_len(lens, r, stride);
-    return;
-  }
-  // v: the smallest key with at least b keys <= v in all strips
-  long long lo = INT_MIN, hi = INT_MAX;
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    long long c = 0;
-    for (int r = lane; r < W; r += 32) {
-      const long long s = (long long)r * stride;
-      c += smj_upper_bound(landing, s, s + strip_len(lens, r, stride),
-                           (int)mid) - s;
-    }
-    if (warp_sum(c) >= b) hi = mid; else lo = mid + 1;
-  }
-  const int v = (int)lo;
-  long long less = 0;
-  for (int r = lane; r < W; r += 32) {
-    const long long s = (long long)r * stride;
-    less += smj_lower_bound(landing, s, s + strip_len(lens, r, stride), v) -
-            s;
-  }
-  // keys == v fill the rest of the prefix in strip order
-  long long left = b - warp_sum(less);
-  for (int base = 0; base < W; base += 32) {
-    const int r = base + lane;
-    long long lt = 0, eq = 0;
-    if (r < W) {
-      const long long s = (long long)r * stride;
-      const long long e = s + strip_len(lens, r, stride);
-      lt = smj_lower_bound(landing, s, e, v) - s;
-      eq = smj_upper_bound(landing, s, e, v) - s - lt;
-    }
-    const long long incl = warp_inclusive_sum(eq, lane);
-    const long long before = incl - eq;
-    long long take = left - before;
-    take = take < 0 ? 0 : (take > eq ? eq : take);
-    if (r < W) row[r] = lt + take;
-    left -= __shfl_sync(0xffffffffu, incl, 31);
-    if (left < 0) left = 0;
-  }
+  smj_corank(SmjLdgLoad(), landing,
+             [&](int r) { return strip_len(lens, r, stride); },
+             corank + t * W, b, total, stride, W, lane);
 }
 
 __device__ __forceinline__ long long chunks_needed(long long consumed,
@@ -257,30 +193,8 @@ __global__ void merge_kernel(const int* __restrict__ landing,
     }
     __syncthreads();
     n = offs[W];
-    for (long long p = threadIdx.x; p < n; p += blockDim.x) {
-      int lo = 0, hi = W;  // the segment holding p: offs[r] <= p < offs[r+1]
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (offs[mid] <= p) lo = mid; else hi = mid;
-      }
-      buf[p] = landing[(long long)lo * stride + cur[lo] + (p - offs[lo])];
-    }
-    __syncthreads();
-    for (long long p = threadIdx.x; p < n; p += blockDim.x) {
-      int r = 0, hi = W;
-      while (hi - r > 1) {
-        const int mid = (r + hi) >> 1;
-        if (offs[mid] <= p) r = mid; else hi = mid;
-      }
-      const int key = buf[p];
-      long long slot = p - offs[r];
-      for (int j = 0; j < W; ++j) {
-        if (j == r) continue;
-        slot += shared_bound(buf, (int)offs[j], (int)offs[j + 1], key,
-                             j < r) - offs[j];
-      }
-      out[t0 + slot] = key;
-    }
+    smj_merge_tile(SmjLdgLoad(), landing, cur, offs, buf, out + t0, stride,
+                   W);
   }
   const long long end = t0 + kTile < cap ? t0 + kTile : cap;
   for (long long s = t0 + n + threadIdx.x; s < end; s += blockDim.x)

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "smj_merge_join_count64": (_P, _P, _L, _P, _P, _L, _P, _P),
     "smj_merge_join_count2": (_P, _L, _P, _L, _L, _P, _P),
     "smj_radix_hist": (_P, _L, _I, _I, _I, _P, _P),
+    "smj_remote_pull": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _P),
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,9 @@ collectives (``parallel/mesh.py``):
                 lengths in a device vector, or the chunk-gated receiver
                 merge K9 (``remote_pull="emulate"``), or, with
                 ``overlap=True``, group merges in arrival order and a final
-                two-way merge;
+                two-way merge; with ``remote_pull="dma"`` the exchange and
+                the merge are one K11 launch a relation, the pushes and
+                the gated merges of every shard together;
   mergejoin  -- K3 per shard over its owned key range, in int64; the count
                 is the host sum over shards (disjoint key ranges).
 
@@ -312,6 +314,16 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
             merged[side] = _overlap_receive(mesh, bflat, counts, cap, fanin)
             totals[side] = counts.sum(0)
             continue
+        if remote_pull == "dma":
+            rcounts = mesh.all_to_all(counts)
+            totals[side] = rcounts.sum(1)
+            chunk = rf.pick_chunk_elems(cap, TILE_ELEMS, n)
+            out, _waited, viol, _landing = rf.remote_pull_exchange_merge(
+                mesh, bflat, rcounts, cap, chunk)
+            del bflat, _landing
+            merged[side] = list(out)
+            viols.append(viol.sum())
+            continue
         recv = _exchange(mesh, bflat, cap, schedule, hier)
         rcounts = ex.exchange_hier(mesh, counts, 1) if hier else \
             mesh.all_to_all(counts)
@@ -351,6 +363,24 @@ def _check_fanin(fanin: int) -> None:
             "merge's group math requires it)")
 
 
+def _check_remote_pull(remote_pull, mesh: Mesh, use_kernels: bool,
+                       overlap: bool) -> None:
+    """Raise unless ``remote_pull`` is None, ``"emulate"`` or ``"dma"``,
+    and on ``"dma"`` unless K11 takes the run: the kernel pipeline on a
+    flat mesh of a power of two >= 2 shards, without overlap."""
+    if remote_pull not in (None, "emulate", "dma"):
+        raise ValueError(f"remote_pull={remote_pull!r}: not None, 'emulate' "
+                         "or 'dma'")
+    n = mesh.n
+    if remote_pull == "dma" and (overlap or is_2d(mesh) or not use_kernels
+                                 or n < 2 or n & (n - 1)):
+        raise ValueError(
+            "remote_pull='dma' needs the kernel pipeline on a flat mesh of a "
+            "power of two >= 2 shards, without overlap "
+            f"(use_kernels={use_kernels}, n_chips={n}, "
+            f"mesh_axes={mesh.axis_names}, overlap={overlap})")
+
+
 def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
                          slack: float = 2.0, block: int = BLOCKSIZE_DEFAULT,
                          fanin: int = FANIN_DEFAULT,
@@ -381,12 +411,27 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
     chunk-gated receiver K9, as if they arrived chunk by chunk
     (``pull_rate`` merge rounds per push round), and raises on a gating
     violation.  It needs the kernel pipeline on a flat mesh without
-    overlap and falls back loudly otherwise; ``"dma"``, the real push
-    across cards, raises.
+    overlap and falls back loudly otherwise.
+
+    ``remote_pull="dma"`` is the real push: per relation, one K11 launch
+    (``remote_fifo.remote_pull_exchange_merge``) pushes every shard's
+    buckets chunk by chunk into its peers' landing strips and merges each
+    shard's strips as they arrive; only the bucket counts go by
+    all-to-all first.  The chunk is the emulate route's.  It raises on a
+    gating violation, and it raises, never falls back, on what K11 does
+    not take: a 2-D mesh, ``overlap``, ``use_kernels=False``, a shard
+    count that is not a power of two >= 2 (the JAX kernel asserts the
+    same, remote_fifo.py:374).  It takes any ``numa_strategy``: a
+    schedule orders only the bulk exchange's rounds, which the pushes
+    replace, and K11 pushes in NEXT order.  This is the JAX package's own
+    value of the argument, defined by its module's test plan (step 3),
+    made runnable: the JAX ``dist_mway`` raises on it only for want of
+    several chips.
     """
     _check_fanin(fanin)
     n = mesh.n
     hier = host_shape(mesh) if is_2d(mesh) else None
+    _check_remote_pull(remote_pull, mesh, use_kernels, overlap)
     overlap_ok = (overlap and use_kernels and hier is None and n >= 4
                   and n & (n - 1) == 0)
     if overlap and not overlap_ok:
@@ -395,12 +440,7 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
              f"(use_kernels={use_kernels}, n_chips={n}, "
              f"mesh_axes={mesh.axis_names}); running the bulk all_to_all "
              "path")
-    if remote_pull is not None:
-        if remote_pull != "emulate":
-            raise ValueError(
-                "remote_pull='dma' needs multi-chip hardware (a mesh of "
-                "cards; see parallel/remote_fifo.py) -- only 'emulate' is "
-                "runnable here")
+    if remote_pull == "emulate":
         if overlap_ok or hier is not None or not use_kernels:
             warn("remote_pull='emulate' requires the kernel pipeline on a "
                  "flat mesh without overlap; running the bulk path")

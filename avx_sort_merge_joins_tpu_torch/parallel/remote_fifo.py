@@ -1,24 +1,33 @@
-"""The remote-pull receiver: host helpers of the chunked push schedule and
-the chunk-gated merge, kernel K9 (counterpart of
-``avx_sort_merge_joins_tpu/parallel/remote_fifo.py:74-269``; reference:
+"""The remote pull: host helpers of the chunked push schedule, the
+chunk-gated merge K9, and the push and gated merge K11 (counterpart of
+``avx_sort_merge_joins_tpu/parallel/remote_fifo.py:74-413``; reference:
 src/merge/avx_multiwaymerge.c:605-728 readmerge, which reads remote NUMA
 runs through the merge, and sortmergejoin_multiway.c:494-518).
 
 In the remote pull, every shard pushes its bucket for shard d to d in
 fixed-size chunks, and d's k-way merge reads each source's landing strip
-as a leaf that becomes readable chunk by chunk.  :func:`chunk_gated_merge`
-runs the receiver's side with the arrivals emulated: an arrival-round
-table says when chunk j of strip r lands, the merge consumes only
-delivered prefixes, and it reports the chunk waits per strip and a flag
-that is set if it would ever read past a delivered prefix.  On a CUDA
-tensor it launches ``csrc/chunk_gated_merge.cu``; on a CPU tensor it takes
-the plain version :func:`chunk_gated_merge_plain`.
+as a leaf that becomes readable chunk by chunk.
+
+* :func:`chunk_gated_merge` (K9) runs the receiver's side with the
+  arrivals emulated: an arrival-round table says when chunk j of strip r
+  lands, the merge consumes only delivered prefixes, and it reports the
+  chunk waits per strip and a flag that is set if it would ever read past
+  a delivered prefix.  On a CUDA tensor it launches
+  ``csrc/chunk_gated_merge.cu``; on a CPU tensor it takes the plain
+  version :func:`chunk_gated_merge_plain`.
+* :func:`remote_pull_exchange_merge` (K11) runs both sides for real, on
+  the mesh of N shards on one device (``parallel/mesh.py``): each shard's
+  pushes are device-side copies into its peers' landing strips, each
+  arrival a flag in device memory, and each shard's merge waits for the
+  arrivals it reads.  On a CUDA mesh it launches ``csrc/remote_pull.cu``
+  once for all shards; on a CPU mesh it takes the plain version
+  :func:`remote_pull_exchange_merge_plain`.
 
 The host helpers are the JAX package's, line for line, with its
 ``max_entries=512`` in :func:`pick_chunk_elems`: it fixes the chunk size,
-and with it the wait counters.  The real push and pull across devices
-(the TPU kernel ``_remote_pull_kernel`` and ``remote_pull_exchange_merge``)
-needs a mesh of cards and is not ported.
+and with it the wait counters.  ``SMJ_REMOTE_DMA`` stays the JAX
+package's switch (:func:`remote_dma_enabled`); the port reaches K11 by
+``dist_mway_join_count(..., remote_pull="dma")`` without it.
 """
 
 from __future__ import annotations
@@ -33,10 +42,16 @@ import torch
 from ..ops.bitonic import KEY_POS_INF
 
 LAUNCHES = 0  # K9 kernel launches since the last reset
+PULL_LAUNCHES = 0  # K11 kernel launches since the last reset
 
 # Output keys per merge tile: the kernel's kTile (smj_chunk_gated_merge_tile
 # reports it on the card), and the tiles the plain version gates with.
 GATE_TILE = 4096
+# The most shards K11 takes (its kMaxShards).
+PULL_MAX_SHARDS = 256
+# K11's status words ahead of its flags (its kScratchHead): the ticket
+# counter (two words), the error and oversize words, the pushes done.
+_PULL_SCRATCH_HEAD = 5
 
 
 def remote_dma_enabled() -> bool:
@@ -272,3 +287,125 @@ def chunk_gated_merge(landing: torch.Tensor, lens: torch.Tensor,
     _build.check("smj_chunk_gated_merge", code)
     LAUNCHES += 1
     return out, stats[:W], stats[W]
+
+
+def _checked_pull(mesh, bflat: torch.Tensor, recv_counts: torch.Tensor,
+                  cap: int, chunk_elems: int, window) -> int:
+    """Raise on what K11 does not take (the JAX wrapper's asserts,
+    remote_fifo.py:374-375, less its TPU tiling); return the send window
+    K = min(window, pushes a shard), ``window`` defaulting to
+    :func:`push_window`."""
+    from .mesh import is_2d
+
+    n = mesh.n
+    if is_2d(mesh):
+        raise ValueError("remote_pull_exchange_merge: a 2-D mesh; the push "
+                         "walk runs over one flat axis")
+    if n < 2 or n & (n - 1) or n > PULL_MAX_SHARDS:
+        raise ValueError(f"remote_pull_exchange_merge: {n} shards; the "
+                         f"mesh must be a power of two in [2, "
+                         f"{PULL_MAX_SHARDS}]")
+    if cap < 1 or chunk_elems < 1 or cap % chunk_elems:
+        raise ValueError(f"remote_pull_exchange_merge: strips of {cap} keys "
+                         f"do not hold whole chunks of {chunk_elems}")
+    for name, t, shape in (("bflat", bflat, (n, n * cap)),
+                           ("recv_counts", recv_counts, (n, n))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != mesh.device:
+            raise ValueError(f"remote_pull_exchange_merge: {name} must be "
+                             f"a contiguous int32{list(shape)} on "
+                             f"{mesh.device}")
+    if window is None:
+        window = push_window()
+    if int(window) < 1:
+        raise ValueError(f"remote_pull_exchange_merge: window {window} < 1")
+    return min(int(window), n * (cap // chunk_elems))
+
+
+def _oversize(cap: int) -> ValueError:
+    return ValueError(f"remote_pull_exchange_merge: a received count lies "
+                      f"outside [0, {cap}]: the landing strip is too small "
+                      "(never clamped)")
+
+
+def remote_pull_exchange_merge_plain(mesh, bflat: torch.Tensor,
+                                     recv_counts: torch.Tensor, cap: int,
+                                     chunk_elems: int, window=None):
+    """Plain version of K11: every shard's pushes, full chunks in the JAX
+    kernel's order (:func:`push_schedule` over whole strips), copied into
+    a landing buffer one after another, so the send window changes
+    nothing; then each shard's strips merged by
+    :func:`chunk_gated_merge_plain` with every chunk delivered at round 0,
+    which reports ``chunks_needed`` per strip and a zero flag."""
+    _checked_pull(mesh, bflat, recv_counts, cap, chunk_elems, window)
+    if bool(((recv_counts < 0) | (recv_counts > cap)).any()):
+        raise _oversize(cap)
+    n = mesh.n
+    landing = torch.empty_like(bflat)
+    for me in range(n):
+        for p in push_schedule(n, me, [cap] * n, chunk_elems):
+            landing[p.dst, me * cap + p.start:me * cap + p.start + p.size] = \
+                bflat[me, p.dst * cap + p.start:p.dst * cap + p.start + p.size]
+    arrive = np.zeros((n, cap // chunk_elems), np.int32)
+    out = [chunk_gated_merge_plain(landing[d], recv_counts[d], cap,
+                                   chunk_elems, arrive) for d in range(n)]
+    return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]),
+            torch.stack([o[2] for o in out]), landing)
+
+
+def remote_pull_exchange_merge(mesh, bflat: torch.Tensor,
+                               recv_counts: torch.Tensor, cap: int,
+                               chunk_elems: int, window=None):
+    """The remote pull of one relation over a flat mesh of n shards (n a
+    power of two >= 2): every shard pushes its n buckets, chunk by chunk,
+    into its peers' landing strips while every shard merges its strips as
+    they arrive.
+
+    ``bflat``       -- ``(n, n*cap)`` int32, bucket d of shard me at
+                       ``[me, d*cap:(d+1)*cap]`` (the ``_slice_buckets``
+                       layout), pads past each bucket's count.
+    ``recv_counts`` -- ``(n, n)`` int32: shard d's strip r holds
+                       ``recv_counts[d, r]`` live keys (the counts after
+                       their small all-to-all); a count outside [0, cap]
+                       raises (the JAX test plan's step 5), never clamps.
+    ``window``      -- pushes in flight per shard: push i of a shard waits
+                       for its push i - K (``SMJ_REMOTE_WINDOW`` by
+                       default, :func:`push_window`).
+    Returns ``(merged, waited, violation, landing)``, stacked per shard:
+    the merged columns ``(n, n*cap)`` (INT32_MAX past each live total),
+    the chunks each shard's reader waited for per strip ``(n, n)``
+    (ceil(count / chunk_elems), the JAX ``expected_sem_waits``), a flag
+    per shard ``(n,)`` that is set if a merge read past what it waited
+    for, and the landing ``(n, n*cap)``: the all-to-all of the buckets.
+    On a CUDA mesh it launches K11 once and reads two status words back
+    (the one host sync of the call); on a CPU mesh it takes the plain
+    version."""
+    if bflat.device.type == "cpu":
+        return remote_pull_exchange_merge_plain(mesh, bflat, recv_counts,
+                                                cap, chunk_elems, window)
+    K = _checked_pull(mesh, bflat, recv_counts, cap, chunk_elems, window)
+    from ..kernels import _build
+
+    global PULL_LAUNCHES
+    n = mesh.n
+    dev = bflat.device
+    landing = torch.empty_like(bflat)
+    merged = torch.empty_like(bflat)
+    stats = torch.empty(n * n + n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_PULL_SCRATCH_HEAD + n * n * (cap // chunk_elems),
+                          dtype=torch.int32, device=dev)
+    with _build.launching_on(bflat) as stream:
+        code = _build.library().smj_remote_pull(
+            bflat.data_ptr(), recv_counts.data_ptr(), landing.data_ptr(),
+            merged.data_ptr(), stats.data_ptr(), scratch.data_ptr(), cap,
+            chunk_elems, n, K, stream)
+    _build.check("smj_remote_pull", code)
+    PULL_LAUNCHES += 1
+    error, oversize = scratch[2:4].tolist()
+    if error:
+        raise RuntimeError("remote_pull_exchange_merge: a wait for an "
+                           "arrival saw no push land for 1 s: K11 is "
+                           "broken")
+    if oversize:
+        raise _oversize(cap)
+    return merged, stats[:n * n].view(n, n), stats[n * n:], landing

@@ -97,10 +97,32 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    with pull rates 1 and 3 (count 128,000,000, K9 launched 16 times a
    run, no violation); a 2 x 4 ``make_mesh2d`` run and ``overlap=True`` at
    16M; ``dist_join_count`` at 16M against the torch.sort baseline.
+19. K11's SASS (cuobjdump of the built library): no load of the
+   non-coherent read-only path (LDG.E...CONSTANT), and L1 invalidations
+   after its acquire loads: the landing it reads is written in the launch.
+   Its registers (cuobjdump -res-usage): at most 40, the six CTAs an SM
+   its launch bounds ask for.
+20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
+   shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
+   slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
+   buckets and shards, a hot key over every strip and the domain's ends,
+   at send windows 1, 4, 8, 32 and every push in flight: landing (the
+   all-to-all), merged columns, waits ceil(count / chunk), flags 0; then
+   the buckets of R and S of the 128M x 128M join over 8 shards (8 x 8
+   strips of 4,014,080 slots, 81,920-key chunks); an undersized strip
+   raises.  K11 timed beside its plain version, torch.sort of the landing
+   and the bulk composite (all-to-all, then K9 a shard); the one-card
+   copy/merge overlap printed.
+21. ``dist_mway_join_count(..., remote_pull="dma")`` over 8 shards, with
+   the launch counts set to 0 just before each run and read just after:
+   at 128M x 128M (count 128,000,000, K11 launched twice, K9 never, waits
+   ceil(len / 81,920), no flag); at 16M with ``-z 1.0`` against the
+   torch.sort baseline; at 16M with SMJ_REMOTE_WINDOW 4, 8, 32 and every
+   push in flight.
 
 The line before the last is one JSON object with each kernel's launches
-over the runs of phases 6, 7, 9, 13-15 and 18, its largest error in
-phases 3-5, 8, 11-12 and 17, its times, its bound and its library
+over the runs of phases 6, 7, 9, 13-15, 18 and 21, its largest error in
+phases 3-5, 8, 11-12, 17 and 20, its times, its bound and its library
 yardstick's time; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -132,6 +154,7 @@ PAIR_N = 16_000_000
 CHECK_N = (1 << 22) + 12_345  # ragged: not a multiple of any block
 REPS = 5
 DOMAIN_MAX = 2**31 - 2  # keys lie in [-(2^31 - 2), 2^31 - 2]
+KEY_INF = 2**31 - 1  # the pad
 BLOCK = 16_384
 # The least time the card could take: bytes over the H100 SXM's 3.35 TB/s,
 # and compare operations over 67e12 a second, the fp32 rate outside the
@@ -157,6 +180,8 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
            "parallel/remote_fifo.py:181"),
     "K10": ("K10 merge_join_count2", "merge_join_count.cu",
             "ops/mergejoin.py:533"),
+    "K11": ("K11 remote_pull", "remote_pull.cu",
+            "parallel/remote_fifo.py:272"),
 }
 PATHS = {  # join path -> (CLI flags, kernels it must launch)
     "m-way": (["-a", "m-way"], ("K1", "K2", "K3")),
@@ -180,6 +205,9 @@ DIST_SMALL_N = 16_000_000  # -S RING/RANDOM, 2 x 4, overlap, -z, dist_join
 DIST_CAP = 4_014_080  # bucket cap of 16M-key shards over 8 at slack 2
 DIST_CHUNK = 81_920  # pick_chunk_elems(DIST_CAP, 16384, 8): 49 a strip
 VARLEN_STRIDE = 1_000_003  # varlen K2 checks: an odd stride
+PULL_CAP = 131_072  # K11 checks: strips of 2 to 8 chunks of 64K to 16K
+PULL_CHUNKS = (PULL_CAP, 16_384, 32_768, 65_536)  # a strip, T, 2T, 4T
+PULL_WINDOWS = (1, 4, 8, 32)  # and every push in flight
 COUNT2_SPAN = 67_108_864  # run 0 of each side on the 128M two-run route
 BENCHES = [  # (module, argv): each once at its JAX defaults
     ("sortbench", ["16", "multiway"]), ("sortbench", ["16", "keysonly"]),
@@ -601,6 +629,7 @@ def reset_launches() -> None:
     sort_ops.MERGE_PASS_LAUNCHES = sort_ops.PAIR_SORT_LAUNCHES = 0
     mw.PAIR_LAUNCHES = mergejoin.LAUNCHES64 = 0
     partition.LAUNCHES = mergejoin.LAUNCHES2 = remote_fifo.LAUNCHES = 0
+    remote_fifo.PULL_LAUNCHES = 0
 
 
 def launches() -> dict[str, int]:
@@ -615,7 +644,8 @@ def launches() -> dict[str, int]:
             "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
             "K5": sort_ops.PAIR_SORT_LAUNCHES, "K6": mw.PAIR_LAUNCHES,
             "K7": mergejoin.LAUNCHES64, "K8": partition.LAUNCHES,
-            "K9": remote_fifo.LAUNCHES, "K10": mergejoin.LAUNCHES2}
+            "K9": remote_fifo.LAUNCHES, "K10": mergejoin.LAUNCHES2,
+            "K11": remote_fifo.PULL_LAUNCHES}
 
 
 def check_launched(path: str, counts: dict, need) -> None:
@@ -1206,7 +1236,9 @@ def dist_landings(dev: torch.device):
     """Shard 0's received runs of R and S in the 128M x 128M distributed
     m-way join over 8 shards (the CLI's relations, made on the card): the
     landing buffers and lens that K9 and the varlen K2 get on that path;
-    and shard 0's 16M-key R shard before its sort."""
+    shard 0's 16M-key R shard before its sort; and every shard's buckets
+    of R and S with their received counts, what K11 gets on the "dma"
+    path."""
     from avx_sort_merge_joins_tpu_torch import cli
     from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
     from avx_sort_merge_joins_tpu_torch.parallel import exchange as ex
@@ -1227,15 +1259,17 @@ def dist_landings(dev: torch.device):
                 for me in range(DIST_SHARDS)] for st in stacks]
     del stacks
     bounds = dm._equidepth_bounds(mesh, *sorted_, nv, nv)
-    out = []
+    out, buckets = [], []
     for ks in sorted_:
         cut = [dm._slice_buckets(ks[me], shard, bounds, DIST_SHARDS, cap)
                for me in range(DIST_SHARDS)]
-        recv = mesh.all_to_all(torch.stack([c[0] for c in cut]))
+        bflat = torch.stack([c[0] for c in cut])
+        recv = mesh.all_to_all(bflat)
         counts = mesh.all_to_all(torch.stack([c[1] for c in cut]))
         out.append((recv[0].clone(), counts[0].clone()))
+        buckets.append((bflat, counts))
         del cut, recv
-    return out, cap, first_shard
+    return out, cap, first_shard, buckets
 
 
 def gate_schedules(W: int, nch: int) -> dict:
@@ -1272,7 +1306,8 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
     and the varlen K2 at fan-in 2, 4, 16 with ragged and empty runs; K1,
     K2 and K3 at one shard's 16M shapes.  K9, its plain version and
     torch.sort of the landing column timed, and the ungated varlen K2 on
-    the same landing buffer."""
+    the same landing buffer.  Returns every shard's buckets of R and S
+    with their received counts, and the bucket cap."""
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
@@ -1280,7 +1315,7 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
     from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
 
     t0 = time.perf_counter()
-    landings, cap, shard = dist_landings(dev)
+    landings, cap, shard, buckets = dist_landings(dev)
     (land_r, lens_r), (land_s, lens_s) = landings
     del landings
     W = DIST_SHARDS
@@ -1370,6 +1405,7 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
         f"push schedule: {times.entry('K9')}; the ungated varlen K2 "
         f"(fan-in {W}) on the same landing: {varlen:.3f} ms (bound "
         f"{vbound[0]:.3f} ms)")
+    return buckets, cap
 
 
 def phase_dist_cli(flags: list[str], n: int) -> dict[str, int]:
@@ -1396,11 +1432,11 @@ def phase_dist_cli(flags: list[str], n: int) -> dict[str, int]:
     return counts
 
 
-def dist_relations(n: int, dev: torch.device):
+def dist_relations(n: int, dev: torch.device, flags=()):
     from avx_sort_merge_joins_tpu_torch import cli
 
     args = cli.build_parser().parse_args(
-        ["-n", str(DIST_SHARDS), "-r", str(n), "-s", str(n)])
+        ["-n", str(DIST_SHARDS), "-r", str(n), "-s", str(n), *flags])
     R, S = cli.make_relations(args, dev)
     torch.cuda.synchronize()
     return R, S
@@ -1462,6 +1498,268 @@ def phase_dist_emulate(dev: torch.device) -> dict[str, int]:
     return total
 
 
+K11_MAX_REGS = 40  # 65,536 registers over 6 CTAs of 256, allocated by 8
+
+
+def phase_k11_sass() -> None:
+    """K11 reads the landing while other CTAs write it: none of its loads
+    may take the non-coherent read-only path.  cuobjdump's SASS of the
+    built library must show no LDG.E...CONSTANT in K11, and its acquire
+    loads followed by L1 invalidations (CCTL.IVALL).  Its resource usage
+    must show at most K11_MAX_REGS registers: its merge tiles are
+    latency-bound, and without its launch bounds ptxas took 57 (4 CTAs
+    an SM instead of 6) and K11 ran slower."""
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    usage = subprocess.run([tool, "-res-usage", _build.build()],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    found = re.search(r"Function [^\n]*remote_pull_kernel[^\n]*\n([^\n]*)",
+                      usage)
+    res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", found.group(1))) \
+        if found else {}
+    log(f"[sass] K11 resource usage: {res}")
+    if "REG" not in res or int(res["REG"]) > K11_MAX_REGS:
+        raise AssertionError(f"K11 uses {res.get('REG')} registers, over "
+                             f"{K11_MAX_REGS}: {found and found.group(0)}")
+    sass = subprocess.run([tool, "-sass", _build.build()],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    k11 = [f for f in funcs if f.split("\n", 1)[0].find("remote_pull") >= 0]
+    if len(k11) != 1:
+        raise AssertionError(f"SASS: {len(k11)} functions named remote_pull")
+    ops = re.findall(r"\b(LDG\.[A-Z0-9.]+|CCTL\.IVALL)", k11[0])
+    kinds = {k: ops.count(k) for k in sorted(set(ops))}
+    log(f"[sass] K11 ({k11[0].split(chr(10), 1)[0].strip()}): {kinds}")
+    if any("CONSTANT" in k for k in kinds) or not kinds.get("CCTL.IVALL"):
+        raise AssertionError(f"K11 SASS: non-coherent loads or no L1 "
+                             f"invalidation after acquire: {kinds}")
+
+
+def pull_buckets(n: int, cap: int, case: str, gen: torch.Generator,
+                 dev: torch.device):
+    """(bflat, counts) of one relation on n shards, made on the card:
+    shard me's bucket d holds counts[me, d] ascending keys at [me, d*cap],
+    pads after.  "empty": half the buckets and every bucket for shard 0
+    empty; "hot": every bucket for the last shard full of one key;
+    "domain_ends": keys at both ends of the key domain."""
+    counts = torch.randint(0, cap + 1, (n, n), generator=gen, device=dev)
+    if case == "empty":
+        counts[torch.rand((n, n), generator=gen, device=dev) < 0.5] = 0
+        counts[:, 0] = 0
+    elif case == "hot":
+        counts.zero_()
+        counts[:, -1] = cap
+    if case == "hot":
+        keys = torch.full((n, n, cap), 7, dtype=torch.int32, device=dev)
+    elif case == "domain_ends":
+        ends = torch.tensor([-DOMAIN_MAX, -DOMAIN_MAX + 1, 0, DOMAIN_MAX - 1,
+                             DOMAIN_MAX], dtype=torch.int32, device=dev)
+        keys = ends[torch.randint(0, 5, (n, n, cap), generator=gen,
+                                  device=dev)]
+    else:
+        keys = torch.randint(-DOMAIN_MAX, DOMAIN_MAX + 1, (n, n, cap),
+                             generator=gen, device=dev).to(torch.int32)
+    lane = torch.arange(cap, device=dev)
+    keys = torch.where(lane < counts[..., None], keys, KEY_INF)
+    return (keys.sort(dim=2).values.reshape(n, n * cap).contiguous(),
+            counts.to(torch.int32))
+
+
+def check_pull(case: str, mesh, bflat, rcounts, cap: int, chunk: int,
+               windows) -> None:
+    """K11 against its plain version at each send window, exactly: the
+    landing (the whole all-to-all), the merged columns, the waits
+    (ceil(count / chunk)) and the flags.  One line a case."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+
+    want = rf.remote_pull_exchange_merge_plain(mesh, bflat, rcounts, cap,
+                                               chunk)
+    if not torch.equal(want[3], mesh.all_to_all(bflat)):
+        raise AssertionError(f"K11 plain {case}: landing != all-to-all")
+    waits = (rcounts + chunk - 1) // chunk
+    e = 0
+    for w in windows:
+        got = rf.remote_pull_exchange_merge(mesh, bflat, rcounts, cap, chunk,
+                                            window=w)
+        e = max(e, *(max_abs_err(g, x) for g, x in zip(got, want)))
+        if e or not all(torch.equal(g, x) for g, x in zip(got, want)) \
+                or not torch.equal(got[1], waits) or int(got[2].sum()):
+            raise AssertionError(f"K11 {case} window {w}: kernel != plain "
+                                 f"(max_abs_err {e})")
+    log(f"[check] K11 {case} windows {list(windows)}: max_abs_err {e}")
+    ERR["K11"] = max(ERR["K11"], e)
+
+
+def phase_pull_kernels(dev: torch.device, times: Timings, buckets,
+                       cap: int) -> None:
+    """Exactness of K11 against its plain version, the JAX module's test
+    plan on one card: n = 2, 4, 8, 16 shards, chunk = a whole strip (step
+    1) and 16K, 32K, 64K keys (step 2), uniform keys, empty buckets and
+    shards, a hot key over every strip, the domain's ends, at windows 1,
+    4, 8, 32 and every push in flight (step 6); then the 128M x 128M join's
+    buckets over 8 shards (8 x 8 strips of 4,014,080 slots, 81,920-key
+    chunks) for R and S; an undersized strip raises (step 5).  Then K11
+    timed at those shapes beside its plain version, torch.sort of the
+    landing, and the bulk composite (all-to-all, then K9 a shard), and the
+    one-card copy/merge overlap (step 4 on one card: no interconnect)."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for n in (2, 4, 8, 16):
+        mesh = make_mesh(n, dev)
+        for chunk in PULL_CHUNKS:
+            for case in ("uniform", "empty", "hot", "domain_ends"):
+                bflat, counts = pull_buckets(n, PULL_CAP, case, gen, dev)
+                rcounts = mesh.all_to_all(counts)
+                total = n * (PULL_CAP // chunk)
+                check_pull(f"n={n} cap={PULL_CAP} chunk={chunk} {case}",
+                           mesh, bflat, rcounts, PULL_CAP, chunk,
+                           (*PULL_WINDOWS, total))
+    del bflat, counts, rcounts
+
+    W = DIST_SHARDS
+    mesh = make_mesh(W, dev)
+    chunk = rf.pick_chunk_elems(cap, dm.TILE_ELEMS, W)
+    total_pushes = W * (cap // chunk)
+    for side, (bflat, rcounts) in zip("RS", buckets):
+        check_pull(f"{side} {MAIN_N} x {MAIN_N} over {W} shards cap={cap} "
+                   f"chunk={chunk}", mesh, bflat, rcounts, cap, chunk,
+                   (1, 8, None, total_pushes))
+    wrong = rcounts.clone()
+    wrong[3, 5] = cap + 1
+    try:
+        rf.remote_pull_exchange_merge(mesh, bflat, wrong, cap, chunk)
+    except ValueError as e:
+        log(f"[check] K11 undersized strip (count {cap + 1} > cap {cap}) "
+            f"raises: {e}")
+    else:
+        raise AssertionError("K11 took a count above its strip")
+
+    bflat, rcounts = buckets[0]
+    live = int(rcounts.sum())
+    slots = bflat.numel()
+    ms = time_ms(lambda: rf.remote_pull_exchange_merge(mesh, bflat, rcounts,
+                                                       cap, chunk))
+    plain = time_ms(lambda: rf.remote_pull_exchange_merge_plain(
+        mesh, bflat, rcounts, cap, chunk))
+    landing = mesh.all_to_all(bflat)
+    library = time_ms(lambda: torch.sort(landing, dim=1))
+    arrive = np.zeros((W, cap // chunk), np.int32)
+    t_a2a = time_ms(lambda: mesh.all_to_all(bflat))
+    t_merge = time_ms(lambda: [rf.chunk_gated_merge(
+        landing[d], rcounts[d], cap, chunk, arrive) for d in range(W)])
+    # every bucket slot read once, every landing and merged slot written
+    # once (a tile merges the live keys as they land: no second read), the
+    # counts read, the flags, waits and violation flags written
+    times.add("K11", ms, plain, library,
+              4 * 3 * slots + 4 * (W * W * (cap // chunk + 2) + W),
+              live * math.log2(W))
+    log(f"[time] K11 R over {W} shards ({W} x {W} strips of {cap}, {live} "
+        f"live keys, chunk {chunk}, window {rf.push_window()}): "
+        f"{times.entry('K11')}; bulk composite: all-to-all {t_a2a:.3f} ms + "
+        f"K9 x {W} {t_merge:.3f} ms = {t_a2a + t_merge:.3f} ms; one-card "
+        f"copy/merge overlap (t_a2a + t_merge - t_K11) / t_a2a = "
+        f"{(t_a2a + t_merge - ms) / t_a2a:.3f} (one card, no interconnect)")
+
+
+def phase_dist_dma(dev: torch.device) -> dict[str, int]:
+    """``dist_mway_join_count(..., remote_pull="dma")`` over 8 shards: at
+    128M x 128M (count 128,000,000, K11 launched twice, K9 never, every
+    shard waiting ceil(len / 81,920) chunks a strip, no flag); at 16M with
+    -z 1.0 against the torch.sort baseline; at 16M with SMJ_REMOTE_WINDOW
+    4, 8, 32 and every push in flight."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import exchange as ex
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(DIST_SHARDS, dev)
+    real, calls = rf.remote_pull_exchange_merge, []
+
+    def spy(mesh, bflat, rcounts, cap, chunk, window=None):
+        out = real(mesh, bflat, rcounts, cap, chunk, window)
+        calls.append((rcounts, chunk, out[1], out[2]))  # read after the run
+        return out
+
+    def run(R, S, n, what):
+        calls.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        count, ov = dm.dist_mway_join_count(R.keys, S.keys, n, n, mesh,
+                                            remote_pull="dma")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        log(f"[dist] remote_pull=dma {what} {n} x {n} over {DIST_SHARDS} "
+            f"shards: count {count}, overflow {ov}, {secs * 1e3:.3f} ms on "
+            f"the host clock (staging included), launches {counts}")
+        if ov != 0 or counts["K11"] != 2 or counts["K9"] != 0 \
+                or len(calls) != 2:
+            raise AssertionError(f"dma {what}: overflow {ov}, K11 "
+                                 f"{counts['K11']}, K9 {counts['K9']}")
+        for rc, chunk, waited, viol in calls:
+            if not torch.equal(waited, (rc + chunk - 1) // chunk) \
+                    or int(viol.sum()) != 0:
+                raise AssertionError(f"dma {what}: waited {waited.tolist()}"
+                                     f" for counts {rc.tolist()}")
+        check_launched(f"dist dma {what}", counts, ("K1", "K2", "K3", "K11"))
+        return count, counts
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    rf.remote_pull_exchange_merge = spy
+    window_env = os.environ.get("SMJ_REMOTE_WINDOW")
+    try:
+        R, S = dist_relations(MAIN_N, dev)
+        count, counts = run(R, S, MAIN_N, "default window")
+        if count != MAIN_N or calls[0][1] != DIST_CHUNK:
+            raise AssertionError(f"dma: count {count}, chunk {calls[0][1]}")
+        log(f"[dist] dma waits of shard 0, R: {calls[0][2][0].tolist()} for "
+            f"counts {calls[0][0][0].tolist()}")
+        add(counts)
+        del R, S
+
+        n = DIST_SMALL_N
+        R, S = dist_relations(n, dev, ["-z", "1.0"])
+        count, counts = run(R, S, n, "-z 1.0")
+        base = int(mergejoin.merge_join_count_torch(
+            torch.sort(R.keys).values, torch.sort(S.keys).values, n, n))
+        log(f"[dist] dma -z 1.0: count {count}, torch.sort baseline {base}")
+        if count != base:
+            raise AssertionError(f"dma -z 1.0: {count} != baseline {base}")
+        add(counts)
+        del R, S
+
+        R, S = dist_relations(n, dev)
+        cap = ex.bucket_cap(n // DIST_SHARDS, DIST_SHARDS, 2.0,
+                            dm.TILE_ELEMS)
+        pushes = DIST_SHARDS * (cap // rf.pick_chunk_elems(
+            cap, dm.TILE_ELEMS, DIST_SHARDS))
+        for w in (4, 8, 32, pushes):
+            os.environ["SMJ_REMOTE_WINDOW"] = str(w)
+            count, counts = run(R, S, n, f"window {w}")
+            if count != n:
+                raise AssertionError(f"dma window {w}: {count} != {n}")
+            add(counts)
+    finally:
+        rf.remote_pull_exchange_merge = real
+        if window_env is None:
+            os.environ.pop("SMJ_REMOTE_WINDOW", None)
+        else:
+            os.environ["SMJ_REMOTE_WINDOW"] = window_env
+    return total
+
+
 def phase_dist_small(dev: torch.device) -> dict[str, int]:
     """At 16M x 16M: a 2 x 4 ``make_mesh2d`` run and ``overlap=True`` on 8
     shards (counted), and ``dist_join_count`` against the torch.sort
@@ -1515,7 +1813,10 @@ def main() -> int:
     phase_pair_merge_kernels(dev, times)
     phase_hist_kernels(dev, times)
     phase_count2_kernel(dev, times)
-    phase_dist_kernels(dev, times)
+    buckets, cap = phase_dist_kernels(dev, times)
+    phase_k11_sass()
+    phase_pull_kernels(dev, times, buckets, cap)
+    del buckets
     total = {k: 0 for k in KERNELS}
     for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev),
                    phase_materialize_in_process(dev),
@@ -1523,7 +1824,8 @@ def main() -> int:
                    phase_benches(), phase_dist_cli([], MAIN_N),
                    phase_dist_cli(["-S", "RING"], DIST_SMALL_N),
                    phase_dist_cli(["-S", "RANDOM"], DIST_SMALL_N),
-                   phase_dist_emulate(dev), phase_dist_small(dev),
+                   phase_dist_emulate(dev), phase_dist_dma(dev),
+                   phase_dist_small(dev),
                    phase_dist_cli(["-z", "1.0"], DIST_SMALL_N)]:
         for k, v in counts.items():
             total[k] += v

@@ -220,8 +220,13 @@ def test_dist_mway_fallbacks_are_loud(capsys):
 def test_dist_mway_refusals():
     rk, sk = _workload("uniform", 100, 100)
     mesh = tmesh.make_mesh(8, "cpu")
-    with pytest.raises(ValueError, match="multi-chip"):
-        tdm.dist_mway_join_count(rk, sk, 100, 100, mesh, remote_pull="dma")
+    # "dma" runs on a power-of-two flat mesh (tests/test_torch_remote_pull.py)
+    # and raises on what K11 does not take; an unknown route raises
+    with pytest.raises(ValueError, match="remote_pull='dma' needs"):
+        tdm.dist_mway_join_count(rk, sk, 100, 100, tmesh.make_mesh(6, "cpu"),
+                                 remote_pull="dma")
+    with pytest.raises(ValueError, match="not None, 'emulate' or 'dma'"):
+        tdm.dist_mway_join_count(rk, sk, 100, 100, mesh, remote_pull="rdma")
     for fanin in (6, 1):
         with pytest.raises(ValueError, match="power of two"):
             tdm.dist_mway_join_count(rk, sk, 100, 100, mesh, fanin=fanin)

@@ -509,11 +509,104 @@ def test_varlen_multiway_merge_kernel_equals_plain(cuda, fanin, stride):
     assert torch.equal(got, want) and torch.equal(glens, wlens)
 
 
-@pytest.mark.parametrize("remote_pull", [None, "emulate"])
+def _buckets(n, cap, case, seed):
+    """(bflat, counts) of one relation on a mesh of n shards: shard me's
+    bucket d holds counts[me, d] ascending keys at [me, d*cap], pads
+    after.  "empty": half the buckets and every bucket for shard 0 empty;
+    "hot": every bucket for the last shard full of one key, all others
+    empty; "domain_ends": keys at both ends of the key domain."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, cap + 1, (n, n))
+    if case == "empty":
+        counts[rng.random((n, n)) < 0.5] = 0
+        counts[:, 0] = 0
+    elif case == "hot":
+        counts[:] = 0
+        counts[:, -1] = cap
+    dmax = 2**31 - 2
+    bflat = np.full((n, n * cap), 2**31 - 1, np.int32)
+    for me in range(n):
+        for d in range(n):
+            c = counts[me, d]
+            if case == "hot":
+                keys = np.full(c, 7)
+            elif case == "domain_ends":
+                keys = rng.choice([-dmax, -dmax + 1, 0, dmax - 1, dmax], c)
+            else:
+                keys = rng.integers(-dmax, dmax + 1, c)
+            bflat[me, d * cap:d * cap + c] = np.sort(keys)
+    return torch.from_numpy(bflat), torch.from_numpy(counts.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["uniform", "empty", "hot", "domain_ends"])
+@pytest.mark.parametrize("n,cap,chunk", [
+    (2, 20480, 20480), (2, 20480, 1024), (4, 1000, 5), (4, 20480, 4096),
+    (8, 20480, 2048), (16, 16384, 16384), (16, 16384, 4096)])
+def test_remote_pull_kernel_equals_plain(cuda, n, cap, chunk, case):
+    """K11 against its plain version at windows 1, 4, 8, 32 and every push
+    in flight: the landing (the whole all-to-all), the merged columns, the
+    waits (ceil(count / chunk)) and the flags, exactly; one launch a call;
+    chunk = a whole strip, a chunk of 5 keys (no 16-byte copies), empty
+    strips and shards, a hot key over every strip, the domain's ends."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, cuda)
+    bflat, counts = _buckets(n, cap, case, n * 1000 + chunk)
+    bflat, counts = bflat.to(cuda), counts.to(cuda)
+    rcounts = mesh.all_to_all(counts)
+    want = trf.remote_pull_exchange_merge_plain(mesh, bflat, rcounts, cap,
+                                                chunk)
+    assert torch.equal(want[3], mesh.all_to_all(bflat))
+    waits = (rcounts + chunk - 1) // chunk
+    for window in (1, 4, 8, 32, n * cap // chunk):
+        before = trf.PULL_LAUNCHES
+        got = trf.remote_pull_exchange_merge(mesh, bflat, rcounts, cap, chunk,
+                                             window=window)
+        torch.cuda.synchronize()
+        assert trf.PULL_LAUNCHES == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), window
+        assert torch.equal(got[1], waits) and int(got[2].sum()) == 0
+
+
+def test_remote_pull_kernel_refuses_an_undersized_strip(cuda):
+    """A received count above the strip (or below 0) raises after the
+    launch, never clamps (the JAX test plan's step 5), and the next call
+    on the same stream starts from fresh flags."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, cuda)
+    bflat, counts = _buckets(4, 8192, "uniform", 3)
+    bflat, counts = bflat.to(cuda), counts.to(cuda)
+    rcounts = mesh.all_to_all(counts)
+    first = trf.remote_pull_exchange_merge(mesh, bflat, rcounts, 8192, 1024)
+    for bad in (8193, -1):
+        wrong = rcounts.clone()
+        wrong[2, 1] = bad
+        with pytest.raises(ValueError, match="outside"):
+            trf.remote_pull_exchange_merge(mesh, bflat, wrong, 8192, 1024)
+        with pytest.raises(ValueError, match="outside"):
+            trf.remote_pull_exchange_merge_plain(mesh, bflat, wrong, 8192,
+                                                 1024)
+    again = trf.remote_pull_exchange_merge(mesh, bflat, rcounts, 8192, 1024)
+    for g, w in zip(again, first):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="whole chunks"):
+        trf.remote_pull_exchange_merge(mesh, bflat, rcounts, 8192, 1000)
+    with pytest.raises(ValueError, match="contiguous"):
+        trf.remote_pull_exchange_merge(mesh, bflat, rcounts.t(), 8192, 1024)
+    with pytest.raises(ValueError, match="power of two"):
+        trf.remote_pull_exchange_merge(make_mesh(3, cuda), bflat[:3], rcounts,
+                                       8192, 1024)
+
+
+@pytest.mark.parametrize("remote_pull", [None, "emulate", "dma"])
 def test_dist_mway_join_on_the_card(cuda, remote_pull):
     """A small 8-shard distributed m-way join on the card: K1, K2, K3 (and
-    K9 once a shard and relation with remote_pull) launch, the count is
-    the oracle's."""
+    K9 once a shard and relation with "emulate", K11 once a relation with
+    "dma") launch, the count is the oracle's."""
     from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as tdm
     from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
     from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
@@ -522,12 +615,15 @@ def test_dist_mway_join_on_the_card(cuda, remote_pull):
     nR, nS = 300_007, 200_003
     rk = rng.integers(0, 50_000, nR).astype(np.int32)
     sk = rng.integers(0, 50_000, nS).astype(np.int32)
-    before = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES)
+    before = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES,
+              trf.PULL_LAUNCHES)
     got = tdm.dist_mway_join_count(rk, sk, nR, nS, make_mesh(8, cuda),
                                    remote_pull=remote_pull, pull_rate=3)
     torch.cuda.synchronize()
     assert got == (tmj.merge_join_count_numpy(rk, sk), 0)
-    after = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES)
+    after = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES,
+             trf.PULL_LAUNCHES)
     assert after[0] - before[0] == 16 and after[2] - before[2] == 8
-    assert after[3] - before[3] == (16 if remote_pull else 0)
+    assert after[3] - before[3] == (16 if remote_pull == "emulate" else 0)
+    assert after[4] - before[4] == (2 if remote_pull == "dma" else 0)
     assert after[1] > before[1]
