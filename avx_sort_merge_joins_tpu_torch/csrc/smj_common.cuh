@@ -55,8 +55,10 @@ __device__ __forceinline__ long long smj_upper_bound(const int* __restrict__ a,
 // order of smj_pack: the first index in [lo, hi) whose pair is >= v
 // (kUpper false) or > v (kUpper true).  Each step loads both planes at
 // `mid` at once and compares one packed int64: two independent loads, one
-// round of latency, whatever the data (multiway_merge.cu says why not the
-// payload plane on a key tie only).
+// round of latency, whatever the data.  Loading the payload plane only on
+// a key tie saves loads but pays a second, dependent round on every tie,
+// and the (hi, lo) planes of KEY_8B keys that fit in 32 bits tie on every
+// step.
 template <bool kUpper>
 __device__ __forceinline__ long long smj_pair_bound(
     const int* __restrict__ k, const int* __restrict__ p, long long lo,

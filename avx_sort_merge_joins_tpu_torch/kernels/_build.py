@@ -11,7 +11,8 @@ path never calls :func:`library`.
 
 Every entry point takes pointers and the stream as ``c_void_p``, sizes as
 ``c_int64``, and returns ``cudaGetLastError()`` as an int; :func:`check`
-turns a non-zero code into an exception.
+turns a non-zero code into an exception.  The one exception,
+``smj_multiway_merge_scratch``, returns a size (``_RESTYPES``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "smj_block_sort": (_P, _P, _L, _I, _I, _P),
     "smj_block_sort_pairs": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
-    "smj_multiway_merge": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
-    "smj_multiway_merge_varlen": (_P, _P, _P, _L, _L, _L, _I, _P),
+    "smj_multiway_merge": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P),
+    "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
+                                  _I, _P),
+    "smj_multiway_merge_scratch": (_L, _L, _I),
     "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I,
                               _P),
     "smj_chunk_gated_merge_tile": (),
@@ -47,6 +50,9 @@ _SIGNATURES = {
     "smj_radix_hist": (_P, _L, _I, _I, _I, _P, _P),
     "smj_remote_pull": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _P),
 }
+
+# entry points that return something else than a cudaError_t code
+_RESTYPES = {"smj_multiway_merge_scratch": ctypes.c_int64}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -130,7 +136,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             lib.smj_error_string.argtypes = [ctypes.c_int]
             lib.smj_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -9,12 +9,13 @@ Layout: flat int32 columns whose run r starts at ``r * span`` and holds
 uniform-lens formula, kept as plain arithmetic (the TPU needed it to fit run
 lengths in SMEM; here it is simply the layout).  ``multiway_merge`` merges
 each group of ``fanin`` consecutive runs into one run at ``g * fanin *
-span``.  On CUDA tensors it launches ``csrc/multiway_merge.cu`` (a
-rank-scatter merge); on CPU tensors it takes the plain version
-``multiway_merge_plain``.  With ``lens=`` (an int32 device vector) and
-``stride=`` it merges runs of any lengths at a fixed stride, keys only
-(the varlen K2, plain version ``multiway_merge_varlen_plain``): the
-distributed joins' merge of the runs each shard receives.
+span``.  On CUDA tensors it launches ``csrc/multiway_merge.cu`` (merge-path
+tiles: a co-rank search, then a tile merge in shared memory); on CPU
+tensors it takes the plain version ``multiway_merge_plain``.  With
+``lens=`` (an int32 device vector) and ``stride=`` it merges runs of any
+lengths at a fixed stride, keys only or with payloads (the varlen K2 and
+K6, plain version ``multiway_merge_varlen_plain``): the distributed
+joins' merge of the runs each shard receives.
 
 Every function takes the payload column as ``payloads=``; without it the
 result is one key column, with it a ``(keys, payloads)`` tuple of columns.
@@ -31,10 +32,11 @@ import torch
 
 from ..params import BLOCKSIZE_DEFAULT
 from . import sort as sort_ops
-from .bitonic import KEY_NEG_INF, KEY_POS_INF
+from .bitonic import KEY_POS_INF
 
-LAUNCHES = 0  # K2 kernel launches since the last reset
+LAUNCHES = 0  # K2 wrapper calls that launched the kernel since the last reset
 PAIR_LAUNCHES = 0  # K6
+MAX_FANIN = 1024  # the kernels' largest fan-in (kMaxFanin)
 
 
 def _check_uniform(keys: torch.Tensor, payloads, fanin: int,
@@ -58,8 +60,10 @@ def multiway_merge_plain(keys: torch.Tensor, fanin: int, uniform_lens,
 
 
 def _check_varlen(keys: torch.Tensor, fanin: int, lens: torch.Tensor,
-                  stride) -> None:
+                  stride, payloads) -> None:
     sort_ops._check_keys(keys, 0, "multiway_merge")
+    if payloads is not None:
+        sort_ops._check_payloads(keys, payloads, 0, "multiway_merge")
     if fanin < 2 or fanin & (fanin - 1):
         raise ValueError(f"multiway_merge: fanin {fanin} is not a power of 2")
     if not isinstance(lens, torch.Tensor) or lens.dtype != torch.int32 \
@@ -79,46 +83,88 @@ def _check_varlen(keys: torch.Tensor, fanin: int, lens: torch.Tensor,
 
 
 def multiway_merge_varlen_plain(keys: torch.Tensor, fanin: int,
-                                lens: torch.Tensor, stride: int):
-    """Plain version of the varlen K2: one ``torch.sort`` of the live keys
-    tagged with their group, each group's sorted keys put at its region's
-    start."""
+                                lens: torch.Tensor, stride: int,
+                                payloads: torch.Tensor | None = None):
+    """Plain version of the varlen K2 and K6: one ``torch.sort`` of the live
+    keys (or packed pairs), then a stable one of their groups; each group's
+    sorted elements go to its region's start."""
     dev = keys.device
     nruns = lens.numel()
     ln = lens.to(torch.int64).clamp(0, stride)
     slot = torch.arange(nruns * stride, dtype=torch.int64, device=dev)
     run = slot // stride
     live = slot - run * stride < ln[run]
-    group = run[live] // fanin
-    tagged = torch.sort(group * (1 << 32) + (
-        keys[:nruns * stride][live].to(torch.int64) - KEY_NEG_INF)).values
-    gsorted = tagged >> 32
+    vals = keys[:nruns * stride][live].to(torch.int64)
+    if payloads is not None:
+        vals = sort_ops.pack_pairs(vals, payloads[:nruns * stride][live])
+    vals, order = torch.sort(vals)
+    gsorted, order = torch.sort(run[live][order] // fanin, stable=True)
+    vals = vals[order]
     glen = ln.view(-1, fanin).sum(1)
-    first = torch.cumsum(glen, 0) - glen  # live keys before each group
-    rank = torch.arange(tagged.numel(), dtype=torch.int64, device=dev) \
+    first = torch.cumsum(glen, 0) - glen  # live elements before each group
+    rank = torch.arange(vals.numel(), dtype=torch.int64, device=dev) \
         - first[gsorted]
+    at = gsorted * fanin * stride + rank
     out = torch.full_like(keys, KEY_POS_INF)
-    out[gsorted * fanin * stride + rank] = (
-        (tagged & 0xFFFFFFFF) + KEY_NEG_INF).to(torch.int32)
-    return out, glen.to(torch.int32)
+    if payloads is None:
+        out[at] = vals.to(torch.int32)
+        return out, glen.to(torch.int32)
+    out_p = torch.full_like(payloads, KEY_POS_INF)
+    out[at], out_p[at] = sort_ops.unpack_pairs(vals)
+    return (out, out_p), glen.to(torch.int32)
+
+
+def corank_scratch(keys: torch.Tensor, ngroups: int, stride: int,
+                   fanin: int) -> torch.Tensor:
+    """The co-rank scratch of one K2 or K6 call on the keys' card."""
+    from ..kernels import _build
+
+    size = _build.library().smj_multiway_merge_scratch(ngroups, stride, fanin)
+    return torch.empty(size, dtype=torch.int64, device=keys.device)
+
+
+def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
+            stride: int, fanin: int, *layout, parts: int = 7,
+            scratch: torch.Tensor | None = None):
+    """One K2 (payloads None) or K6 call of ``entry`` into fresh columns;
+    ``layout`` are the entry point's arguments between the output size and
+    the fan-in.  ``parts``, a mask of 1 (coarse co-ranks), 2 (fine
+    co-ranks) and 4 (the tile merge, on the co-ranks ``scratch`` holds),
+    picks the launches, for timing each."""
+    from ..kernels import _build
+
+    global LAUNCHES, PAIR_LAUNCHES
+    if fanin > MAX_FANIN:
+        raise ValueError(f"multiway_merge: the kernel takes a fanin of at "
+                         f"most {MAX_FANIN}, got {fanin}")
+    if scratch is None:
+        scratch = corank_scratch(keys, ngroups, stride, fanin)
+    out_k = torch.empty_like(keys)
+    out_p = None if payloads is None else torch.empty_like(payloads)
+    with _build.launching_on(keys) as stream:
+        code = getattr(_build.library(), entry)(
+            keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
+            out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), keys.numel(), *layout, fanin,
+            parts, stream)
+    _build.check(entry, code)
+    if payloads is None:
+        LAUNCHES += 1
+        return out_k
+    PAIR_LAUNCHES += 1
+    return out_k, out_p
 
 
 def _multiway_merge_varlen(keys: torch.Tensor, fanin: int,
-                           lens: torch.Tensor, stride: int):
-    _check_varlen(keys, fanin, lens, stride)
+                           lens: torch.Tensor, stride: int, payloads):
+    _check_varlen(keys, fanin, lens, stride, payloads)
     if keys.device.type == "cpu":
-        return multiway_merge_varlen_plain(keys, fanin, lens, stride)
-    from ..kernels import _build
-
-    global LAUNCHES
-    out = torch.empty_like(keys)
-    with _build.launching_on(keys) as stream:
-        code = _build.library().smj_multiway_merge_varlen(
-            keys.data_ptr(), lens.data_ptr(), out.data_ptr(), keys.numel(),
-            lens.numel(), stride, fanin, stream)
-    _build.check("smj_multiway_merge_varlen", code)
-    LAUNCHES += 1
-    return out, lens.view(-1, fanin).clamp(0, stride).sum(
+        return multiway_merge_varlen_plain(keys, fanin, lens, stride,
+                                           payloads)
+    merged = _launch("smj_multiway_merge_varlen", keys, payloads,
+                     lens.numel() // fanin, stride, fanin, lens.data_ptr(),
+                     lens.numel(), stride)
+    return merged, lens.view(-1, fanin).clamp(0, stride).sum(
         1, dtype=torch.int32)
 
 
@@ -136,19 +182,19 @@ def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens=None,
     payloads)`` tuple) has as many slots as ``keys``, and slots from
     ``total`` on hold INT32_MAX.
 
-    Varlen mode, keys only (``lens=``, ``stride=``): run r starts at ``r *
-    stride`` and holds ``lens[r]`` keys, ``lens`` an int32 tensor on the
-    keys' device whose length is a multiple of ``fanin`` (the dynamic-lens
-    mode of the JAX ``multiway_merge``, ops/multiwaymerge.py:522-560).
-    Merged group g starts at ``g * fanin * stride``; every slot past a
-    group's live keys holds INT32_MAX.  ``new_lens`` is then the group sums
-    as an int32 tensor on the device: no host sync.
+    Varlen mode (``lens=``, ``stride=``), keys only or with ``payloads``:
+    run r starts at ``r * stride`` and holds ``lens[r]`` elements, ``lens``
+    an int32 tensor on the keys' device whose length is a multiple of
+    ``fanin`` (the dynamic-lens mode of the JAX ``multiway_merge``,
+    ops/multiwaymerge.py:522-560).  Merged group g starts at ``g * fanin *
+    stride``; every slot past a group's live elements holds INT32_MAX, on
+    both columns.  ``new_lens`` is then the group sums as an int32 tensor
+    on the device: no host sync.
     """
     if lens is not None:
-        if uniform_lens is not None or payloads is not None:
-            raise ValueError("multiway_merge: lens= takes keys only and no "
-                             "uniform_lens")
-        return _multiway_merge_varlen(keys, fanin, lens, stride)
+        if uniform_lens is not None:
+            raise ValueError("multiway_merge: lens= takes no uniform_lens")
+        return _multiway_merge_varlen(keys, fanin, lens, stride, payloads)
     _check_uniform(keys, payloads, fanin, uniform_lens)
     nruns, total, span = uniform_lens
     ngroups = sort_ops.cdiv(nruns, fanin)
@@ -157,22 +203,8 @@ def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens=None,
     if keys.device.type == "cpu":
         return multiway_merge_plain(keys, fanin, uniform_lens,
                                     payloads), new_lens
-    from ..kernels import _build
-
-    global LAUNCHES, PAIR_LAUNCHES
-    out_k = torch.empty_like(keys)
-    out_p = None if payloads is None else torch.empty_like(payloads)
-    with _build.launching_on(keys) as stream:
-        code = _build.library().smj_multiway_merge(
-            keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
-            out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
-            keys.numel(), total, span, fanin, stream)
-    _build.check("smj_multiway_merge", code)
-    if payloads is None:
-        LAUNCHES += 1
-        return out_k, new_lens
-    PAIR_LAUNCHES += 1
-    return (out_k, out_p), new_lens
+    return _launch("smj_multiway_merge", keys, payloads, ngroups, span,
+                   fanin, total, span), new_lens
 
 
 def sort_blocks_phase(keys: torch.Tensor, n: int,

@@ -13,7 +13,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    domain, a count above 2^31 -- must equal their plain PyTorch versions
    exactly (integers: tolerance 0).  Then each kernel, its plain version
    and its one-call library yardstick are timed with CUDA events at the
-   main path's shapes (128M keys).
+   main path's shapes (128M keys); each K2 level also in its parts: the
+   co-rank passes (and the coarse one alone) and the tile merge.
 4. Kernel vs plain, pairs and merge passes, exact: K5 (pair block sort)
    in both directions at blocks 1,024 and 16,384; K4 (merge pass) keys
    only over two successive passes (257 -> 129 -> 65 runs: odd counts, a
@@ -39,10 +40,18 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 8. Kernel vs plain, pair merges and 64-bit counts, exact: K6 (pair
    multiway merge) at fan-in 2, 4 and 16 over two levels with ragged
    totals, identical pairs in several runs and pad-valued payloads, then
-   at every level of a 128M-pair sort (fan-in 16, 16, 16, 2; timed) and of
-   a 32M-pair one (16, 16, 8); K7 (64-bit match count) on keys whose hi
-   plane varies, on one hot key whose product passes 2^31, and on 128M x
-   128M sorted planes (timed).
+   at every level of a 128M-pair sort (fan-in 16, 16, 16, 2; timed, also
+   in its parts, as K2's) and of a 32M-pair one (16, 16, 8); K7 (64-bit
+   match count) on keys whose hi plane varies, on one hot key whose
+   product passes 2^31, and on 128M x 128M sorted planes (timed).  Then
+   K2 and K6 where the merge-path tiles have their edges: group totals of
+   MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1 and 3 MERGE_TILE + 7 at
+   fan-in 2, 4, 8, 16, uniform and varlen, keys over the whole domain or
+   at +-(2^31 - 2) with payloads INT32_MAX and INT32_MIN; one hot key
+   in every run over many tiles (keys, identical pairs, pairs that differ
+   only in payload, alone and between other keys); the varlen K6 at
+   dist_materialize's landing (8 strips of 4,014,080 slots, ragged and
+   empty) and at fan-in 2, 4, 16 with an odd stride.
 9. The materializing and KEY_8B paths: ``-a m-way --materialize`` and
    ``--key8b`` through the CLI at -r 128000000 -s 128000000 must print
    ``Results = 128000000`` and launch K1 K2 K5 K6, and K5 K6 K7; the same
@@ -101,7 +110,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    non-coherent read-only path (LDG.E...CONSTANT), and L1 invalidations
    after its acquire loads: the landing it reads is written in the launch.
    Its registers (cuobjdump -res-usage): at most 40, the six CTAs an SM
-   its launch bounds ask for.
+   its launch bounds ask for.  The registers, stack and static shared
+   memory of K2's and K6's co-rank and tile-merge kernels, printed.
 20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
    shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
    slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
@@ -205,6 +215,9 @@ DIST_SMALL_N = 16_000_000  # -S RING/RANDOM, 2 x 4, overlap, -z, dist_join
 DIST_CAP = 4_014_080  # bucket cap of 16M-key shards over 8 at slack 2
 DIST_CHUNK = 81_920  # pick_chunk_elems(DIST_CAP, 16384, 8): 49 a strip
 VARLEN_STRIDE = 1_000_003  # varlen K2 checks: an odd stride
+MERGE_TILE = 4096  # outputs a merge tile of K2 and K6
+EDGE_TOTALS = (MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1,
+               3 * MERGE_TILE + 7)  # group totals at the tile's edges
 PULL_CAP = 131_072  # K11 checks: strips of 2 to 8 chunks of 64K to 16K
 PULL_CHUNKS = (PULL_CAP, 16_384, 32_768, 65_536)  # a strip, T, 2T, 4T
 PULL_WINDOWS = (1, 4, 8, 32)  # and every push in flight
@@ -343,6 +356,25 @@ def padded_rows(col: torch.Tensor, n: int, row: int, fill) -> torch.Tensor:
     return sort_ops._padded(col, n, rows * row, fill).view(rows, row)
 
 
+def merge_parts_ms(runs: torch.Tensor, pays, n: int, level) -> dict:
+    """One K2 (``pays`` None) or K6 level timed in its parts, CUDA events:
+    the two co-rank passes, the coarse one alone, and the tile merge on
+    their co-ranks."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    _, span, nruns, w = level
+    ngroups = sort_ops.cdiv(nruns, w)
+    scratch = mw.corank_scratch(runs, ngroups, span, w)
+
+    def part(mask):
+        return time_ms(lambda: mw._launch(
+            "smj_multiway_merge", runs, pays, ngroups, span, w, n, span,
+            parts=mask, scratch=scratch))
+
+    return {"corank": part(1 | 2), "coarse": part(1), "merge": part(4)}
+
+
 def phase_kernels(dev: torch.device, times: Timings) -> None:
     """Exactness of K1/K2/K3 against their plain versions; then their
     times at the main path's shapes."""
@@ -412,14 +444,17 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
         del got
         lib_in = padded_rows(runs, MAIN_N, w * span, 2**31 - 1)
         ms = time_ms(lambda: mw.multiway_merge(runs, w, lens))
+        parts = merge_parts_ms(runs, None, MAIN_N, level)
         plain = time_ms(lambda: mw.multiway_merge_plain(runs, w, lens))
         library = time_ms(lambda: lib_in.sort(dim=1))
         del lib_in
         times.add("K2", ms, plain, library, 8 * MAIN_N,
                   MAIN_N * math.log2(w))
         log(f"[time] K2 level (stride, span, nruns, w)={level}: "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
-            f"{library:.3f} ms")
+            f"kernel {ms:.3f} ms (co-rank {parts['corank']:.3f}, of it "
+            f"coarse {parts['coarse']:.3f}; merge {parts['merge']:.3f}), "
+            f"plain {plain:.3f} ms, library {library:.3f} ms, bound "
+            f"{bound_ms(8 * MAIN_N, MAIN_N * math.log2(w))[0]:.3f} ms")
         runs = want
     log(f"[time] K2 all levels of an n={MAIN_N} sort: {times.entry('K2')}")
     rk = torch.arange(1, MAIN_N + 1, dtype=torch.int32, device=dev)
@@ -815,14 +850,18 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
                 lib_in = padded_rows(sort_ops.pack_pairs(rk, rp), n,
                                      w * span, 2**63 - 1)
                 ms = time_ms(lambda: mw.multiway_merge(rk, w, lens, rp))
+                parts = merge_parts_ms(rk, rp, n, level)
                 plain = time_ms(lambda: mw.multiway_merge_plain(rk, w, lens,
                                                                 rp))
                 library = time_ms(lambda: lib_in.sort(dim=1))
                 del lib_in
                 times.add("K6", ms, plain, library, 16 * n, n * math.log2(w))
                 log(f"[time] K6 level (stride, span, nruns, w)={level}: "
-                    f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
-                    f"{library:.3f} ms")
+                    f"kernel {ms:.3f} ms (co-rank {parts['corank']:.3f}, "
+                    f"of it coarse {parts['coarse']:.3f}; merge "
+                    f"{parts['merge']:.3f}), plain {plain:.3f} ms, library "
+                    f"{library:.3f} ms, bound "
+                    f"{bound_ms(16 * n, n * math.log2(w))[0]:.3f} ms")
             rk, rp = want
         del rk, rp, want
     log(f"[time] K6 all levels of an n={MAIN_N} pair sort: "
@@ -880,6 +919,155 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
                   rhi, rlo, shi, slo, MAIN_N, MAIN_N)),
               None, 16 * MAIN_N + 8, 2 * MAIN_N)
     log(f"[time] K7 count {MAIN_N} x {MAIN_N}: {times.entry('K7')}")
+
+
+def merge_check(case: str, keys: torch.Tensor, pays, fanin: int,
+                uniform_lens=None, lens=None, stride=None) -> None:
+    """Hold one K2 (``pays`` None) or K6 call, uniform or varlen, against
+    its plain version: every slot of the merged columns and, varlen, the
+    group lengths."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+
+    kid = "K2" if pays is None else "K6"
+    if lens is None:
+        got = mw.multiway_merge(keys, fanin, uniform_lens, pays)[0]
+        want = mw.multiway_merge_plain(keys, fanin, uniform_lens, pays)
+    else:
+        got, glens = mw.multiway_merge(keys, fanin, payloads=pays, lens=lens,
+                                       stride=stride)
+        want, wlens = mw.multiway_merge_varlen_plain(keys, fanin, lens,
+                                                     stride, pays)
+        got = (*(got if pays is not None else (got,)), glens)
+        want = (*(want if pays is not None else (want,)), wlens)
+    record(kid, case, got, want)
+
+
+def sorted_runs(keys: torch.Tensor, pays, n: int, span: int):
+    """keys[:n] (with pays) as ascending runs of ``span``: a merge level's
+    input."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    if pays is None:
+        return sort_ops.sorted_groups(keys, n, span), None
+    return sort_ops.unpack_pairs(sort_ops.sorted_groups(
+        sort_ops.pack_pairs(keys, pays), n, span))
+
+
+def strips(lens: list[int], stride: int, keys: torch.Tensor, pays):
+    """A landing of len(lens) strips of ``stride`` slots: strip r holds
+    the first lens[r] elements of its slice of keys (with pays), ascending,
+    then pads; and lens as an int32 tensor."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    dev = keys.device
+    nr = len(lens)
+    tl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = torch.arange(stride, device=dev) < tl[:, None]
+    if pays is None:
+        col = keys[:nr * stride].view(nr, stride)
+        return (torch.where(live, col, KEY_INF).sort(dim=1).values
+                .reshape(-1), None, tl)
+    col = sort_ops.pack_pairs(keys[:nr * stride],
+                              pays[:nr * stride]).view(nr, stride)
+    k, p = sort_ops.unpack_pairs(torch.where(live, col, 2**63 - 1).sort(
+        dim=1).values.reshape(-1))
+    return k, p, tl
+
+
+def edge_columns(n: int, case: str, gen: torch.Generator,
+                 dev: torch.device):
+    """n seeded keys and payloads: "uniform" over the whole key domain,
+    or "domain_ends": keys at +-(2^31 - 2) and next to them, payloads
+    equal to INT32_MAX and INT32_MIN."""
+    if case == "uniform":
+        k = torch.randint(-DOMAIN_MAX, DOMAIN_MAX + 1, (n,), generator=gen,
+                          dtype=torch.int32, device=dev)
+        p = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                          dtype=torch.int32, device=dev)
+        return k, p
+    pick = torch.randint(0, 4, (2, n), generator=gen, device=dev)
+    k = torch.tensor([-DOMAIN_MAX, -DOMAIN_MAX + 1, DOMAIN_MAX - 1,
+                      DOMAIN_MAX], dtype=torch.int32, device=dev)[pick[0]]
+    p = torch.tensor([-2**31, -1, 0, KEY_INF], dtype=torch.int32,
+                     device=dev)[pick[1]]
+    return k, p
+
+
+def phase_merge_edges(dev: torch.device) -> None:
+    """K2 and K6 against their plain versions, exact, where the merge-path
+    tiles have their edges: group totals of T - 1, T, T + 1 and 3T + 7
+    (T = MERGE_TILE) at fan-in 2, 4, 8, 16, uniform and varlen, keys
+    uniform or at the domain's ends; one hot key in every run over many
+    tiles (keys, identical pairs, pairs that differ only in payload);
+    the varlen K6 at dist_materialize's landing (8 strips of DIST_CAP)
+    and at fan-in 2, 4, 16 with an odd stride."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rng = np.random.default_rng(41)
+    for case in ("uniform", "domain_ends"):
+        for fanin in (2, 4, 8, 16):
+            for per_group in EDGE_TOTALS:
+                k, p = edge_columns(4 * fanin * per_group, case, gen, dev)
+                # uniform: one full group of fanin runs of span, then one
+                # of per_group keys in ragged runs
+                span = -(-per_group // fanin)
+                n = fanin * span + per_group
+                for pays in (None, p):
+                    rk, rp = sorted_runs(k, pays, n, span)
+                    merge_check(f"{case} fanin={fanin} span={span} n={n}",
+                                rk, rp, fanin,
+                                uniform_lens=(-(-n // span), n, span))
+                # varlen: two groups of per_group keys, ragged and empty
+                lens = []
+                for _ in range(2):
+                    cut = np.sort(rng.integers(0, per_group + 1, fanin - 1))
+                    lens += np.diff([0, *cut, per_group]).tolist()
+                for pays in (None, p):
+                    lk, lp, tl = strips(lens, per_group, k, pays)
+                    merge_check(f"{case} varlen fanin={fanin} per group "
+                                f"{per_group}", lk, lp, fanin, lens=tl,
+                                stride=per_group)
+    span = 8 * MERGE_TILE  # hot key: every boundary inside a tie
+    for fanin in (2, 16):
+        n = 2 * fanin * span
+        k = torch.full((n,), 5, dtype=torch.int32, device=dev)
+        variants = {"keys": None,
+                    "same_pairs": torch.full_like(k, -7),
+                    "payload_only": torch.randint(-3, 4, (n,), generator=gen,
+                                                  dtype=torch.int32,
+                                                  device=dev)}
+        variants["payload_only"][::5] = KEY_INF
+        variants["payload_only"][::7] = -2**31
+        for name, pays in variants.items():
+            for mixed in (False, True):
+                kk = k.clone()
+                if mixed:  # the hot key between others
+                    kk[::3] = torch.randint(-9, 9, (kk[::3].numel(),),
+                                            generator=gen, dtype=torch.int32,
+                                            device=dev)
+                rk, rp = sorted_runs(kk, pays, n - 11, span)
+                merge_check(f"hot key {name} mixed={mixed} fanin={fanin}",
+                            rk, rp, fanin,
+                            uniform_lens=(2 * fanin, n - 11, span))
+    # the varlen K6 at dist_materialize's landing, then odd strides
+    for fanin, stride in ((DIST_SHARDS, DIST_CAP), (2, VARLEN_STRIDE),
+                          (4, VARLEN_STRIDE), (16, VARLEN_STRIDE)):
+        nr = fanin if stride == DIST_CAP else 2 * fanin
+        lens = rng.integers(0, stride + 1, nr).tolist()
+        lens[0], lens[-1], lens[nr // 2] = 0, stride, 1
+        k = torch.randint(-50_000, 50_000, (nr * stride,), generator=gen,
+                          dtype=torch.int32, device=dev)
+        p = torch.randint(-2**31, 2**31 - 1, (nr * stride,), generator=gen,
+                          dtype=torch.int32, device=dev)
+        p[::97], p[::89] = KEY_INF, -2**31
+        lk, lp, tl = strips(lens, stride, k, p)
+        spare = torch.full((99,), KEY_INF, dtype=torch.int32, device=dev)
+        merge_check(f"varlen fanin={fanin} stride={stride} lens={lens}",
+                    torch.cat([lk, spare]), torch.cat([lp, spare]), fanin,
+                    lens=tl, stride=stride)
+        del k, p, lk, lp
+    log(f"[edges] K2 and K6 at the tile edges, on a hot key and varlen: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_materialize_in_process(dev: torch.device) -> dict[str, int]:
@@ -1538,6 +1726,33 @@ def phase_k11_sass() -> None:
                              f"invalidation after acquire: {kinds}")
 
 
+def phase_merge_resources() -> None:
+    """Registers, stack and static shared memory of K2's and K6's kernels
+    (cuobjdump -res-usage of the built library, the recipe of phase 19);
+    the tile merge's buffers are dynamic shared memory on top."""
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    usage = subprocess.run([tool, "-res-usage", _build.build()],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    found = [(name, line) for name, line in re.findall(
+        r"Function ([^\s:]+):?\n([^\n]*)", usage)
+        if "multiway_merge_cu" in name
+        and re.search(r"(corank|merge)_kernelI[ix]", name)]
+    if len(found) != 6:  # co-ranks for fan-in <= 32 and above, merge: x2
+        raise AssertionError(f"cuobjdump: {len(found)} K2/K6 kernels")
+    for name, line in found:
+        res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
+        kernel, elem = re.search(r"(corank_kernel|merge_kernel)I([ix])",
+                                 name).groups()
+        rpl = re.search(r"Li(\d+)E", name)
+        log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel}"
+            f"{f' ({rpl.group(1)} runs a lane)' if rpl else ''}: REG "
+            f"{res.get('REG')}, STACK {res.get('STACK')}, SHARED "
+            f"{res.get('SHARED')}, LOCAL {res.get('LOCAL')}")
+
+
 def pull_buckets(n: int, cap: int, case: str, gen: torch.Generator,
                  dev: torch.device):
     """(bflat, counts) of one relation on n shards, made on the card:
@@ -1811,10 +2026,12 @@ def main() -> int:
     phase_pair_kernels(dev, times)
     phase_path_shapes(dev)
     phase_pair_merge_kernels(dev, times)
+    phase_merge_edges(dev)
     phase_hist_kernels(dev, times)
     phase_count2_kernel(dev, times)
     buckets, cap = phase_dist_kernels(dev, times)
     phase_k11_sass()
+    phase_merge_resources()
     phase_pull_kernels(dev, times, buckets, cap)
     del buckets
     total = {k: 0 for k in KERNELS}

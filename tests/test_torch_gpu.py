@@ -509,6 +509,127 @@ def test_varlen_multiway_merge_kernel_equals_plain(cuda, fanin, stride):
     assert torch.equal(got, want) and torch.equal(glens, wlens)
 
 
+MERGE_TILE = 4096  # outputs a merge tile of csrc/multiway_merge.cu
+INF32 = 2**31 - 1
+
+
+def _sorted_runs_uniform(k, p, n, span):
+    """Runs of ``span`` sorted in (key, payload) order (keys only when p
+    is None), as a level of the multiway sort gives them."""
+    if p is None:
+        return tsort.sorted_groups(k, n, span), None
+    return tsort.unpack_pairs(tsort.sorted_groups(tsort.pack_pairs(k, p), n,
+                                                  span))
+
+
+def _varlen_runs(lens, stride, k, p):
+    """A landing of ``len(lens)`` strips of ``stride`` slots: strip r holds
+    the first lens[r] of its slice of k (and p), sorted, and pads after."""
+    nr = len(lens)
+    slot = torch.arange(nr * stride, device=k.device)
+    live = slot % stride < torch.as_tensor(
+        lens, device=k.device).repeat_interleave(stride)
+    k = torch.where(live, k[:nr * stride], INF32)
+    if p is None:
+        return k.view(nr, stride).sort(dim=1).values.reshape(-1), None
+    p = torch.where(live, p[:nr * stride], INF32)
+    return tsort.unpack_pairs(tsort.pack_pairs(k, p).view(nr, stride).sort(
+        dim=1).values.reshape(-1))
+
+
+def _merge_both(keys, pays, fanin, **kw):
+    """The kernel's and the plain version's merge, with the launch counts
+    checked: one K2 or K6 launch a call."""
+    before = tmw.LAUNCHES, tmw.PAIR_LAUNCHES
+    if "lens" in kw:
+        got, glens = tmw.multiway_merge(keys, fanin, payloads=pays, **kw)
+        want, wlens = tmw.multiway_merge_varlen_plain(
+            keys, fanin, kw["lens"], kw["stride"], pays)
+        assert torch.equal(glens, wlens)
+    else:
+        got, _ = tmw.multiway_merge(keys, fanin, kw["uniform_lens"], pays)
+        want = tmw.multiway_merge_plain(keys, fanin, kw["uniform_lens"], pays)
+    torch.cuda.synchronize()
+    step = (1, 0) if pays is None else (0, 1)
+    assert (tmw.LAUNCHES, tmw.PAIR_LAUNCHES) == (before[0] + step[0],
+                                                  before[1] + step[1])
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fanin", [2, 4, 8, 16])
+@pytest.mark.parametrize("per_group", [MERGE_TILE - 1, MERGE_TILE,
+                                       MERGE_TILE + 1, 3 * MERGE_TILE + 7])
+@pytest.mark.parametrize("pairs", [False, True])
+def test_multiway_merge_tile_edges(cuda, fanin, per_group, pairs):
+    """K2 and K6 with a group total next to a tile's edges: uniform (one
+    group of ragged runs) and varlen (two groups of ragged runs), keys at
+    both ends of the domain, payloads equal to the pads."""
+    k, p = (t.to(cuda) for t in _pairs(4 * fanin * per_group, per_group,
+                                       2**31 - 2, 3))
+    p = p if pairs else None
+    span = -(-per_group // fanin)
+    rk, rp = _sorted_runs_uniform(k, p, per_group, span)
+    _merge_both(rk, rp, fanin, uniform_lens=(-(-per_group // span),
+                                             per_group, span))
+    rng = np.random.default_rng(per_group + fanin)
+    stride = per_group
+    lens = []
+    for _ in range(2):  # each group's lens sum to per_group
+        cut = np.sort(rng.integers(0, per_group + 1, fanin - 1))
+        lens += np.diff(np.concatenate([[0], cut, [per_group]])).tolist()
+    lk, lp = _varlen_runs(lens, stride, k, p)
+    _merge_both(lk, lp, fanin, lens=torch.tensor(lens, dtype=torch.int32,
+                                                 device=cuda), stride=stride)
+
+
+@pytest.mark.parametrize("fanin", [2, 16])
+@pytest.mark.parametrize("case", ["keys", "same_pairs", "payload_only"])
+def test_multiway_merge_hot_key(cuda, fanin, case):
+    """One key fills every run over many tiles, so every tile boundary
+    falls inside a tie: keys only, identical pairs, and pairs that differ
+    only in payload; then the hot key between other keys."""
+    span = 8 * MERGE_TILE
+    n = 2 * fanin * span
+    k = torch.full((n,), 5, dtype=torch.int32, device=cuda)
+    p = None
+    if case == "same_pairs":
+        p = torch.full_like(k, -7)
+    elif case == "payload_only":
+        p = torch.randint(-3, 4, (n,), dtype=torch.int32, device=cuda)
+        p[::5] = INF32
+        p[::7] = -(2**31)
+    rk, rp = _sorted_runs_uniform(k, p, n, span)
+    _merge_both(rk, rp, fanin, uniform_lens=(2 * fanin, n, span))
+    k[::3] = torch.randint(-9, 9, (k[::3].numel(),), dtype=torch.int32,
+                           device=cuda)
+    rk, rp = _sorted_runs_uniform(k, p, n - 11, span)
+    _merge_both(rk, rp, fanin, uniform_lens=(2 * fanin, n - 11, span))
+
+
+@pytest.mark.parametrize("fanin,stride,ngroups", [
+    (8, 4_014_080, 1), (2, 1_000_003, 2), (4, 1_000_003, 2),
+    (16, 100_003, 2)])
+def test_varlen_pair_merge_kernel_equals_plain(cuda, fanin, stride, ngroups):
+    """Varlen K6 at the shape of dist_materialize's landing (8 strips of
+    4,014,080 slots) and at odd strides: ragged, empty and full runs, spare
+    slots past the last group."""
+    rng = np.random.default_rng(fanin + stride)
+    lens = rng.integers(0, stride + 1, fanin * ngroups)
+    lens[0], lens[-1] = 0, stride
+    lens[fanin // 2] = stride // 3
+    n = len(lens) * stride
+    k, p = (t.to(cuda) for t in _pairs(n, fanin, 50_000, 2**31 - 2))
+    lk, lp = _varlen_runs(lens.tolist(), stride, k, p)
+    lk = torch.cat([lk, torch.full((99,), INF32, dtype=torch.int32,
+                                   device=cuda)])
+    lp = torch.cat([lp, torch.full_like(lk[:99], INF32)])
+    _merge_both(lk, lp, fanin, lens=torch.tensor(lens, dtype=torch.int32,
+                                                 device=cuda), stride=stride)
+
+
 def _buckets(n, cap, case, seed):
     """(bflat, counts) of one relation on a mesh of n shards: shard me's
     bucket d holds counts[me, d] ascending keys at [me, d*cap], pads

@@ -196,3 +196,143 @@ def test_multiway_merge_rejects_mismatched_payloads():
                 torch.zeros(4096, dtype=torch.int64)):
         with pytest.raises((ValueError, TypeError)):
             tmw.multiway_merge(keys, 2, (4, 4096, 1024), bad)
+
+
+# --------------------------------------------------------------------------
+# varlen pair mode: K6 with a device lens vector (dist_materialize's merge)
+# --------------------------------------------------------------------------
+
+VARLEN_RUNS = 16  # every case: 16 runs of one 1,024-key stride
+
+
+def _varlen_pairs(case, seed):
+    """16 runs of (key, payload) pairs in lexicographic order at a stride of
+    1,024 slots, pads after each run's live prefix, and their lens: ragged,
+    empty and full runs."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, SPAN + 1, VARLEN_RUNS)
+    lens[[0, 5]] = 0
+    lens[[1, 6]] = SPAN
+    if case == "same_pairs":    # the same few pairs in every run
+        k = rng.integers(-1, 2, (VARLEN_RUNS, SPAN))
+        p = rng.integers(0, 2, (VARLEN_RUNS, SPAN))
+    elif case == "pad_payloads":  # payloads equal to both pad values
+        k = rng.integers(-40, 41, (VARLEN_RUNS, SPAN))
+        p = rng.choice(np.array([INT_MIN, -1, 0, INF]), (VARLEN_RUNS, SPAN))
+    else:                          # keys at both ends of the domain
+        k = rng.choice(np.array([-(2**31 - 2), -(2**31 - 3), 0, 2**31 - 3,
+                                 2**31 - 2]), (VARLEN_RUNS, SPAN))
+        p = rng.integers(INT_MIN, INF + 1, (VARLEN_RUNS, SPAN))
+    keys = np.full((VARLEN_RUNS, SPAN), INF, np.int32)
+    pays = np.full((VARLEN_RUNS, SPAN), INF, np.int32)
+    for r, n in enumerate(lens):
+        keys[r, :n], pays[r, :n] = _lex_sorted(k[r, :n].astype(np.int32),
+                                               p[r, :n].astype(np.int32))
+    return keys.reshape(-1), pays.reshape(-1), lens.astype(np.int32)
+
+
+def _check_varlen_pairs(got, glens, keys, pays, lens, fanin):
+    """Each group of the port's result is the lexicographic sort of its
+    runs' live pairs, INT32_MAX past them on both columns."""
+    (gk, gp) = got
+    stride = SPAN
+    np.testing.assert_array_equal(
+        glens.numpy(), lens.reshape(-1, fanin).sum(1).astype(np.int32))
+    for g in range(len(lens) // fanin):
+        base = g * fanin * stride
+        runs = range(g * fanin, (g + 1) * fanin)
+        ek, ep = _lex_sorted(
+            np.concatenate([keys[r * stride:r * stride + lens[r]]
+                            for r in runs]),
+            np.concatenate([pays[r * stride:r * stride + lens[r]]
+                            for r in runs]))
+        live = len(ek)
+        np.testing.assert_array_equal(gk[base:base + live].numpy(), ek)
+        np.testing.assert_array_equal(gp[base:base + live].numpy(), ep)
+        end = base + fanin * stride
+        assert bool((gk[base + live:end] == INF).all())
+        assert bool((gp[base + live:end] == INF).all())
+
+
+@pytest.mark.parametrize("fanin", [2, 4, 8])
+def test_varlen_pair_merge_matches_jax(fanin):
+    """The port's varlen K6 (plain version) against the JAX multiway_merge
+    with a jnp lens vector, as _merge_received_pair calls it; the cases of
+    one fan-in share the JAX shapes (one compile)."""
+    rows = VARLEN_RUNS * ROWS + 2 * ROWS
+    for seed, case in enumerate(["same_pairs", "pad_payloads",
+                                 "domain_ends"]):
+        keys, pays, lens = _varlen_pairs(case, 100 * fanin + seed)
+        k2 = np.full((rows, 128), INF, np.int32)
+        p2 = np.full((rows, 128), INF, np.int32)
+        k2.reshape(-1)[:keys.size], p2.reshape(-1)[:pays.size] = keys, pays
+        want_k, want_p, want_lens = jmw.multiway_merge(
+            jnp.asarray(k2), jnp.asarray(p2), jnp.asarray(lens), ROWS, fanin,
+            ROWS)
+        got, glens = tmw.multiway_merge(
+            torch.from_numpy(keys), fanin, payloads=torch.from_numpy(pays),
+            lens=torch.from_numpy(lens), stride=SPAN)
+        np.testing.assert_array_equal(glens.numpy(), np.asarray(want_lens))
+        assert glens.dtype == torch.int32
+        want_k = np.asarray(want_k).reshape(-1)
+        want_p = np.asarray(want_p).reshape(-1)
+        for g, live in enumerate(np.asarray(want_lens)):
+            base = g * fanin * SPAN
+            np.testing.assert_array_equal(
+                got[0][base:base + live].numpy(), want_k[base:base + live])
+            np.testing.assert_array_equal(
+                got[1][base:base + live].numpy(), want_p[base:base + live])
+        _check_varlen_pairs(got, glens, keys, pays, lens, fanin)
+
+
+@pytest.mark.parametrize("fanin,stride", [(2, 100_003), (16, 20_011)])
+def test_varlen_pair_merge_against_numpy(fanin, stride):
+    """The varlen K6 plain version at a larger size and odd strides, with
+    spare slots past the last group."""
+    rng = np.random.default_rng(fanin)
+    nruns = 2 * fanin
+    lens = rng.integers(0, stride + 1, nruns).astype(np.int32)
+    lens[0], lens[-1] = 0, stride
+    keys = np.full(nruns * stride + 77, INF, np.int32)
+    pays = np.full_like(keys, INF)
+    for r, n in enumerate(lens):
+        k = rng.integers(-(2**31 - 2), 2**31 - 1, n).astype(np.int32)
+        k[::3] = 9  # one hot key across every run
+        p = rng.integers(INT_MIN, INF, n, endpoint=True).astype(np.int32)
+        keys[r * stride:r * stride + n], pays[r * stride:r * stride + n] = \
+            _lex_sorted(k, p)
+    got, glens = tmw.multiway_merge(
+        torch.from_numpy(keys), fanin, payloads=torch.from_numpy(pays),
+        lens=torch.from_numpy(lens), stride=stride)
+    assert got[0].shape == got[1].shape == (keys.size,)
+    np.testing.assert_array_equal(glens.numpy(),
+                                  lens.reshape(-1, fanin).sum(1))
+    for g in range(2):
+        base = g * fanin * stride
+        runs = range(g * fanin, (g + 1) * fanin)
+        ek, ep = _lex_sorted(
+            np.concatenate([keys[r * stride:r * stride + lens[r]]
+                            for r in runs]),
+            np.concatenate([pays[r * stride:r * stride + lens[r]]
+                            for r in runs]))
+        np.testing.assert_array_equal(got[0][base:base + ek.size].numpy(), ek)
+        np.testing.assert_array_equal(got[1][base:base + ep.size].numpy(), ep)
+    assert bool((got[0][2 * fanin * stride:] == INF).all())
+    assert bool((got[1][2 * fanin * stride:] == INF).all())
+
+
+def test_varlen_merge_refusals():
+    """A strided lens vector, payloads that do not match the keys, and
+    uniform_lens beside lens are refused."""
+    keys = torch.zeros(4 * 1024, dtype=torch.int32)
+    lens = torch.full((4,), 10, dtype=torch.int32)
+    strided = torch.zeros((4, 4), dtype=torch.int32)[:, 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        tmw.multiway_merge(keys, 2, payloads=keys.clone(), lens=strided,
+                           stride=1024)
+    for bad in (torch.zeros(4095, dtype=torch.int32),
+                torch.zeros(4096, dtype=torch.int64)):
+        with pytest.raises((ValueError, TypeError)):
+            tmw.multiway_merge(keys, 2, payloads=bad, lens=lens, stride=1024)
+    with pytest.raises(ValueError, match="uniform_lens"):
+        tmw.multiway_merge(keys, 2, (4, 4096, 1024), lens=lens, stride=1024)
