@@ -11,4 +11,7 @@ PyTorch versions; without a card they exit 1):
 
 Each prints the JAX module's record line on stdout and a labelled line
 with the device's name on stderr, after checking its own output.
+``kernel_variants`` is no port of a reference bench: on the card, from
+the root of a checkout, it times design alternatives of kernels K1 and
+K11 against the committed ones.
 """

@@ -6,51 +6,82 @@
 // ops/bitonic.py.  The m-way join runs it with every block ascending.
 //
 // What bounds it on the H100: device memory is touched once (4 B read and
-// 4 B written per key), so the kernel is bound by shared-memory traffic
-// and by the __syncthreads() between the log2(B)(log2(B)+1)/2 stages of
-// the network (105 stages at B = 16,384).
+// 4 B written per key, 0.31 ms for 128M keys), so the kernel is bound by
+// the log2(B)(log2(B)+1)/2 stages of the network (105 at B = 16,384): how
+// many of them go through shared memory, and the barriers between those.
 //
-// Design: one CTA sorts one block held whole in dynamic shared memory
-// (64 KB at B = 16,384, above the 48 KB static limit, hence the
-// cudaFuncSetAttribute below).  Each stage is one pass of B/2
-// compare-exchanges spread over up to 1,024 threads.  The ragged last
-// block is padded with INT32_MAX in shared memory, so the output holds
-// nblocks * B keys with the pads at the end.  The TPU's 65,536-key block
-// does not fit in 227 KB of shared memory and is not carried over.
-#include "smj_common.cuh"
+// Design (bitonic_network.cuh): one CTA sorts one block, each of its B /
+// kPer threads holding kPer = 32 consecutive keys in registers.  Of the
+// 105 stages at B = 16,384 (512 threads), the 60 of stride below 32 run
+// in registers, the 35 of stride 32-512 through warp shuffles, and only
+// the 10 of stride 1,024 and above through shared memory, one barrier
+// pair each, on a padded tile (64 KB + 2 KB at B = 16,384, above the 48
+// KB static limit, hence the cudaFuncSetAttribute below).  Each thread
+// loads and stores its own 32 keys with 16-byte accesses, straight between
+// device memory and registers.  The ragged last block is padded with
+// INT32_MAX, so the output holds nblocks * B keys with the pads at the
+// end.  The TPU's 65,536-key block does not fit in 227 KB of
+// shared memory and is not carried over.
+#include "bitonic_network.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kPer = 32;          // keys a thread
+constexpr int kMaxThreads = 512;  // B = 16,384
+// at most 64 registers a thread: two CTAs of 512 threads an SM (shared
+// memory would allow three)
+constexpr int kMinBlocks = 2;
 
-__global__ void block_sort_kernel(const int* __restrict__ in,
-                                  int* __restrict__ out, long long n,
-                                  int block) {
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock / kPer, kMinBlocks)
+block_sort_kernel(const int* __restrict__ in, int* __restrict__ out,
+                  long long n) {
   extern __shared__ int tile[];
-  const long long base = (long long)blockIdx.x * block;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    const long long g = base + i;
-    tile[i] = g < n ? in[g] : SMJ_KEY_POS_INF;
+  smj_bitonic::sort_tile<int, kPer, kBlock>(in, out, n, SMJ_KEY_POS_INF,
+                                            tile);
+}
+
+size_t smem_of(int block) {
+  return (size_t)smj_bitonic::tile_slots<kPer>(block) * sizeof(int);
+}
+
+// Lets the kernel take its tile and asks for the largest shared memory
+// carveout, so that shared memory does not cut the CTAs an SM.
+template <int kBlock>
+cudaError_t prepare() {
+  cudaError_t err = cudaFuncSetAttribute(
+      block_sort_kernel<kBlock>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_of(kBlock));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(block_sort_kernel<kBlock>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Launches (stream non-null) or reports the CTAs an SM into *ctas.
+template <int kBlock>
+int run(const int* in, int* out, long long n, int nblocks,
+        cudaStream_t stream, int* ctas) {
+  const cudaError_t err = prepare<kBlock>();
+  if (err != cudaSuccess) return (int)err;
+  if (ctas != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, block_sort_kernel<kBlock>, kBlock / kPer, smem_of(kBlock));
+  block_sort_kernel<kBlock><<<nblocks, kBlock / kPer, smem_of(kBlock),
+                              stream>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const int* in, int* out, long long n, int block, int nblocks,
+             cudaStream_t stream, int* ctas) {
+  switch (block) {
+    case 1024: return run<1024>(in, out, n, nblocks, stream, ctas);
+    case 2048: return run<2048>(in, out, n, nblocks, stream, ctas);
+    case 4096: return run<4096>(in, out, n, nblocks, stream, ctas);
+    case 8192: return run<8192>(in, out, n, nblocks, stream, ctas);
+    case 16384: return run<16384>(in, out, n, nblocks, stream, ctas);
+    default: return (int)cudaErrorInvalidValue;
   }
-  __syncthreads();
-  const int half = block >> 1;
-  for (int k = 2; k <= block; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        // t-th pair of this stage: lower index i, partner i + j
-        const int i = 2 * t - (t & (j - 1));
-        const bool ascending = (i & k) == 0;
-        const int a = tile[i];
-        const int b = tile[i + j];
-        if ((a > b) == ascending) {
-          tile[i] = b;
-          tile[i + j] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < block; i += blockDim.x) out[base + i] = tile[i];
 }
 
 }  // namespace
@@ -60,13 +91,11 @@ __global__ void block_sort_kernel(const int* __restrict__ in,
 // the tensors' card current.
 SMJ_API int smj_block_sort(const int* in, int* out, long long n, int block,
                            int nblocks, void* stream) {
-  const size_t smem = (size_t)block * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = block / 2 < kMaxThreads ? block / 2 : kMaxThreads;
-  block_sort_kernel<<<nblocks, threads, smem, (cudaStream_t)stream>>>(
-      in, out, n, block);
-  return (int)cudaGetLastError();
+  return dispatch(in, out, n, block, nblocks, (cudaStream_t)stream, nullptr);
+}
+
+// The CTAs an SM holds of block_sort_kernel at `block`, into *ctas (a host
+// int): its registers, threads and shared tile together.
+SMJ_API int smj_block_sort_occupancy(int block, int* ctas) {
+  return dispatch(nullptr, nullptr, 0, block, 0, nullptr, ctas);
 }

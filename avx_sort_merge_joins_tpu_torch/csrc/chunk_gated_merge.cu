@@ -16,7 +16,7 @@
 // and with it the wait counters, stays the caller's.
 //
 // Design: merge-path tiles of kTile output keys, three launches; the
-// co-rank search and the tile merge are merge_tile.cuh's, shared with K11.
+// co-rank search and the tile merge are merge_tile.cuh's.
 //   1. corank_kernel, one warp per tile boundary b = min(t * kTile,
 //      total): a binary search over the key domain finds v, the key at
 //      merged position b - 1, and each strip contributes its keys < v,

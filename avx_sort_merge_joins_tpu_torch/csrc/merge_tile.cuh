@@ -1,7 +1,8 @@
-// The merge-path tile of the gated merges K9 (chunk_gated_merge.cu) and
-// K11 (remote_pull.cu): the W-way co-rank search of one tile boundary and
-// the rank-scatter merge of one tile in shared memory.  W ascending strips
-// lie `stride` slots apart in a landing buffer.
+// The merge-path tile of the gated merge K9 (chunk_gated_merge.cu): the
+// W-way co-rank search of one tile boundary and the rank-scatter merge of
+// one tile in shared memory.  W ascending strips lie `stride` slots apart
+// in a landing buffer.  (K2, K6 and K11 use merge_path.cuh's search and
+// pairwise tile merge, and the two loads below.)
 //
 // Both are templated on the load of the landing.  K9's landing is fixed
 // during its launch and goes through the read-only path (SmjLdgLoad, an

@@ -23,50 +23,38 @@
 // instruction issue, log2(W) merge steps an element, and the co-rank
 // search by dependent loads.
 //
-// Design: merge-path tiles of kTile outputs, three launches.
+// Design: merge-path tiles of kTile outputs, three launches; the co-rank
+// search and the tile merge are merge_path.cuh's, shared with K11.
 //   1. corank_kernel, coarse: one warp per coarse boundary b = min(t *
 //      kTile, live) of a group, t a multiple of kCoarse, finds each run's
-//      consumed prefix c[t][r] (how many of the group's first b outputs
-//      come from run r; ties go to the lower run).  The search narrows the
-//      value of output b - 1 between the smallest and largest element of
-//      the runs' windows [lo_r, hi_r) and narrows the windows with it: a
-//      run's elements <= a probe below output b - 1 go before the
-//      boundary, its elements > a probe above it after.  The warp splits
-//      into 32 / W groups of W lanes (one lane a run; W > 32: 32 lanes,
-//      several runs a lane), each group tries its own probe, so a round
-//      cuts the value range into 32 / W + 1 parts.  The range is re-read
-//      from the windows' ends each round, and the search stops once the
-//      windows' starts or ends sum to b.
+//      consumed prefix c[t][r] (ties go to the lower run), its windows
+//      starting as the whole runs.
 //   2. corank_kernel, fine: the same search for every other boundary,
 //      inside the windows the two coarse boundaries around it leave: at
 //      most kCoarse tiles of outputs, not the whole run.
-//   3. merge_kernel, one CTA per tile: it loads the tile's W segments
-//      [c[t][r], c[t+1][r]) into shared memory with coalesced loads,
-//      merges them in log2(W) rounds of pairwise merge path between two
-//      buffers (each thread finds its co-rank by binary search, then merges
-//      kPerThread outputs serially, the two heads in registers; A, the
-//      lower runs, wins ties, so the rounds keep run order among equal
-//      elements), writes the tile back coalesced, and writes the pads
-//      after the group's live elements.
+//   3. merge_kernel, one CTA per tile: it merges the tile's W segments
+//      [c[t][r], c[t+1][r]) in shared memory, writes the tile back
+//      coalesced, and writes the pads after the group's live elements.
 // Pairs travel as one int64 whose signed order is the lexicographic order
 // (smj_pack); the pad pair packs to LLONG_MAX, so a real payload equal to
 // INT32_MAX or INT32_MIN still sorts before it.  Offsets are 64-bit.
-#include "smj_common.cuh"
+#include "merge_path.cuh"
 
 namespace {
 
-constexpr int kTile = 4096;  // outputs a merge tile
-// Threads of a merge tile: 256 for keys, at least 6 CTAs an SM (their
-// registers capped to fit); 512 for pairs, whose two 34 KB buffers allow
-// only 3 CTAs an SM.  Each thread merges kTile / threads outputs a round.
+using smj_mp::kTile;  // outputs a merge tile
+// Threads of a merge tile: 256 for keys, at least 6 CTAs an SM; 512 for
+// pairs, whose two 34 KB buffers allow 3 CTAs an SM (registers capped to
+// fit: 44 allowed only 2).  Each thread merges kTile / threads outputs a round.
 template <typename E>
 constexpr int kMergeThreads = sizeof(E) == 8 ? 512 : 256;
 template <typename E>
-constexpr int kMergeMinBlocks = sizeof(E) == 8 ? 1 : 6;
+constexpr int kMergeMinBlocks = sizeof(E) == 8 ? 3 : 6;
 constexpr int kCorankThreads = 256;
 constexpr int kCoarse = 32;  // tiles between two coarse boundaries
 constexpr int kMaxFanin = 1024;
-constexpr unsigned kFullWarp = 0xffffffffu;
+// shared memory of a co-rank CTA, at most: its warps' windows
+constexpr long long kCorankSmem = 48 * 1024;
 
 // The runs of one call.  Run r starts at r * stride; it holds lens[r]
 // elements, or (lens null, the uniform layout) clip(total - r * stride, 0,
@@ -83,18 +71,11 @@ struct Runs {
                                         : total - r * stride;
     return l < 0 ? 0 : (l > stride ? stride : l);
   }
-};
 
-// Element i of the columns as a value: the key (K2) or the packed pair
-// (K6).
-template <typename E>
-__device__ __forceinline__ E load_elem(const Runs& runs, long long i) {
-  if constexpr (sizeof(E) == 8) {
-    return smj_pack(__ldg(runs.k + i), __ldg(runs.p + i));
-  } else {
-    return __ldg(runs.k + i);
+  __device__ __forceinline__ smj_mp::Cols<SmjLdgLoad> cols() const {
+    return {k, p, SmjLdgLoad()};
   }
-}
+};
 
 template <typename E>
 __device__ __forceinline__ void store_elem(int* __restrict__ k,
@@ -108,63 +89,24 @@ __device__ __forceinline__ void store_elem(int* __restrict__ k,
   }
 }
 
-// First index in [lo, hi) of the run at `base` whose value is > v (kUpper)
-// or >= v.
-template <typename E, bool kUpper>
-__device__ __forceinline__ long long run_bound(const Runs& runs,
-                                               long long base, long long lo,
-                                               long long hi, long long v) {
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    const long long m = load_elem<E>(runs, base + mid);
-    if (kUpper ? m <= v : m < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Reductions over each aligned group of G lanes (G a power of two <= 32):
-// every lane gets its group's result.
-__device__ __forceinline__ long long group_sum(long long v, int G) {
-  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(kFullWarp, v, o);
-  return v;
-}
-
-__device__ __forceinline__ long long group_min(long long v, int G) {
-  for (int o = 1; o < G; o <<= 1) {
-    const long long n = __shfl_xor_sync(kFullWarp, v, o);
-    v = n < v ? n : v;
-  }
-  return v;
-}
-
-__device__ __forceinline__ long long group_max(long long v, int G) {
-  for (int o = 1; o < G; o <<= 1) {
-    const long long n = __shfl_xor_sync(kFullWarp, v, o);
-    v = n > v ? n : v;
-  }
-  return v;
-}
-
-// Inclusive prefix sum over the lanes of each group, in lane order.
-__device__ __forceinline__ long long group_inclusive_sum(long long v,
-                                                         int G, int rl) {
-  for (int o = 1; o < G; o <<= 1) {
-    const long long n = __shfl_up_sync(kFullWarp, v, o);
-    if (rl >= o) v += n;
-  }
-  return v;
+// Warps of a co-rank CTA at fan-in W: as many as kCorankSmem holds
+// windows for, at most kCorankThreads / 32.
+int corank_warps(int W) {
+  const long long per = smj_mp::corank_words(W) * 8;
+  const long long w = kCorankSmem / per;
+  return (int)(w < 1 ? 1 : (w > kCorankThreads / 32 ? kCorankThreads / 32
+                                                     : w));
 }
 
 // c[g][t][r] for the boundaries t of every group (tpg + 1 of them a group:
 // t = 0 .. tpg); coarse: t a multiple of kCoarse, and tpg; fine: every
-// other t.  One warp a boundary.  The warp splits into P = 32 / G groups
-// of G = min(W, 32) lanes; lane rl of a group covers runs rl + 32 j, j <
-// kRpl, and every group tries its own probe value each round, so a round
-// cuts the value range into P + 1 parts, not two.
-template <typename E, int kRpl>
+// other t.  One warp a boundary, its starting windows in dynamic shared
+// memory (kRegs, fan-in <= 32: the search then keeps them in registers).
+template <typename E, bool kRegs>
 __global__ void __launch_bounds__(kCorankThreads)
 corank_kernel(Runs runs, long long* __restrict__ c, long long ngroups,
               long long tpg, int W, bool coarse) {
+  extern __shared__ long long ws_all[];
   const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -177,179 +119,40 @@ corank_kernel(Runs runs, long long* __restrict__ c, long long ngroups,
   } else if (t % kCoarse == 0 || t == tpg) {
     return;
   }
-  const int G = W < 32 ? W : 32;
-  const int P = 32 / G;
-  const int probe = lane / G;
-  const int rl = lane % G;
+  long long* ws = ws_all + (threadIdx.x >> 5) * smj_mp::corank_words(W);
+  long long* wlo = ws;
+  long long* whi = ws + W;
   const long long run0 = g * W;
-  long long len[kRpl], wlo[kRpl], whi[kRpl];
   long long live = 0;
-#pragma unroll
-  for (int j = 0; j < kRpl; ++j) {
-    const int r = j * 32 + rl;
-    len[j] = r < W ? runs.len(run0 + r) : 0;
-    live += len[j];
-  }
-  live = group_sum(live, G);
+  for (int r = lane; r < W; r += 32) live += runs.len(run0 + r);
+  live = smj_mp::group_sum(live, 32);
   const long long b = t * kTile < live ? t * kTile : live;
   long long* row = c + (g * (tpg + 1) + t) * W;
   if (coarse) {
-#pragma unroll
-    for (int j = 0; j < kRpl; ++j) {
-      wlo[j] = 0;
-      whi[j] = len[j];
+    for (int r = lane; r < W; r += 32) {
+      wlo[r] = 0;
+      whi[r] = runs.len(run0 + r);
     }
   } else {
     const long long t0 = t / kCoarse * kCoarse;
     const long long t1 = t0 + kCoarse < tpg ? t0 + kCoarse : tpg;
     const long long* lo_row = c + (g * (tpg + 1) + t0) * W;
     const long long* hi_row = c + (g * (tpg + 1) + t1) * W;
-#pragma unroll
-    for (int j = 0; j < kRpl; ++j) {
-      const int r = j * 32 + rl;
-      wlo[j] = r < W ? lo_row[r] : 0;
-      whi[j] = r < W ? hi_row[r] : 0;
+    for (int r = lane; r < W; r += 32) {
+      wlo[r] = lo_row[r];
+      whi[r] = hi_row[r];
     }
   }
-  // Invariant: sum(wlo) <= b <= sum(whi); every element before wlo is
-  // among the first b outputs and every one of them lies before whi; the
-  // value of output b - 1 lies in [vlo, vhi].
-  long long vlo = LLONG_MIN, vhi = LLONG_MAX;
-  for (;;) {
-    long long slo = 0, shi = 0, mn = LLONG_MAX, mx = LLONG_MIN;
-#pragma unroll
-    for (int j = 0; j < kRpl; ++j) {
-      const long long base = (run0 + j * 32 + rl) * runs.stride;
-      slo += wlo[j];
-      shi += whi[j];
-      if (whi[j] > wlo[j]) {
-        const long long lo_v = load_elem<E>(runs, base + wlo[j]);
-        const long long hi_v = load_elem<E>(runs, base + whi[j] - 1);
-        mn = lo_v < mn ? lo_v : mn;
-        mx = hi_v > mx ? hi_v : mx;
-      }
-    }
-    slo = group_sum(slo, G);
-    shi = group_sum(shi, G);
-    if (slo == b || shi == b) {
-      if (probe == 0) {
-#pragma unroll
-        for (int j = 0; j < kRpl; ++j) {
-          const int r = j * 32 + rl;
-          if (r < W) row[r] = slo == b ? wlo[j] : whi[j];
-        }
-      }
-      return;
-    }
-    // some window holds output b - 1 and some an element after it
-    mn = group_min(mn, G);
-    mx = group_max(mx, G);
-    vlo = mn > vlo ? mn : vlo;
-    vhi = mx < vhi ? mx : vhi;
-    if (vlo >= vhi) break;
-    // this group's probe: vlo + floor((vhi - vlo) * (probe + 1) / (P + 1))
-    const unsigned long long diff =
-        (unsigned long long)vhi - (unsigned long long)vlo;
-    const unsigned long long q = diff / (P + 1), rm = diff % (P + 1);
-    const long long mid = vlo + (long long)(q * (probe + 1) +
-                                            rm * (probe + 1) / (P + 1));
-    long long u[kRpl], cnt = 0;
-#pragma unroll
-    for (int j = 0; j < kRpl; ++j) {
-      const long long base = (run0 + j * 32 + rl) * runs.stride;
-      u[j] = run_bound<E, true>(runs, base, wlo[j], whi[j], mid);
-      cnt += u[j];
-    }
-    cnt = group_sum(cnt, G);
-    const unsigned exact = __ballot_sync(kFullWarp, cnt == b);
-    if (exact != 0) {  // the elements <= that probe are the first b
-      const int src = (__ffs(exact) - 1) / G * G + rl;
-#pragma unroll
-      for (int j = 0; j < kRpl; ++j) {
-        const long long v = __shfl_sync(kFullWarp, u[j], src);
-        const int r = j * 32 + rl;
-        if (probe == 0 && r < W) row[r] = v;
-      }
-      return;
-    }
-    // the probes below output b - 1 raise the windows' starts, the first
-    // one above it lowers their ends
-    const int below = __popc(__ballot_sync(kFullWarp, cnt < b)) / G;
-    if (below > 0) {
-      const int src = (below - 1) * G + rl;
-#pragma unroll
-      for (int j = 0; j < kRpl; ++j)
-        wlo[j] = __shfl_sync(kFullWarp, u[j], src);
-      vlo = __shfl_sync(kFullWarp, mid, src) + 1;
-    }
-    if (below < P) {
-      const int src = below * G + rl;
-#pragma unroll
-      for (int j = 0; j < kRpl; ++j)
-        whi[j] = __shfl_sync(kFullWarp, u[j], src);
-      vhi = __shfl_sync(kFullWarp, mid, src);
-    }
-  }
-  // output b - 1 has the value v = vlo: every run gives its elements < v,
-  // then the elements == v fill the rest of the prefix in run order
-  long long lt[kRpl], eq[kRpl], less = 0;
-#pragma unroll
-  for (int j = 0; j < kRpl; ++j) {
-    const long long base = (run0 + j * 32 + rl) * runs.stride;
-    lt[j] = run_bound<E, false>(runs, base, wlo[j], whi[j], vlo);
-    eq[j] = run_bound<E, true>(runs, base, lt[j], whi[j], vlo) - lt[j];
-    less += lt[j];
-  }
-  long long left = b - group_sum(less, G);
-#pragma unroll
-  for (int j = 0; j < kRpl; ++j) {
-    const int r = j * 32 + rl;
-    const long long incl = group_inclusive_sum(eq[j], G, rl);
-    long long take = left - (incl - eq[j]);
-    take = take < 0 ? 0 : (take > eq[j] ? eq[j] : take);
-    if (probe == 0 && r < W) row[r] = lt[j] + take;
-    left -= __shfl_sync(kFullWarp, incl, probe * G + G - 1);
-    if (left < 0) left = 0;
-  }
-}
-
-// Slot of tile position p in a shared buffer: one spare element after
-// every 128 bytes, so that a warp's threads, each writing its own run of
-// kPerThread outputs, hit distinct banks.
-template <typename E>
-__device__ __forceinline__ int sw(int p) {
-  return p + (p >> (sizeof(E) == 8 ? 4 : 5));
-}
-
-template <typename E>
-__host__ __device__ constexpr int buf_elems() {
-  return kTile + kTile / (sizeof(E) == 8 ? 16 : 32);
-}
-
-// Co-rank of diagonal d of merge(buf[a0, a0 + na), buf[b0, b0 + nb)) in
-// shared memory: how many of its first d outputs come from a (a wins
-// ties).
-template <typename E>
-__device__ __forceinline__ int co_rank(const E* buf, int a0, int na, int b0,
-                                       int nb, int d) {
-  int lo = d > nb ? d - nb : 0;
-  int hi = d < na ? d : na;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (buf[sw<E>(a0 + mid)] <= buf[sw<E>(b0 + d - 1 - mid)]) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+  __syncwarp();
+  smj_mp::corank<E, kRegs>(runs.cols(), run0 * runs.stride, runs.stride, W,
+                           b, ws, row, lane);
 }
 
 // Dynamic shared memory of a merge tile: two buffers, then W segment
 // starts (int64) and W + 1 segment offsets (int).
 template <typename E>
 constexpr size_t merge_smem(int W) {
-  return 2 * buf_elems<E>() * sizeof(E) + (size_t)W * 8 +
+  return 2 * smj_mp::buf_elems<E>() * sizeof(E) + (size_t)W * 8 +
          (size_t)(W + 1) * 4;
 }
 
@@ -362,10 +165,10 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
              long long ngroups, long long tpg, int W) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kThreads = kMergeThreads<E>;
-  constexpr int kPerThread = kTile / kThreads;
   E* buf0 = reinterpret_cast<E*>(smem);
-  E* buf1 = buf0 + buf_elems<E>();
-  long long* src = reinterpret_cast<long long*>(buf1 + buf_elems<E>());
+  E* buf1 = buf0 + smj_mp::buf_elems<E>();
+  long long* src =
+      reinterpret_cast<long long*>(buf1 + smj_mp::buf_elems<E>());
   int* offs = reinterpret_cast<int*>(src + W);
   const int tid = threadIdx.x;
   const long long region = (long long)W * runs.stride;
@@ -398,80 +201,10 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
   }
   if (end > cap) end = cap;
   if (n > 0) {  // the same branch for the whole CTA
-    // coalesced load of the segments: slot p of the tile comes from the
-    // segment s with offs[s] <= p < offs[s + 1]
-    int lo = 0, hi = W;
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (offs[mid] <= tid) lo = mid; else hi = mid;
-    }
-    E v[kPerThread];
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int p = tid + q * kThreads;
-      if (p < n) {
-        while (offs[lo + 1] <= p) ++lo;
-        v[q] = load_elem<E>(runs, src[lo] + (p - offs[lo]));
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int p = tid + q * kThreads;
-      if (p < n) buf0[sw<E>(p)] = v[q];
-    }
-    __syncthreads();
-    // log2(W) rounds: merge pairs of s-segment runs from `from` into `to`
-    E* from = buf0;
-    E* to = buf1;
-    const int p0 = tid * kPerThread;
-    for (int s = 1; s < W; s <<= 1) {
-      if (p0 < n) {
-        // the pair j holding output p0: the first whose end is past it
-        int j = 0, jhi = W / (2 * s) - 1;
-        while (j < jhi) {
-          const int mid = (j + jhi) >> 1;
-          if (offs[(mid + 1) * 2 * s] > p0) jhi = mid; else j = mid + 1;
-        }
-        int a0 = offs[j * 2 * s], b0 = offs[j * 2 * s + s];
-        int e = offs[(j + 1) * 2 * s];
-        int na = b0 - a0, nb = e - b0;
-        int ia = co_rank(from, a0, na, b0, nb, p0 - a0);
-        int ib = p0 - a0 - ia;
-        // the heads of a and b stay in registers: one load an output
-        E va = ia < na ? from[sw<E>(a0 + ia)] : E();
-        E vb = ib < nb ? from[sw<E>(b0 + ib)] : E();
-#pragma unroll
-        for (int q = 0; q < kPerThread; ++q) {
-          const int p = p0 + q;
-          if (p < n) {
-            while (p >= e) {  // into the next pair
-              ++j;
-              a0 = e;
-              b0 = offs[j * 2 * s + s];
-              e = offs[(j + 1) * 2 * s];
-              na = b0 - a0;
-              nb = e - b0;
-              ia = ib = 0;
-              va = na > 0 ? from[sw<E>(a0)] : E();
-              vb = nb > 0 ? from[sw<E>(b0)] : E();
-            }
-            if (ib >= nb || (ia < na && va <= vb)) {
-              to[sw<E>(p)] = va;
-              if (++ia < na) va = from[sw<E>(a0 + ia)];
-            } else {
-              to[sw<E>(p)] = vb;
-              if (++ib < nb) vb = from[sw<E>(b0 + ib)];
-            }
-          }
-        }
-      }
-      __syncthreads();
-      E* x = from;
-      from = to;
-      to = x;
-    }
+    const E* merged = smj_mp::merge_tile<E, kThreads>(runs.cols(), src, offs,
+                                                      W, buf0, buf1);
     for (int p = tid; p < n; p += kThreads)
-      store_elem<E>(out_k, out_p, out0 + p, from[sw<E>(p)]);
+      store_elem<E>(out_k, out_p, out0 + p, merged[smj_mp::sw<E>(p)]);
   }
   for (long long i = out0 + n + tid; i < end; i += kThreads) {
     out_k[i] = SMJ_KEY_POS_INF;
@@ -481,16 +214,23 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-template <typename E, int kRpl>
+template <typename E>
 void launch_coranks(const Runs& runs, long long* c, long long ngroups,
                     long long tpg, int W, int parts, cudaStream_t s) {
   const long long warps[2] = {ngroups * (cdiv(tpg, kCoarse) + 1),
                               ngroups * (tpg + 1)};
+  const int cta_warps = corank_warps(W);
+  const size_t smem = (size_t)cta_warps * smj_mp::corank_words(W) * 8;
   for (int pass = 0; pass < 2; ++pass) {
     if ((parts & (1 << pass)) == 0) continue;
-    const long long blocks = cdiv(warps[pass] * 32, kCorankThreads);
-    corank_kernel<E, kRpl><<<(unsigned)blocks, kCorankThreads, 0, s>>>(
-        runs, c, ngroups, tpg, W, pass == 0);
+    const long long blocks = cdiv(warps[pass], cta_warps);
+    if (W <= 32) {  // one run a lane: the windows in registers
+      corank_kernel<E, true><<<(unsigned)blocks, cta_warps * 32, smem, s>>>(
+          runs, c, ngroups, tpg, W, pass == 0);
+    } else {
+      corank_kernel<E, false><<<(unsigned)blocks, cta_warps * 32, smem,
+                                s>>>(runs, c, ngroups, tpg, W, pass == 0);
+    }
   }
 }
 
@@ -509,14 +249,9 @@ int launch(const Runs& runs, int* out_k, int* out_p, long long* c,
   const long long done = ngroups * region;
   const long long tiles = ngroups * tpg + (cap > done ? cdiv(cap - done,
                                                            kTile) : 0);
-  if (tiles > INT_MAX || cdiv(ngroups * (tpg + 1) * 32, kCorankThreads) >
-                             INT_MAX)
+  if (tiles > INT_MAX || ngroups * (tpg + 1) > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  if (W <= 32) {
-    launch_coranks<E, 1>(runs, c, ngroups, tpg, W, parts, s);
-  } else {
-    launch_coranks<E, kMaxFanin / 32>(runs, c, ngroups, tpg, W, parts, s);
-  }
+  launch_coranks<E>(runs, c, ngroups, tpg, W, parts, s);
   if ((parts & 4) == 0) return (int)cudaGetLastError();
   const size_t smem = merge_smem<E>(W);
   cudaError_t err = cudaFuncSetAttribute(

@@ -12,7 +12,8 @@ path never calls :func:`library`.
 Every entry point takes pointers and the stream as ``c_void_p``, sizes as
 ``c_int64``, and returns ``cudaGetLastError()`` as an int; :func:`check`
 turns a non-zero code into an exception.  The one exception,
-``smj_multiway_merge_scratch``, returns a size (``_RESTYPES``).
+``smj_multiway_merge_scratch``, returns a size (``_RESTYPES``); the
+``*_occupancy`` entry points write a count into a host int (``_IP``).
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_IP = ctypes.POINTER(ctypes.c_int)  # a host int the entry point fills
 # entry point -> argument types (see the SMJ_API functions in csrc/*.cu)
 _SIGNATURES = {
     "smj_block_sort": (_P, _P, _L, _I, _I, _P),
+    "smj_block_sort_occupancy": (_I, _IP),
     "smj_block_sort_pairs": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "smj_multiway_merge": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P),
     "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
@@ -48,7 +51,8 @@ _SIGNATURES = {
     "smj_merge_join_count64": (_P, _P, _L, _P, _P, _L, _P, _P),
     "smj_merge_join_count2": (_P, _L, _P, _L, _L, _P, _P),
     "smj_radix_hist": (_P, _L, _I, _I, _I, _P, _P),
-    "smj_remote_pull": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _P),
+    "smj_remote_pull": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P),
+    "smj_remote_pull_occupancy": (_I, _IP),
 }
 
 # entry points that return something else than a cudaError_t code

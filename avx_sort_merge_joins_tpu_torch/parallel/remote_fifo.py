@@ -384,12 +384,23 @@ def remote_pull_exchange_merge(mesh, bflat: torch.Tensor,
         return remote_pull_exchange_merge_plain(mesh, bflat, recv_counts,
                                                 cap, chunk_elems, window)
     K = _checked_pull(mesh, bflat, recv_counts, cap, chunk_elems, window)
+    return _pull_launch(mesh, bflat, recv_counts, cap, chunk_elems, K)
+
+
+def _pull_launch(mesh, bflat: torch.Tensor, recv_counts: torch.Tensor,
+                 cap: int, chunk_elems: int, window: int, landing=None):
+    """One K11 launch on checked inputs.  With ``landing`` (a full
+    launch's) no push runs and every arrival flag is set before the
+    launch, so the launch times the gated merge alone; the result is the
+    full launch's."""
     from ..kernels import _build
 
     global PULL_LAUNCHES
     n = mesh.n
     dev = bflat.device
-    landing = torch.empty_like(bflat)
+    merge_only = landing is not None
+    if not merge_only:
+        landing = torch.empty_like(bflat)
     merged = torch.empty_like(bflat)
     stats = torch.empty(n * n + n, dtype=torch.int32, device=dev)
     scratch = torch.empty(_PULL_SCRATCH_HEAD + n * n * (cap // chunk_elems),
@@ -398,7 +409,7 @@ def remote_pull_exchange_merge(mesh, bflat: torch.Tensor,
         code = _build.library().smj_remote_pull(
             bflat.data_ptr(), recv_counts.data_ptr(), landing.data_ptr(),
             merged.data_ptr(), stats.data_ptr(), scratch.data_ptr(), cap,
-            chunk_elems, n, K, stream)
+            chunk_elems, n, window, int(merge_only), stream)
     _build.check("smj_remote_pull", code)
     PULL_LAUNCHES += 1
     error, oversize = scratch[2:4].tolist()

@@ -7,11 +7,14 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 1. Device: require a CUDA card; print its name and power limit.
 2. Build: compile the kernels in avx_sort_merge_joins_tpu_torch/csrc with
    nvcc (one process per source, side by side) and print the build time.
-3. Kernel vs plain, keys only: K1 (block sort), K2 (multiway merge, fan-in
-   2 and 16) and K3 (match count) on seeded inputs of about 2^22 keys --
-   ragged last block, heavy duplicates, negative keys, the ends of the key
-   domain, a count above 2^31 -- must equal their plain PyTorch versions
-   exactly (integers: tolerance 0).  Then each kernel, its plain version
+3. Kernel vs plain, keys only: K1 (block sort, at every supported block
+   size), K2 (multiway merge, fan-in 2 and 16) and K3 (match count) on
+   seeded inputs of about 2^22 keys -- ragged last block, heavy
+   duplicates, negative keys, the ends of the key domain, a count above
+   2^31 -- must equal their plain PyTorch versions exactly (integers:
+   tolerance 0); K1 also at the edges of its network (sorted, reversed,
+   all-equal, 16-value and domain-end keys at n = block - 1, block, block
+   + 1 and 0).  Then each kernel, its plain version
    and its one-call library yardstick are timed with CUDA events at the
    main path's shapes (128M keys); each K2 level also in its parts: the
    co-rank passes (and the coarse one alone) and the tile merge.
@@ -110,19 +113,27 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    non-coherent read-only path (LDG.E...CONSTANT), and L1 invalidations
    after its acquire loads: the landing it reads is written in the launch.
    Its registers (cuobjdump -res-usage): at most 40, the six CTAs an SM
-   its launch bounds ask for.  The registers, stack and static shared
-   memory of K2's and K6's co-rank and tile-merge kernels, printed.
+   its launch bounds ask for; its CTAs an SM at 2 to 256 shards, printed.
+   The registers, stack and static shared memory of K2's and K6's co-rank
+   and tile-merge kernels, printed; K1's registers, local memory, stack
+   and CTAs an SM at each block size: a K1 with local memory or stack (its
+   keys live in registers) fails the run.
 20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
    shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
    slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
    buckets and shards, a hot key over every strip and the domain's ends,
    at send windows 1, 4, 8, 32 and every push in flight: landing (the
    all-to-all), merged columns, waits ceil(count / chunk), flags 0; then
-   the buckets of R and S of the 128M x 128M join over 8 shards (8 x 8
-   strips of 4,014,080 slots, 81,920-key chunks); an undersized strip
-   raises.  K11 timed beside its plain version, torch.sort of the landing
-   and the bulk composite (all-to-all, then K9 a shard); the one-card
-   copy/merge overlap printed.
+   strips of 4,095, 4,096, 4,097 and 12,295 keys (the merge tile's edges;
+   each alone and mixed), a hot key over many tiles and every strip (alone,
+   and between other keys), 32 and 64 shards, at windows 1, 8 and every
+   push in flight; then the buckets of R and S
+   of the 128M x 128M join over 8 shards (8 x 8 strips of 4,014,080 slots,
+   81,920-key chunks); an undersized strip raises.  K11 timed beside its
+   plain version, torch.sort of the landing and the bulk composite
+   (all-to-all, then K9 a shard), and in parts: a launch with every flag
+   set and no push times the merge alone; the one-card copy/merge overlap
+   printed.
 21. ``dist_mway_join_count(..., remote_pull="dma")`` over 8 shards, with
    the launch counts set to 0 just before each run and read just after:
    at 128M x 128M (count 128,000,000, K11 launched twice, K9 never, waits
@@ -130,7 +141,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    torch.sort baseline; at 16M with SMJ_REMOTE_WINDOW 4, 8, 32 and every
    push in flight.
 
-The line before the last is one JSON object with each kernel's launches
+Each phase's wall time is printed as a ``[phase]`` line.  The line before
+the last is one JSON object with each kernel's launches
 over the runs of phases 6, 7, 9, 13-15, 18 and 21, its largest error in
 phases 3-5, 8, 11-12, 17 and 20, its times, its bound and its library
 yardstick's time; the last line is ``{"ok": true, "device": {...}}``.
@@ -221,6 +233,9 @@ EDGE_TOTALS = (MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1,
 PULL_CAP = 131_072  # K11 checks: strips of 2 to 8 chunks of 64K to 16K
 PULL_CHUNKS = (PULL_CAP, 16_384, 32_768, 65_536)  # a strip, T, 2T, 4T
 PULL_WINDOWS = (1, 4, 8, 32)  # and every push in flight
+PULL_EDGE_LENS = (MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1,
+                  3 * MERGE_TILE + 7)  # strip lengths at the tile's edges
+PULL_EDGE_CAP = 16_384
 COUNT2_SPAN = 67_108_864  # run 0 of each side on the 128M two-run route
 BENCHES = [  # (module, argv): each once at its JAX defaults
     ("sortbench", ["16", "multiway"]), ("sortbench", ["16", "keysonly"]),
@@ -332,6 +347,22 @@ def key_cases(n: int, rng: np.random.Generator) -> dict[str, np.ndarray]:
     }
 
 
+def k1_edge_cases(n: int, rng: np.random.Generator,
+                  dev: torch.device) -> dict[str, torch.Tensor]:
+    """Inputs at the bitonic network's edges: already sorted, reversed, all
+    equal, 16 values, the two ends of the key domain."""
+    keys = np.sort(rng.integers(-DOMAIN_MAX, DOMAIN_MAX + 1, n))
+    cases = {
+        "sorted": keys,
+        "reversed": keys[::-1],
+        "equal": np.full(n, 5),
+        "16_values": rng.integers(0, 16, n),
+        "domain_ends": rng.choice(np.array([-DOMAIN_MAX, DOMAIN_MAX]), n),
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(v).astype(np.int32))
+            .to(dev) for k, v in cases.items()}
+
+
 ERR = {k: 0 for k in KERNELS}
 
 
@@ -386,7 +417,7 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
     for case, host in key_cases(CHECK_N, rng).items():
         keys = torch.from_numpy(host.astype(np.int32)).to(dev)
         n = keys.numel()
-        for block in (1024, 16384):
+        for block in sort_ops.SUPPORTED_BLOCKS:
             record("K1", f"{case} block={block}",
                    sort_ops.sort_blocks(keys, n, block),
                    sort_ops.sort_blocks_plain(keys, n, block))
@@ -408,6 +439,15 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
         ns = sk.numel()
         record("K3", case, mergejoin.merge_join_count_fused(rk, sk, n, ns),
                mergejoin.merge_join_count_fused_plain(rk, sk, n, ns))
+    for block in sort_ops.SUPPORTED_BLOCKS:
+        got, want = [], []
+        for case, keys in k1_edge_cases(3 * block + 1, rng, dev).items():
+            for n in (block - 1, block, block + 1, 0, 3 * block + 1):
+                got.append(sort_ops.sort_blocks(keys, n, block))
+                want.append(sort_ops.sort_blocks_plain(keys, n, block))
+        record("K1", f"edges block={block}: sorted, reversed, equal, 16 "
+               f"values, domain ends at n = block - 1, block, block + 1, 0",
+               tuple(got), tuple(want))
     # no matches, and a count above 2^31 (2^16 x 2^16 equal keys)
     rk = torch.arange(0, 2 * CHECK_N, 2, dtype=torch.int32, device=dev)
     sk = rk + 1
@@ -1697,17 +1737,23 @@ def phase_k11_sass() -> None:
     must show at most K11_MAX_REGS registers: its merge tiles are
     latency-bound, and without its launch bounds ptxas took 57 (4 CTAs
     an SM instead of 6) and K11 ran slower."""
+    import ctypes
+
     from avx_sort_merge_joins_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    usage = subprocess.run([tool, "-res-usage", _build.build()],
-                           capture_output=True, text=True, check=True,
-                           timeout=300).stdout
     found = re.search(r"Function [^\n]*remote_pull_kernel[^\n]*\n([^\n]*)",
-                      usage)
+                      res_usage())
     res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", found.group(1))) \
         if found else {}
-    log(f"[sass] K11 resource usage: {res}")
+    ctas = {}
+    for n in (2, DIST_SHARDS, 64, 256):
+        c = ctypes.c_int(0)
+        _build.check("smj_remote_pull_occupancy",
+                     _build.library().smj_remote_pull_occupancy(
+                         n, ctypes.byref(c)))
+        ctas[n] = c.value
+    log(f"[sass] K11 resource usage: {res}; CTAs an SM by shards {ctas}")
     if "REG" not in res or int(res["REG"]) > K11_MAX_REGS:
         raise AssertionError(f"K11 uses {res.get('REG')} registers, over "
                              f"{K11_MAX_REGS}: {found and found.group(0)}")
@@ -1726,48 +1772,90 @@ def phase_k11_sass() -> None:
                              f"invalidation after acquire: {kinds}")
 
 
-def phase_merge_resources() -> None:
-    """Registers, stack and static shared memory of K2's and K6's kernels
-    (cuobjdump -res-usage of the built library, the recipe of phase 19);
-    the tile merge's buffers are dynamic shared memory on top."""
+def res_usage() -> str:
+    """cuobjdump -res-usage of the built library."""
     from avx_sort_merge_joins_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    usage = subprocess.run([tool, "-res-usage", _build.build()],
-                           capture_output=True, text=True, check=True,
-                           timeout=300).stdout
+    return subprocess.run([tool, "-res-usage", _build.build()],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+def phase_merge_resources() -> None:
+    """Registers, stack and static shared memory of K2's and K6's kernels
+    (cuobjdump -res-usage of the built library, the recipe of phase 19);
+    the tile merge's buffers and the co-rank windows are dynamic shared
+    memory on top.  K1's registers, local memory and stack, and the CTAs
+    an SM it keeps at each block size: its keys live in registers, and a
+    key array in local memory (LOCAL or STACK above 0) fails the run."""
+    import ctypes
+
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    usage = res_usage()
     found = [(name, line) for name, line in re.findall(
         r"Function ([^\s:]+):?\n([^\n]*)", usage)
         if "multiway_merge_cu" in name
         and re.search(r"(corank|merge)_kernelI[ix]", name)]
-    if len(found) != 6:  # co-ranks for fan-in <= 32 and above, merge: x2
+    # co-ranks with the windows in registers (fan-in <= 32) or in shared
+    # memory, and the tile merge; keys and pairs
+    if len(found) != 6:
         raise AssertionError(f"cuobjdump: {len(found)} K2/K6 kernels")
     for name, line in found:
         res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
         kernel, elem = re.search(r"(corank_kernel|merge_kernel)I([ix])",
                                  name).groups()
-        rpl = re.search(r"Li(\d+)E", name)
-        log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel}"
-            f"{f' ({rpl.group(1)} runs a lane)' if rpl else ''}: REG "
+        if kernel == "corank_kernel":
+            kernel += (" (windows in registers)" if "Lb1E" in name
+                       else " (windows in shared memory)")
+        log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel}: REG "
             f"{res.get('REG')}, STACK {res.get('STACK')}, SHARED "
             f"{res.get('SHARED')}, LOCAL {res.get('LOCAL')}")
+    k1 = {int(b): dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
+          for b, line in re.findall(
+              r"Function [^\n]*block_sort_kernelILi(\d+)E[^\n]*\n([^\n]*)",
+              usage)}
+    for block in sort_ops.SUPPORTED_BLOCKS:
+        res = k1.get(block, {})
+        c = ctypes.c_int(0)
+        _build.check("smj_block_sort_occupancy",
+                     _build.library().smj_block_sort_occupancy(
+                         block, ctypes.byref(c)))
+        log(f"[sass] K1 block_sort_kernel<{block}>: REG {res.get('REG')}, "
+            f"LOCAL {res.get('LOCAL')}, STACK {res.get('STACK')}, SHARED "
+            f"{res.get('SHARED')}; {c.value} CTAs an SM")
+        if "REG" not in res or int(res.get("LOCAL", 1)) or \
+                int(res.get("STACK", 1)):
+            raise AssertionError(f"K1 at block {block} keeps keys in local "
+                                 f"memory: {res}")
 
 
 def pull_buckets(n: int, cap: int, case: str, gen: torch.Generator,
-                 dev: torch.device):
+                 dev: torch.device, lens=None):
     """(bflat, counts) of one relation on n shards, made on the card:
     shard me's bucket d holds counts[me, d] ascending keys at [me, d*cap],
     pads after.  "empty": half the buckets and every bucket for shard 0
     empty; "hot": every bucket for the last shard full of one key;
-    "domain_ends": keys at both ends of the key domain."""
+    "hot_all": every bucket full of one key; "hot_between": half the keys
+    of every bucket one key, between uniform ones; "domain_ends": keys at
+    both ends of the key domain.  ``lens``: the counts drawn from these
+    lengths instead."""
     counts = torch.randint(0, cap + 1, (n, n), generator=gen, device=dev)
+    if lens is not None:
+        pick = torch.tensor(lens, device=dev)
+        counts = pick[torch.randint(0, len(lens), (n, n), generator=gen,
+                                    device=dev)]
     if case == "empty":
         counts[torch.rand((n, n), generator=gen, device=dev) < 0.5] = 0
         counts[:, 0] = 0
     elif case == "hot":
         counts.zero_()
         counts[:, -1] = cap
-    if case == "hot":
+    elif case == "hot_all":
+        counts.fill_(cap)
+    if case in ("hot", "hot_all"):
         keys = torch.full((n, n, cap), 7, dtype=torch.int32, device=dev)
     elif case == "domain_ends":
         ends = torch.tensor([-DOMAIN_MAX, -DOMAIN_MAX + 1, 0, DOMAIN_MAX - 1,
@@ -1777,6 +1865,9 @@ def pull_buckets(n: int, cap: int, case: str, gen: torch.Generator,
     else:
         keys = torch.randint(-DOMAIN_MAX, DOMAIN_MAX + 1, (n, n, cap),
                              generator=gen, device=dev).to(torch.int32)
+        if case == "hot_between":
+            hot = torch.rand((n, n, cap), generator=gen, device=dev) < 0.5
+            keys = torch.where(hot, 7, keys).to(torch.int32)
     lane = torch.arange(cap, device=dev)
     keys = torch.where(lane < counts[..., None], keys, KEY_INF)
     return (keys.sort(dim=2).values.reshape(n, n * cap).contiguous(),
@@ -1835,6 +1926,26 @@ def phase_pull_kernels(dev: torch.device, times: Timings, buckets,
                 check_pull(f"n={n} cap={PULL_CAP} chunk={chunk} {case}",
                            mesh, bflat, rcounts, PULL_CAP, chunk,
                            (*PULL_WINDOWS, total))
+    # the merge tile's edges: strips of 4,095, 4,096, 4,097 and 12,295
+    # keys (each alone, and mixed); hot keys over many tiles and every
+    # strip; n = 32 and 64 shards (a warp's lanes cover 1 and 2 strips)
+    for n, pcap, pchunk, case, lens in (
+            *((8, PULL_EDGE_CAP, 4096, "uniform", [ln])
+              for ln in PULL_EDGE_LENS),
+            (8, PULL_EDGE_CAP, 1024, "uniform", list(PULL_EDGE_LENS)),
+            (16, PULL_EDGE_CAP, 4096, "domain_ends", list(PULL_EDGE_LENS)),
+            (8, PULL_EDGE_CAP, 4096, "hot_all", None),
+            (8, PULL_EDGE_CAP, 2048, "hot_between", None),
+            (32, 4096, 1024, "uniform", None),
+            (64, 4096, 1024, "uniform", None),
+            (64, 4096, 2048, "hot_between", None),
+            (64, 2048, 2048, "hot_all", None)):
+        mesh = make_mesh(n, dev)
+        bflat, counts = pull_buckets(n, pcap, case, gen, dev, lens)
+        rcounts = mesh.all_to_all(counts)
+        check_pull(f"n={n} cap={pcap} chunk={pchunk} {case}"
+                   f"{f' lens {lens}' if lens else ''}", mesh, bflat,
+                   rcounts, pcap, pchunk, (1, 8, n * (pcap // pchunk)))
     del bflat, counts, rcounts
 
     W = DIST_SHARDS
@@ -1864,6 +1975,16 @@ def phase_pull_kernels(dev: torch.device, times: Timings, buckets,
         mesh, bflat, rcounts, cap, chunk))
     landing = mesh.all_to_all(bflat)
     library = time_ms(lambda: torch.sort(landing, dim=1))
+    # the merge alone: every flag set before the launch, no push
+    K = rf._checked_pull(mesh, bflat, rcounts, cap, chunk, None)
+    full = rf.remote_pull_exchange_merge(mesh, bflat, rcounts, cap, chunk)
+    only = rf._pull_launch(mesh, bflat, rcounts, cap, chunk, K,
+                           landing=full[3])
+    if not all(torch.equal(a, b) for a, b in zip(only, full)):
+        raise AssertionError("K11 merge-only launch != full launch")
+    merge_ms = time_ms(lambda: rf._pull_launch(mesh, bflat, rcounts, cap,
+                                               chunk, K, landing=full[3]))
+    del full, only
     arrive = np.zeros((W, cap // chunk), np.int32)
     t_a2a = time_ms(lambda: mesh.all_to_all(bflat))
     t_merge = time_ms(lambda: [rf.chunk_gated_merge(
@@ -1876,7 +1997,9 @@ def phase_pull_kernels(dev: torch.device, times: Timings, buckets,
               live * math.log2(W))
     log(f"[time] K11 R over {W} shards ({W} x {W} strips of {cap}, {live} "
         f"live keys, chunk {chunk}, window {rf.push_window()}): "
-        f"{times.entry('K11')}; bulk composite: all-to-all {t_a2a:.3f} ms + "
+        f"{times.entry('K11')}; of it the merge alone (flags set, no "
+        f"push) {merge_ms:.3f} ms, the pushes and their waits "
+        f"{ms - merge_ms:.3f} ms; bulk composite: all-to-all {t_a2a:.3f} ms + "
         f"K9 x {W} {t_merge:.3f} ms = {t_a2a + t_merge:.3f} ms; one-card "
         f"copy/merge overlap (t_a2a + t_merge - t_K11) / t_a2a = "
         f"{(t_a2a + t_merge - ms) / t_a2a:.3f} (one card, no interconnect)")
@@ -2016,40 +2139,54 @@ def phase_dist_small(dev: torch.device) -> dict[str, int]:
     return total
 
 
+def timed(name: str, fn, *args):
+    """fn(*args), its wall time printed as a [phase] line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
+    timed("build", phase_build)
     times = Timings()
-    phase_kernels(dev, times)
-    phase_pair_kernels(dev, times)
-    phase_path_shapes(dev)
-    phase_pair_merge_kernels(dev, times)
-    phase_merge_edges(dev)
-    phase_hist_kernels(dev, times)
-    phase_count2_kernel(dev, times)
-    buckets, cap = phase_dist_kernels(dev, times)
-    phase_k11_sass()
-    phase_merge_resources()
-    phase_pull_kernels(dev, times, buckets, cap)
+    timed("kernels", phase_kernels, dev, times)
+    timed("pair kernels", phase_pair_kernels, dev, times)
+    timed("path shapes", phase_path_shapes, dev)
+    timed("pair merge kernels", phase_pair_merge_kernels, dev, times)
+    timed("merge edges", phase_merge_edges, dev)
+    timed("hist kernels", phase_hist_kernels, dev, times)
+    timed("count2 kernel", phase_count2_kernel, dev, times)
+    buckets, cap = timed("dist kernels", phase_dist_kernels, dev, times)
+    timed("k11 sass", phase_k11_sass)
+    timed("resources", phase_merge_resources)
+    timed("pull kernels", phase_pull_kernels, dev, times, buckets, cap)
     del buckets
     total = {k: 0 for k in KERNELS}
-    for counts in [*(phase_path(p) for p in PATHS), phase_pair_sort(dev),
-                   phase_materialize_in_process(dev),
-                   phase_count2_route(dev), phase_partitioning(),
-                   phase_benches(), phase_dist_cli([], MAIN_N),
-                   phase_dist_cli(["-S", "RING"], DIST_SMALL_N),
-                   phase_dist_cli(["-S", "RANDOM"], DIST_SMALL_N),
-                   phase_dist_emulate(dev), phase_dist_dma(dev),
-                   phase_dist_small(dev),
-                   phase_dist_cli(["-z", "1.0"], DIST_SMALL_N)]:
-        for k, v in counts.items():
+    for name, fn, *args in [
+            *((p, phase_path, p) for p in PATHS),
+            ("pair sort", phase_pair_sort, dev),
+            ("materialize in process", phase_materialize_in_process, dev),
+            ("count2 route", phase_count2_route, dev),
+            ("partitioning", phase_partitioning),
+            ("benches", phase_benches),
+            ("-n 8", phase_dist_cli, [], MAIN_N),
+            ("-n 8 -S RING", phase_dist_cli, ["-S", "RING"], DIST_SMALL_N),
+            ("-n 8 -S RANDOM", phase_dist_cli, ["-S", "RANDOM"],
+             DIST_SMALL_N),
+            ("dist emulate", phase_dist_emulate, dev),
+            ("dist dma", phase_dist_dma, dev),
+            ("dist small", phase_dist_small, dev),
+            ("-n 8 -z 1.0", phase_dist_cli, ["-z", "1.0"], DIST_SMALL_N)]:
+        for k, v in timed(name, fn, *args).items():
             total[k] += v
-    phase_persist(dev)
-    phase_key8b_scalar()
-    phase_nonunique(dev)
-    phase_zipf(dev)
+    timed("persist", phase_persist, dev)
+    timed("key8b scalarsort", phase_key8b_scalar)
+    timed("non-unique", phase_nonunique, dev)
+    timed("zipf", phase_zipf, dev)
     src = "avx_sort_merge_joins_tpu_torch/csrc/"
     ref = "avx_sort_merge_joins_tpu/"
     kernels = [{"name": name, "route": "cuda", "source": src + f,

@@ -45,6 +45,38 @@ def test_block_sort_kernel_equals_plain(cuda, n, block):
     assert torch.equal(got, tsort.sort_blocks_plain(keys, n, block))
 
 
+def _edge_keys(kind, n, seed):
+    """Inputs at the bitonic network's edges."""
+    rng = np.random.default_rng(seed)
+    dmax = 2**31 - 2
+    if kind == "sorted":
+        keys = np.sort(rng.integers(-dmax, dmax + 1, n))
+    elif kind == "reversed":
+        keys = np.sort(rng.integers(-dmax, dmax + 1, n))[::-1]
+    elif kind == "equal":
+        keys = np.full(n, -3)
+    elif kind == "16_values":
+        keys = rng.integers(0, 16, n)
+    else:  # the two ends of the key domain
+        keys = rng.choice(np.array([-dmax, dmax]), n)
+    return torch.from_numpy(np.ascontiguousarray(keys).astype(np.int32))
+
+
+@pytest.mark.parametrize("rel", [-1, 0, 1, "zero"])
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "equal", "16_values",
+                                  "domain_ends"])
+@pytest.mark.parametrize("block", tsort.SUPPORTED_BLOCKS)
+def test_block_sort_kernel_edges(cuda, block, kind, rel):
+    """K1 at every block size on sorted, reversed, all-equal, 16-value and
+    domain-end keys, at n = block - 1, block, block + 1 and 0: the same
+    blocks and pads as its plain version."""
+    n = 0 if rel == "zero" else block + rel
+    keys = _edge_keys(kind, block + 1, block + len(kind)).to(cuda)
+    got = tsort.sort_blocks(keys, n, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tsort.sort_blocks_plain(keys, n, block))
+
+
 @pytest.mark.parametrize("n,span,fanin", [
     (1, 1024, 2), (5000, 1024, 4), (70_001, 1024, 16), (70_001, 2048, 2),
     (300_000, 16384, 16)])
@@ -509,7 +541,7 @@ def test_varlen_multiway_merge_kernel_equals_plain(cuda, fanin, stride):
     assert torch.equal(got, want) and torch.equal(glens, wlens)
 
 
-MERGE_TILE = 4096  # outputs a merge tile of csrc/multiway_merge.cu
+MERGE_TILE = 4096  # outputs a merge tile of csrc/merge_path.cuh
 INF32 = 2**31 - 1
 
 
@@ -689,6 +721,81 @@ def test_remote_pull_kernel_equals_plain(cuda, n, cap, chunk, case):
         for g, w in zip(got, want):
             assert torch.equal(g, w), window
         assert torch.equal(got[1], waits) and int(got[2].sum()) == 0
+
+
+def _pull_equals_plain(cuda, n, cap, chunk, bflat, counts, windows):
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, cuda)
+    bflat, counts = bflat.to(cuda), counts.to(cuda)
+    rcounts = mesh.all_to_all(counts)
+    want = trf.remote_pull_exchange_merge_plain(mesh, bflat, rcounts, cap,
+                                                chunk)
+    for window in windows:
+        got = trf.remote_pull_exchange_merge(mesh, bflat, rcounts, cap, chunk,
+                                             window=window)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), window
+        assert torch.equal(got[1], (rcounts + chunk - 1) // chunk)
+        assert int(got[2].sum()) == 0
+
+
+@pytest.mark.parametrize("lens", [[MERGE_TILE - 1], [MERGE_TILE],
+                                  [MERGE_TILE + 1], [3 * MERGE_TILE + 7],
+                                  [MERGE_TILE - 1, MERGE_TILE,
+                                   MERGE_TILE + 1, 3 * MERGE_TILE + 7]])
+@pytest.mark.parametrize("n", [2, 8])
+def test_remote_pull_kernel_tile_edges(cuda, n, lens):
+    """K11 with strips of 4,095, 4,096, 4,097 and 12,295 keys (each alone
+    and mixed): the merge tile's boundaries fall on and beside the strips'
+    ends; windows 1 and every push in flight."""
+    cap, chunk = 16384, 4096
+    rng = np.random.default_rng(n * 7 + len(lens))
+    counts = rng.choice(np.array(lens), (n, n)).astype(np.int32)
+    bflat = np.full((n, n * cap), 2**31 - 1, np.int32)
+    for me in range(n):
+        for d in range(n):
+            c = counts[me, d]
+            bflat[me, d * cap:d * cap + c] = np.sort(
+                rng.integers(-(2**31 - 2), 2**31 - 1, c))
+    _pull_equals_plain(cuda, n, cap, chunk, torch.from_numpy(bflat),
+                       torch.from_numpy(counts), (1, n * cap // chunk))
+
+
+@pytest.mark.parametrize("n,cap,chunk", [(4, 16384, 2048), (8, 8192, 1024)])
+@pytest.mark.parametrize("between", [False, True])
+def test_remote_pull_kernel_hot_key_over_tiles(cuda, n, cap, chunk, between):
+    """K11 with one key in every bucket of every shard, over many tiles
+    and every strip: alone (all full), or half of each bucket's keys
+    between uniform ones."""
+    rng = np.random.default_rng(n + between)
+    counts = (rng.integers(cap // 2, cap + 1, (n, n)) if between
+              else np.full((n, n), cap)).astype(np.int32)
+    bflat = np.full((n, n * cap), 2**31 - 1, np.int32)
+    for me in range(n):
+        for d in range(n):
+            c = counts[me, d]
+            keys = np.full(c, 7)
+            if between:
+                keys = np.where(rng.random(c) < 0.5, 7,
+                                rng.integers(-10**6, 10**6, c))
+            bflat[me, d * cap:d * cap + c] = np.sort(keys)
+    _pull_equals_plain(cuda, n, cap, chunk, torch.from_numpy(bflat),
+                       torch.from_numpy(counts), (1, n * cap // chunk))
+
+
+@pytest.mark.parametrize("case", ["uniform", "hot", "empty"])
+@pytest.mark.parametrize("n", [32, 64])
+def test_remote_pull_kernel_many_shards(cuda, n, case):
+    """K11 on 32 and 64 shards (a co-rank lane covers one and two strips,
+    one probe a round), small strips, windows 1 and every push in
+    flight."""
+    cap, chunk = 2048, 1024
+    bflat, counts = _buckets(n, cap, case, n + len(case))
+    _pull_equals_plain(cuda, n, cap, chunk, bflat, counts,
+                       (1, n * cap // chunk))
 
 
 def test_remote_pull_kernel_refuses_an_undersized_strip(cuda):

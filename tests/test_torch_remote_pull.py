@@ -101,16 +101,47 @@ def test_plain_landing_is_the_all_to_all(n, cap, chunk, case):
                    zip(again, (merged, waited, viol, landing)))
 
 
-def test_plain_merge_equals_jax_chunk_gated_merge():
+TILE = 4096  # output keys a merge tile of the port's K11 (and K2)
+EDGE_LENS = (TILE - 1, TILE, TILE + 1, 3 * TILE + 7)  # the tile's edges
+
+
+@pytest.mark.parametrize("case", ["uniform", "tile_edges", "hot"])
+def test_plain_merge_equals_jax_chunk_gated_merge(case):
     """Two shards' merged columns against JAX's chunk-gated merge of the
-    same landing under all-zero arrivals (Pallas interpret mode), at
-    tests/test_remote_fifo.py's size: strips of 32 rows of 128, chunks of
-    1,024 keys, 4 strips; the waits and flags too."""
-    n, tile_rows, stride_rows, chunk = 4, 8, 32, 1024
+    same landing under all-zero arrivals (Pallas interpret mode), the
+    waits and flags too.  "uniform": tests/test_remote_fifo.py's size,
+    strips of 32 rows of 128, chunks of 1,024 keys, 4 strips, one empty.
+    "tile_edges": strips of 4,095, 4,096, 4,097 and 12,295 keys, where the
+    kernel's merge tiles of 4,096 outputs have their edges; "hot": one key
+    filling every strip of one shard, and half of each strip of the other
+    between uniform keys.  Both on strips of 128 rows, chunks of 4,096, so
+    that they share one JAX program."""
+    n, tile_rows = 4, 8
+    stride_rows, chunk = (32, 1024) if case == "uniform" else (128, 4096)
     cap = stride_rows * LANES
     mesh = make_mesh(n, "cpu")
     bflat, counts = _buckets(n, cap, "uniform", 11)
-    counts[0, 1] = 0  # shard 1 gets an empty strip
+    if case == "uniform":
+        counts[0, 1] = 0  # shard 1 gets an empty strip
+    elif case == "tile_edges":
+        for me in range(n):
+            for d in (1, 3):  # shard d's strips: every edge length once
+                ln = EDGE_LENS[(me + d) % n]
+                counts[me, d] = ln
+                bflat[me, d * cap:(d + 1) * cap] = INF
+                bflat[me, d * cap:d * cap + ln] = torch.from_numpy(np.sort(
+                    np.random.default_rng(me * n + d).integers(
+                        -DMAX, DMAX + 1, ln)).astype(np.int32))
+    else:  # hot
+        rng = np.random.default_rng(7)
+        for me in range(n):
+            counts[me, 1] = cap  # shard 1: one key everywhere
+            bflat[me, cap:2 * cap] = 7
+            ln = int(counts[me, 3])  # shard 3: half its keys are 7
+            keys = np.where(rng.random(ln) < 0.5, 7,
+                            rng.integers(-10**6, 10**6, ln))
+            bflat[me, 3 * cap:3 * cap + ln] = torch.from_numpy(
+                np.sort(keys).astype(np.int32))
     rcounts = mesh.all_to_all(counts)
     merged, waited, viol, landing = trf.remote_pull_exchange_merge(
         mesh, bflat, rcounts, cap, chunk)
@@ -126,6 +157,8 @@ def test_plain_merge_equals_jax_chunk_gated_merge():
                                       np.asarray(jm).reshape(-1)[:total])
         assert waited[d].tolist() == np.asarray(jw).tolist()
         assert int(viol[d]) == int(jv) == 0
+    if case == "tile_edges":
+        assert sorted(rcounts[1].tolist()) == sorted(EDGE_LENS)
 
 
 @pytest.mark.parametrize("n,cap,chunk", [(8, 81_920 * 3, 81_920),

@@ -61,12 +61,37 @@ def test_sort_blocks_matches_jax_ascending_kernel():
                                   np.asarray(want).reshape(-1))
 
 
+def _edge_keys(kind, n, seed):
+    """Inputs at the edges of K1's bitonic network."""
+    rng = np.random.default_rng(seed)
+    if kind == "sorted":
+        return np.sort(_keys("uniform", n, seed))
+    if kind == "reversed":
+        return np.sort(_keys("uniform", n, seed))[::-1].copy()
+    if kind == "equal":
+        return np.full(n, -3, np.int32)
+    if kind == "16_values":
+        return rng.integers(0, 16, n).astype(np.int32)
+    if kind == "domain_ends":
+        return rng.choice(np.array([-(2**31 - 2), 2**31 - 2], np.int32), n)
+    return _keys("uniform", n, seed)
+
+
+@pytest.mark.parametrize("rel", ["ragged", -1, 0, 1, "zero"])
+@pytest.mark.parametrize("kind", ["uniform", "sorted", "reversed", "equal",
+                                  "16_values", "domain_ends"])
 @pytest.mark.parametrize("block", tsort.SUPPORTED_BLOCKS)
-def test_sort_blocks_against_numpy(block):
-    n = 3 * block + 77
-    keys = _keys("uniform", n, seed=block)
+def test_sort_blocks_against_numpy(block, kind, rel):
+    """Every block size on uniform keys and at the network's edges
+    (sorted, reversed, all equal, 16 values, the domain's ends), at n =
+    3 block + 77, block - 1, block, block + 1 and 0."""
+    n = {"ragged": 3 * block + 77, "zero": 0}.get(rel)
+    n = block + rel if n is None else n
+    keys = _edge_keys(kind, max(n, 1), seed=block)
     got = tsort.sort_blocks(torch.from_numpy(keys), n, block).numpy()
-    padded = np.concatenate([keys, np.full(4 * block - n, INF, np.int32)])
+    nblocks = max(1, -(-n // block))
+    padded = np.concatenate([keys[:n],
+                             np.full(nblocks * block - n, INF, np.int32)])
     np.testing.assert_array_equal(
         got, np.sort(padded.reshape(-1, block), axis=1).reshape(-1))
 
