@@ -21,9 +21,12 @@
 // elements with 16-byte accesses, straight from and to device memory.
 //
 // Every register index is a constant after unrolling (the templates
-// below), so the elements never go to local memory.  E is int for K1; the
-// network is written for any ordered type that __shfl_xor_sync takes
-// (long long for the packed pairs of K5).
+// below), so the elements never go to local memory.  E is int for K1 and
+// long long for the packed pairs of K5 (a 64-bit shuffle is two 32-bit
+// ones; with 8-byte elements a half-warp's accesses t * (kPer + 1) + e
+// cover all 32 banks, so the shared stages stay free of conflicts).  K1
+// runs sort_tile; K5 loads its two int32 planes itself, packs them in
+// registers and runs sort_regs.
 #pragma once
 
 #include "smj_common.cuh"
@@ -199,19 +202,27 @@ __device__ __forceinline__ void store_own(E* out, const E (&x)[kPer]) {
   }
 }
 
+// The network: sorts the kSize elements that the tile's kSize / kPer
+// threads hold, kPer each, ascending into the same places (thread t ends
+// with the elements of ranks [t * kPer, (t + 1) * kPer)).  tile: shared
+// memory of tile_slots<kPer>(kSize) elements.  Every stage is unrolled:
+// its stride, its route and which threads keep the minima are constants.
+template <typename E, int kPer, int kSize>
+__device__ __forceinline__ void sort_regs(E (&x)[kPer], E* tile) {
+  reg_phases<E, kPer, 2>(x);
+  cross_phases<E, kPer, kSize, 2 * kPer>(x, tile);
+}
+
 // Sorts tile blockIdx.x, elements [b * kSize, (b + 1) * kSize) of in[0,
 // n), ascending into the same slots of out, `pad` in the slots past n,
-// with kSize / kPer threads.  tile: shared memory of
-// tile_slots<kPer>(kSize) elements.  Every stage is unrolled: its stride,
-// its route and which threads keep the minima are constants.
+// with kSize / kPer threads: load_own, sort_regs, store_own.
 template <typename E, int kPer, int kSize>
 __device__ __forceinline__ void sort_tile(const E* in, E* out, long long n,
                                           E pad, E* tile) {
   const long long base = (long long)blockIdx.x * kSize;
   E x[kPer];
   load_own<E, kPer>(in + base, n - base, pad, x);
-  reg_phases<E, kPer, 2>(x);
-  cross_phases<E, kPer, kSize, 2 * kPer>(x, tile);
+  sort_regs<E, kPer, kSize>(x, tile);
   store_own<E, kPer>(out + base, x);
 }
 

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "smj_block_sort": (_P, _P, _L, _I, _I, _P),
     "smj_block_sort_occupancy": (_I, _IP),
     "smj_block_sort_pairs": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "smj_block_sort_pairs_occupancy": (_I, _IP),
     "smj_multiway_merge": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P),
     "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
                                   _I, _P),

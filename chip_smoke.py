@@ -14,12 +14,18 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    2^31 -- must equal their plain PyTorch versions exactly (integers:
    tolerance 0); K1 also at the edges of its network (sorted, reversed,
    all-equal, 16-value and domain-end keys at n = block - 1, block, block
-   + 1 and 0).  Then each kernel, its plain version
+   + 1 and 0); K3 also at the edges of its merge-path tiles (a hot key
+   only in S over 100 tiles, non-unique R and S, nR + nS at a tile's and
+   a CTA's size - 1, + 0 and + 1, nR >> nS, nS >> nR, a side of length
+   1, keys at +-(2^31 - 2)).  Then each kernel, its plain version
    and its one-call library yardstick are timed with CUDA events at the
    main path's shapes (128M keys); each K2 level also in its parts: the
    co-rank passes (and the coarse one alone) and the tile merge.
 4. Kernel vs plain, pairs and merge passes, exact: K5 (pair block sort)
-   in both directions at blocks 1,024 and 16,384; K4 (merge pass) keys
+   in both directions at every block size, and at its network's edges
+   (sorted and reversed keys, equal keys with distinct payloads, equal
+   pairs, keys and payloads at their domains' ends, at n = block - 1,
+   block, block + 1 and 0); K4 (merge pass) keys
    only over two successive passes (257 -> 129 -> 65 runs: odd counts, a
    ragged last run), and in pair mode in both directions with duplicate
    keys and payloads and payloads equal to the pads.  Then all 13 K4
@@ -27,9 +33,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    beside their plain versions and library yardsticks.
 5. Kernel vs plain, exact, at the other shapes the paths of phases 6-7
    give the kernels: one 32M mpsm S chunk (K1; K2 at each of its levels,
-   fan-in 16, 16, 8; K3 of 128M R against it), and the 16M pair inputs of
-   phase 7 (K5 and every K4 pair-mode pass of ``sort`` and
-   ``sort_descending``, and the tag-merge count's two-run K4 merges).
+   fan-in 16, 16, 8; K3 of 128M R against it, also timed), and the 16M
+   pair inputs of phase 7 (K5 and every K4 pair-mode pass of ``sort``
+   and ``sort_descending``, and the tag-merge count's two-run K4 merges).
 6. Join paths, each through the CLI with the launch counts set to 0 just
    before it and read just after: ``-a m-way``, ``-a m-pass`` and ``-a
    mpsm --nchunks 4`` at -r 128000000 -s 128000000 (unique R,
@@ -100,7 +106,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    K9 at W = 2, 4, 16 with an empty strip and one chunk a strip; the
    varlen K2 at fan-in 2, 4, 16 with ragged and empty runs; K1 and K2 at
    one shard's 16M shapes.  K9 timed beside its plain version and
-   torch.sort of the landing column, and the ungated varlen K2 on it.
+   torch.sort of the landing column, and the ungated varlen K2 on it; K3
+   of the two merged columns timed.
 18. The distributed m-way paths, each with the launch counts set to 0 just
    before it and read just after: ``-a m-way -n 8`` at 128M x 128M and
    with ``-S RING``, ``-S RANDOM`` and ``-z 1.0`` at 16M x 16M through the
@@ -115,9 +122,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    Its registers (cuobjdump -res-usage): at most 40, the six CTAs an SM
    its launch bounds ask for; its CTAs an SM at 2 to 256 shards, printed.
    The registers, stack and static shared memory of K2's and K6's co-rank
-   and tile-merge kernels, printed; K1's registers, local memory, stack
-   and CTAs an SM at each block size: a K1 with local memory or stack (its
-   keys live in registers) fails the run.
+   and tile-merge kernels, printed; K1's and K5's registers, local
+   memory, stack and CTAs an SM at each block size: a K1 or K5 with local
+   memory or stack (their keys and pairs live in registers) fails the
+   run.
 20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
    shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
    slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
@@ -237,6 +245,8 @@ PULL_EDGE_LENS = (MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1,
                   3 * MERGE_TILE + 7)  # strip lengths at the tile's edges
 PULL_EDGE_CAP = 16_384
 COUNT2_SPAN = 67_108_864  # run 0 of each side on the 128M two-run route
+K3_TILE = 1920  # merged elements a tile of K3 (csrc/merge_join_count.cu)
+K3_CTA = 8 * K3_TILE  # merged elements a CTA of K3
 BENCHES = [  # (module, argv): each once at its JAX defaults
     ("sortbench", ["16", "multiway"]), ("sortbench", ["16", "keysonly"]),
     ("sortbench", ["16", "pairwise"]),
@@ -406,6 +416,41 @@ def merge_parts_ms(runs: torch.Tensor, pays, n: int, level) -> dict:
     return {"corank": part(1 | 2), "coarse": part(1), "merge": part(4)}
 
 
+def k3_cases(rng: np.random.Generator,
+             dev: torch.device) -> dict[str, tuple]:
+    """Sorted (R, S) inputs at the edges of K3's merge-path tiles: a hot
+    key only in S over about 100 tiles, non-unique R and S, nR + nS at a
+    tile's and a CTA's size - 1, + 0 and + 1, nR >> nS and nS >> nR, a
+    side of length 1 and keys at both ends of the domain."""
+    def col(a):
+        return torch.sort(torch.from_numpy(
+            np.asarray(a).astype(np.int32)).to(dev)).values
+
+    hot = 100 * K3_TILE
+    cases = {
+        "hot key only in S over 100 tiles": (
+            col(np.arange(0, 4000, 2)),
+            col(np.r_[np.full(hot, 1000), rng.integers(0, 4000, 5000)])),
+        "non-unique R and S": (col(rng.integers(0, 1000, 300_000)),
+                               col(rng.integers(0, 1000, 200_000))),
+        "nR >> nS": (col(rng.integers(0, 1 << 22, 3_000_000)),
+                     col(rng.integers(0, 1 << 22, 100))),
+        "nS >> nR": (col(rng.integers(0, 1 << 22, 100)),
+                     col(rng.integers(0, 1 << 22, 3_000_000))),
+        "R of length 1": (col([123]), col(rng.integers(0, 200, 100_000))),
+        "S of length 1": (col(rng.integers(0, 200, 100_000)), col([123])),
+        "domain ends": (col(rng.choice([-DOMAIN_MAX, DOMAIN_MAX], 50_000)),
+                        col(rng.choice([-DOMAIN_MAX, DOMAIN_MAX], 70_000))),
+    }
+    for size in (K3_TILE, K3_CTA):
+        for n in (size - 1, size, size + 1):
+            for nr in (1, n // 2, n - 1):
+                cases[f"nR + nS = {n}, nR = {nr}"] = (
+                    col(rng.integers(0, 50, nr)),
+                    col(rng.integers(0, 50, n - nr)))
+    return cases
+
+
 def phase_kernels(dev: torch.device, times: Timings) -> None:
     """Exactness of K1/K2/K3 against their plain versions; then their
     times at the main path's shapes."""
@@ -460,6 +505,10 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
         hot, hot, 1 << 16, 1 << 16))
     if int(got) != 1 << 32:
         raise AssertionError(f"K3 hot key: {int(got)} != 2^32")
+    for case, (rk, sk) in k3_cases(rng, dev).items():
+        nr, ns = rk.numel(), sk.numel()
+        record("K3", case, mergejoin.merge_join_count_fused(rk, sk, nr, ns),
+               mergejoin.merge_join_count_fused_plain(rk, sk, nr, ns))
 
     # times at the main path's shapes: one 128M relation
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -520,6 +569,25 @@ def seeded_pairs(n: int, rng: np.random.Generator, keys: np.ndarray):
     return keys.astype(np.int32), pays
 
 
+def k5_edge_cases(n: int, rng: np.random.Generator,
+                  dev: torch.device) -> dict[str, tuple]:
+    """(key, payload) inputs at the bitonic network's edges: keys sorted or
+    reversed, all keys equal with distinct payloads, all pairs equal, and
+    keys and payloads at the two ends of their domains."""
+    keys = np.sort(rng.integers(-DOMAIN_MAX, DOMAIN_MAX + 1, n))
+    pays = rng.integers(-2**31, 2**31, n)
+    ends = np.array([-(2**31), -DOMAIN_MAX, DOMAIN_MAX, 2**31 - 1])
+    cases = {
+        "sorted": (keys, pays),
+        "reversed": (keys[::-1], pays),
+        "equal keys": (np.full(n, 5), rng.permutation(n) - n // 2),
+        "equal pairs": (np.full(n, 5), np.full(n, -9)),
+        "domain ends": (rng.choice(ends[1:3], n), rng.choice(ends, n)),
+    }
+    return {c: tuple(torch.from_numpy(np.ascontiguousarray(a).astype(
+        np.int32)).to(dev) for a in kp) for c, kp in cases.items()}
+
+
 def phase_pair_kernels(dev: torch.device, times: Timings) -> None:
     """Exactness of K5 and K4 against their plain versions; then K4's 13
     passes over a 128M relation and one 128M K5 launch, timed."""
@@ -531,7 +599,7 @@ def phase_pair_kernels(dev: torch.device, times: Timings) -> None:
                 for a in seeded_pairs(CHECK_N, rng, host))
         n = CHECK_N
         for desc in (False, True):
-            for block in (1024, 16384):
+            for block in sort_ops.SUPPORTED_BLOCKS:
                 record("K5", f"{case} block={block} descending={desc}",
                        sort_ops.sort_blocks_pairs(k, p, n, block, desc),
                        sort_ops.sort_blocks_pairs_plain(k, p, n, block,
@@ -552,6 +620,18 @@ def phase_pair_kernels(dev: torch.device, times: Timings) -> None:
                 record("K4", f"{case} pairs descending={desc} span={span}",
                        sort_ops.merge_pass(rk, rp, lens, desc), want)
                 rk, rp = want
+
+    for block in sort_ops.SUPPORTED_BLOCKS:
+        got, want = [], []
+        for k, p in k5_edge_cases(block + 1, rng, dev).values():
+            for n in (block - 1, block, block + 1, 0):
+                for desc in (False, True):
+                    got += sort_ops.sort_blocks_pairs(k, p, n, block, desc)
+                    want += sort_ops.sort_blocks_pairs_plain(k, p, n, block,
+                                                             desc)
+        record("K5", f"edges block={block}: sorted, reversed, equal keys, "
+               f"equal pairs, domain ends at n = block - 1, block, block + "
+               f"1, 0, both directions", tuple(got), tuple(want))
 
     # all 13 K4 passes over one 128M relation, each pass timed
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -615,6 +695,19 @@ def pair_inputs(dev: torch.device):
     return keys, pays, rk, sk
 
 
+def log_k3_time(shape: str, rk: torch.Tensor, sk: torch.Tensor, nr: int,
+                ns: int) -> None:
+    """K3 and its plain version timed at one more shape of the paths,
+    printed (the kernels line keeps the main shape's time)."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+
+    ms = time_ms(lambda: mergejoin.merge_join_count_fused(rk, sk, nr, ns))
+    plain = time_ms(lambda: mergejoin.merge_join_count_fused_plain(
+        rk, sk, nr, ns))
+    log(f"[time] K3 count {nr} x {ns} ({shape}): kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {bound_ms(4 * (nr + ns), 2 * nr)[0]:.3f} ms")
+
+
 def phase_path_shapes(dev: torch.device) -> None:
     """Each kernel against its plain version at the shapes the mpsm path
     and the pair phase give it, beyond phases 3-4's 128M relation."""
@@ -642,6 +735,7 @@ def phase_path_shapes(dev: torch.device) -> None:
     record("K3", f"mpsm {MAIN_N} x {chunk}",
            mergejoin.merge_join_count_fused(rk, runs, MAIN_N, chunk),
            mergejoin.merge_join_count_fused_plain(rk, runs, MAIN_N, chunk))
+    log_k3_time("an mpsm chunk", rk, runs, MAIN_N, chunk)
     del sk, runs, want, rk
 
     # the pair phase: K5 and each K4 pass of sort / sort_descending
@@ -1580,6 +1674,7 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
     record("K3", f"dist shard 0: {tr} x {ts}",
            mergejoin.merge_join_count_fused(mr, ms, tr, ts),
            mergejoin.merge_join_count_fused_plain(mr, ms, tr, ts))
+    log_k3_time("a shard of -n 8", mr, ms, tr, ts)
     del merged, mr, ms
 
     gen = torch.Generator(device=dev).manual_seed(37)
@@ -1788,7 +1883,8 @@ def phase_merge_resources() -> None:
     the tile merge's buffers and the co-rank windows are dynamic shared
     memory on top.  K1's registers, local memory and stack, and the CTAs
     an SM it keeps at each block size: its keys live in registers, and a
-    key array in local memory (LOCAL or STACK above 0) fails the run."""
+    key array in local memory (LOCAL or STACK above 0) fails the run.  The
+    same for K5, whose packed pairs live in registers too."""
     import ctypes
 
     from avx_sort_merge_joins_tpu_torch.kernels import _build
@@ -1829,6 +1925,24 @@ def phase_merge_resources() -> None:
         if "REG" not in res or int(res.get("LOCAL", 1)) or \
                 int(res.get("STACK", 1)):
             raise AssertionError(f"K1 at block {block} keeps keys in local "
+                                 f"memory: {res}")
+    k5 = {int(b): dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
+          for b, line in re.findall(
+              r"Function [^\n]*block_sort_pairs_kernelILi(\d+)E[^\n]*\n"
+              r"([^\n]*)", usage)}
+    for block in sort_ops.SUPPORTED_BLOCKS:
+        res = k5.get(block, {})
+        c = ctypes.c_int(0)
+        _build.check("smj_block_sort_pairs_occupancy",
+                     _build.library().smj_block_sort_pairs_occupancy(
+                         block, ctypes.byref(c)))
+        log(f"[sass] K5 block_sort_pairs_kernel<{block}>: REG "
+            f"{res.get('REG')}, LOCAL {res.get('LOCAL')}, STACK "
+            f"{res.get('STACK')}, SHARED {res.get('SHARED')}; {c.value} "
+            f"CTAs an SM")
+        if "REG" not in res or int(res.get("LOCAL", 1)) or \
+                int(res.get("STACK", 1)):
+            raise AssertionError(f"K5 at block {block} keeps pairs in local "
                                  f"memory: {res}")
 
 

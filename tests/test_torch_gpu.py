@@ -102,6 +102,64 @@ def test_count_kernel_equals_plain(cuda, nR, nS, width):
     assert int(got) == int(tmj.merge_join_count_fused_plain(rk, sk, nR, nS))
 
 
+K3_TILE = 1920  # merged elements a tile of csrc/merge_join_count.cu
+K3_CTA = 8 * K3_TILE  # merged elements a CTA
+
+
+def _k3_case(kind):
+    """Sorted (R, S) at the edges of K3's merge-path tiles."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    dmax = 2**31 - 2
+    if kind == "hot_key_2^16_x_2^16":
+        r = s = np.full(1 << 16, 7)
+    elif kind == "hot_key_in_S_over_100_tiles":
+        r = np.arange(0, 4000, 2)
+        s = np.r_[np.full(100 * K3_TILE, 1000), rng.integers(0, 4000, 500)]
+    elif kind == "non_unique_R_and_S":
+        r, s = rng.integers(0, 300, 40_000), rng.integers(0, 300, 30_000)
+    elif kind == "nR_much_larger":
+        r, s = rng.integers(0, 1 << 20, 500_000), rng.integers(0, 1 << 20, 50)
+    elif kind == "nS_much_larger":
+        r, s = rng.integers(0, 1 << 20, 50), rng.integers(0, 1 << 20, 500_000)
+    elif kind == "R_of_length_1":
+        r, s = np.array([77]), rng.integers(0, 100, 9000)
+    elif kind == "S_of_length_1":
+        r, s = rng.integers(0, 100, 9000), np.array([77])
+    elif kind == "domain_ends":
+        r = rng.choice(np.array([-dmax, dmax]), 5000)
+        s = rng.choice(np.array([-dmax, dmax]), 7000)
+    elif kind == "no_matches":
+        r, s = 2 * np.arange(30_000), 2 * np.arange(20_000) + 1
+    else:  # "<tile|cta>_<delta>_<nR: 1, half, n - 1>"
+        size, delta, share = kind.split("_")
+        n = {"tile": K3_TILE, "cta": K3_CTA}[size] + int(delta)
+        nr = {"1": 1, "half": n // 2, "all": n - 1}[share]
+        r, s = rng.integers(0, 40, nr), rng.integers(0, 40, n - nr)
+    return (torch.sort(torch.from_numpy(np.asarray(r).astype(np.int32))
+                       ).values, torch.sort(torch.from_numpy(
+                           np.asarray(s).astype(np.int32))).values)
+
+
+@pytest.mark.parametrize("kind", [
+    "hot_key_2^16_x_2^16", "hot_key_in_S_over_100_tiles",
+    "non_unique_R_and_S", "nR_much_larger", "nS_much_larger",
+    "R_of_length_1", "S_of_length_1", "domain_ends", "no_matches",
+    *(f"{size}_{delta}_{share}" for size in ("tile", "cta")
+      for delta in (-1, 0, 1) for share in ("1", "half", "all"))])
+def test_count_kernel_at_tile_edges(cuda, kind):
+    """K3 exact where its merge-path tiles have their edges: hot keys over
+    many tiles, duplicates on both sides, lopsided sides, a side of one
+    key, the domain's ends, no match, and nR + nS at a tile's and a CTA's
+    size - 1, + 0 and + 1."""
+    rk, sk = (t.to(cuda) for t in _k3_case(kind))
+    before = tmj.LAUNCHES
+    got = tmj.merge_join_count_fused(rk, sk, rk.numel(), sk.numel())
+    torch.cuda.synchronize()
+    assert tmj.LAUNCHES == before + 1
+    assert int(got) == int(tmj.merge_join_count_fused_plain(
+        rk, sk, rk.numel(), sk.numel()))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     keys = torch.arange(4096, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):
@@ -152,6 +210,42 @@ def test_pair_block_sort_kernel_equals_plain(cuda, n, block, descending):
     got = tsort.sort_blocks_pairs(k, p, n, block, descending)
     torch.cuda.synchronize()
     assert tsort.PAIR_SORT_LAUNCHES == before + 1
+    want = tsort.sort_blocks_pairs_plain(k, p, n, block, descending)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _edge_pairs(kind, n, seed):
+    """(key, payload) inputs at the bitonic network's edges."""
+    rng = np.random.default_rng(seed)
+    pays = rng.integers(-(2**31), 2**31, n)
+    if kind == "equal_keys":  # distinct payloads
+        keys, pays = np.full(n, 5), rng.permutation(n) - n // 2
+    elif kind == "equal_pairs":
+        keys, pays = np.full(n, 5), np.full(n, -9)
+    elif kind == "domain_ends":
+        ends = np.array([-(2**31), -(2**31 - 2), 2**31 - 2, 2**31 - 1])
+        keys, pays = rng.choice(ends[1:3], n), rng.choice(ends, n)
+    else:
+        keys = _edge_keys(kind, n, seed).numpy()
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+                 for a in (keys, pays))
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("rel", [-1, 0, 1, "zero"])
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "equal_keys",
+                                  "equal_pairs", "domain_ends"])
+@pytest.mark.parametrize("block", tsort.SUPPORTED_BLOCKS)
+def test_pair_block_sort_kernel_edges(cuda, block, kind, rel, descending):
+    """K5 at every block size in both directions on sorted and reversed
+    keys, equal keys with distinct payloads, equal pairs and the domains'
+    ends, at n = block - 1, block, block + 1 and 0: the same blocks and
+    pads as its plain version."""
+    n = 0 if rel == "zero" else block + rel
+    pairs = _edge_pairs(kind, block + 1, block + len(kind))
+    k, p = (t.to(cuda) for t in pairs)
+    got = tsort.sort_blocks_pairs(k, p, n, block, descending)
+    torch.cuda.synchronize()
     want = tsort.sort_blocks_pairs_plain(k, p, n, block, descending)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 

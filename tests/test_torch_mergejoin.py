@@ -64,12 +64,21 @@ def _case(kind):
     if kind == "no_matches":
         return (2 * rng.integers(-5000, 5000, NR).astype(np.int32),
                 2 * rng.integers(-5000, 5000, NS).astype(np.int32) + 1)
+    if kind == "hot_key_in_S":
+        rk = rng.permutation(NR).astype(np.int32)
+        sk = np.full(NS, 1234, np.int32)
+        sk[::7] = rng.integers(0, 2 * NR, len(sk[::7]))
+        return rk, sk
+    if kind == "R_much_denser":
+        return (rng.integers(0, 60, NR).astype(np.int32),
+                rng.integers(0, 6000, NS).astype(np.int32))
     ends = np.array([-DMAX, -DMAX + 1, 0, DMAX - 1, DMAX], np.int32)
     return rng.choice(ends, NR), rng.choice(ends, NS)
 
 
 @pytest.mark.parametrize("kind", ["duplicates", "negative", "no_matches",
-                                  "domain_ends"])
+                                  "domain_ends", "hot_key_in_S",
+                                  "R_much_denser"])
 def test_count_matches_jax_fused_kernel(kind):
     rk, sk = _case(kind)
     want = jmj.merge_join_count_numpy(rk, sk)
@@ -87,6 +96,51 @@ def test_hot_key_past_the_limb_limit():
     with pytest.raises(jmj.CountLimbOverflow):
         _jax_count(rk, sk)
     assert _port_count(rk, sk) == jmj.merge_join_count_numpy(rk, sk) == 2**30
+
+
+K3_TILE = 1920  # merged elements a tile of csrc/merge_join_count.cu
+
+
+def _tile_edge_case(kind):
+    """(R, S) at the edges of K3's merge-path tiles."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "hot_key_in_S_over_100_tiles":
+        return (np.arange(0, 4000, 2, dtype=np.int32),
+                np.r_[np.full(100 * K3_TILE, 1000),
+                      rng.integers(0, 4000, 500)].astype(np.int32))
+    if kind == "non_unique_R_and_S":
+        return (rng.integers(0, 300, 20_000).astype(np.int32),
+                rng.integers(0, 300, 30_000).astype(np.int32))
+    if kind == "nR_much_larger":
+        return (rng.integers(0, 1 << 20, 200_000).astype(np.int32),
+                rng.integers(0, 1 << 20, 50).astype(np.int32))
+    if kind == "nS_much_larger":
+        return (rng.integers(0, 1 << 20, 50).astype(np.int32),
+                rng.integers(0, 1 << 20, 200_000).astype(np.int32))
+    if kind == "R_of_length_1":
+        return np.array([77], np.int32), rng.integers(0, 100, 9000).astype(
+            np.int32)
+    if kind == "S_of_length_1":
+        return rng.integers(0, 100, 9000).astype(np.int32), np.array(
+            [77], np.int32)
+    if kind == "domain_ends":
+        return (rng.choice(np.array([-DMAX, DMAX], np.int32), 5000),
+                rng.choice(np.array([-DMAX, DMAX], np.int32), 7000))
+    n = K3_TILE + int(kind.split("_")[-1])  # "tile_size_plus_<d>"
+    nr = n // 3
+    return (rng.integers(0, 40, nr).astype(np.int32),
+            rng.integers(0, 40, n - nr).astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", [
+    "hot_key_in_S_over_100_tiles", "non_unique_R_and_S", "nR_much_larger",
+    "nS_much_larger", "R_of_length_1", "S_of_length_1", "domain_ends",
+    "tile_size_plus_-1", "tile_size_plus_0", "tile_size_plus_1"])
+def test_count_at_tile_edges_against_numpy(kind):
+    """The inputs K3's merge-path tiles must count exactly, through the
+    CPU path of its wrapper."""
+    rk, sk = _tile_edge_case(kind)
+    assert _port_count(rk, sk) == tmj.merge_join_count_numpy(rk, sk)
 
 
 def test_count_against_numpy_at_larger_n():

@@ -1,6 +1,7 @@
 """K1 block sort of the PyTorch port against the JAX package (Pallas in
-interpret mode, 8-row = 1,024-key blocks) and against numpy, on the CPU
-path of the wrapper (its plain PyTorch version)."""
+interpret mode, 8-row = 1,024-key blocks) and against numpy, and K5 (the
+pair block sort) against np.lexsort, on the CPU path of the wrappers
+(their plain PyTorch versions)."""
 
 import functools
 
@@ -94,6 +95,56 @@ def test_sort_blocks_against_numpy(block, kind, rel):
                              np.full(nblocks * block - n, INF, np.int32)])
     np.testing.assert_array_equal(
         got, np.sort(padded.reshape(-1, block), axis=1).reshape(-1))
+
+
+def _edge_pairs(kind, n, seed):
+    """(key, payload) inputs at the edges of K5's bitonic network."""
+    rng = np.random.default_rng(seed)
+    pays = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    if kind == "equal_keys":  # distinct payloads
+        return np.full(n, 5, np.int32), (rng.permutation(n) - n // 2).astype(
+            np.int32)
+    if kind == "equal_pairs":
+        return np.full(n, 5, np.int32), np.full(n, -9, np.int32)
+    if kind == "domain_ends":
+        ends = np.array([-(2**31), -(2**31 - 2), 2**31 - 2, 2**31 - 1],
+                        np.int32)
+        return rng.choice(ends[1:3], n), rng.choice(ends, n)
+    return _edge_keys(kind, n, seed), pays
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("rel", ["ragged", -1, 0, 1, "zero"])
+@pytest.mark.parametrize("kind", ["uniform", "sorted", "reversed",
+                                  "equal_keys", "equal_pairs",
+                                  "domain_ends"])
+@pytest.mark.parametrize("block", tsort.SUPPORTED_BLOCKS)
+def test_sort_blocks_pairs_against_numpy(block, kind, rel, descending):
+    """K5 at every block size in both directions, on uniform pairs and at
+    its network's edges (sorted, reversed, equal keys with distinct
+    payloads, equal pairs, keys and payloads at their domains' ends), at n
+    = 3 block + 77, block - 1, block, block + 1 and 0: each block holds its
+    pairs in np.lexsort order (reversed when descending), the pads
+    (INT32_MAX, INT32_MAX), or (INT32_MIN, INT32_MIN) descending, at the
+    end."""
+    n = {"ragged": 3 * block + 77, "zero": 0}.get(rel)
+    n = block + rel if n is None else n
+    keys, pays = _edge_pairs(kind, max(n, 1), seed=block + len(kind))
+    got_k, got_p = tsort.sort_blocks_pairs(torch.from_numpy(keys),
+                                           torch.from_numpy(pays), n, block,
+                                           descending)
+    fill = -(2**31) if descending else INF
+    nblocks = max(1, -(-n // block))
+    pad = np.full(nblocks * block - n, fill, np.int32)
+    k = np.concatenate([keys[:n], pad]).reshape(-1, block)
+    p = np.concatenate([pays[:n], pad]).reshape(-1, block)
+    order = np.stack([np.lexsort((pr, kr)) for kr, pr in zip(k, p)])
+    if descending:
+        order = order[:, ::-1]
+    np.testing.assert_array_equal(
+        got_k.numpy(), np.take_along_axis(k, order, 1).reshape(-1))
+    np.testing.assert_array_equal(
+        got_p.numpy(), np.take_along_axis(p, order, 1).reshape(-1))
 
 
 def test_sort_blocks_reads_only_the_live_prefix():
