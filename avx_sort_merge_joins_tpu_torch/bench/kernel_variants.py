@@ -1,12 +1,16 @@
-"""Design choices of K1 (block sort), K3 (match count), K5 (pair block
-sort) and K11 (remote-pull push and gated merge) of the PyTorch port,
-measured against each other on one NVIDIA GPU, from the root of a
-checkout (it takes chip_smoke.py's helpers):
+"""Design choices of K1 (block sort), K3 (match count), K4 (merge pass),
+K5 (pair block sort), K8 (radix histogram) and K11 (remote-pull push and
+gated merge) of the PyTorch port, measured against each other on one
+NVIDIA GPU, from the root of a checkout (it takes chip_smoke.py's
+helpers):
 
     python -m avx_sort_merge_joins_tpu_torch.bench.kernel_variants [k1 k3 ...]
 
-(the variants of the kernels named among k1, k3, k5, k11, default all;
-``final`` always runs).
+(the variants of the kernels named among k1, k3, k4, k5, k8, k11, default
+all; ``final`` always runs).  K4 is timed on 128M keys in one pass of
+span 16,384 and one of span 2^26, and on 128M pairs at span 16,384; K8 on
+128M keys at bits 7, 14 and 16, uniform and Zipf (z = 1.0 over 2^20
+values, drawn on the card), global and per tile.
 
 Each variant is a copy of the package in the checkout with one textual
 change to its CUDA sources, written under the gitignored csrc/build/variants/
@@ -36,6 +40,19 @@ and built there by the package's own builder:
   k3_part_*        timing only, their output is wrong: K3 making its
                    global searches and nothing else, or copying its tiles
                    and splitting them without walking them;
+  k4_part_*        timing only, their output is wrong: K4 making its tile
+                   boundaries' searches and nothing else, or loading and
+                   storing its tiles without merging them;
+  k4_lanes_32      K4 searching each tile boundary with 32 lanes (the
+                   committed K4: 4 lanes a boundary, 8 boundaries a warp);
+  k4_keys_*, k4_pairs_*  K4 in another shape (threads, outputs a tile, CTAs
+                   an SM its registers leave room for, tiles a CTA, the
+                   next tile loaded during a merge or not; the committed
+                   shapes, Shape<int> and Shape<long long> in
+                   csrc/merge_pass.cu: keys 256 threads, tiles of 4,096,
+                   5 CTAs, 7 tiles, loading ahead; pairs 256 threads,
+                   tiles of 2,048, 6 CTAs, 2 tiles, not loading ahead);
+  k4_streaming_stores  K4 writing with st.global.cs;
   k5_network_only  K5 sorting each whole block with the bitonic network
                    (the committed K5 sorts each thread's 16 pairs with its
                    register phases and merges those runs in log2(B / 16)
@@ -46,7 +63,15 @@ and built there by the package's own builder:
                    16,384 (up to 128 registers; the committed K5: 16
                    pairs, 1,024 threads, at most 64 registers);
   k5_part_*        timing only, their output is wrong: K5 without its
-                   network, or without its merge rounds.
+                   network, or without its merge rounds;
+  k8_part_*        timing only, their output is wrong: K8 loading the keys
+                   and summing them, or computing their ids and summing
+                   those, with no atomic;
+  k8_packed_14     K8 counting 2^14 and 2^15 bins in 16-bit halves too
+                   (the committed K8 packs only 2^16);
+  k8_vecs_1, k8_vecs_4  K8 with 1 or 4 16-byte loads in flight a thread
+                   (committed: 2);
+  k8_512_threads   K8 with 512 threads a CTA (committed: 1,024).
 """
 
 import os
@@ -61,9 +86,16 @@ PKG = "avx_sort_merge_joins_tpu_torch"
 CSRC = os.path.join(ROOT, PKG, "csrc")
 VARIANTS_DIR = os.path.join(CSRC, "build", "variants")
 
+# K4's shapes for keys and pairs (csrc/merge_pass.cu), by their arguments
+K4_KEYS = "struct Shape<int> : ShapeOf<{}> {{}};"
+K4_PAIRS = "struct Shape<long long> : ShapeOf<{}> {{}};"
+
+# the line after K8's counting loop
+K8_ROW = "  int* row = out + (per_tile ? blockIdx.x * (long long)fanout : 0);"
+
 # name -> (what it measures, [(source, committed text, variant's text)])
 VARIANTS = {
-    "final": (("k1", "k3", "k5", "k11"), []),
+    "final": (("k1", "k3", "k4", "k5", "k8", "k11"), []),
     "k1_one_cta": (("k1",), [
         ("block_sort.cu", "constexpr int kMinBlocks = 2;",
          "constexpr int kMinBlocks = 1;")]),
@@ -129,6 +161,67 @@ VARIANTS = {
     "k5_part_no_merge": (("k5",), [
         ("block_sort_pairs.cu", "  merge_rounds<kRun, kBlock>(x, ptile);\n",
          "")]),
+    "k4_part_search": (("k4",), [
+        ("merge_pass.cu",
+         "      if (threadIdx.x % kLanes == 0 && j <= kGroup) cor[j] = c;\n"
+         "    }\n",
+         "      if (threadIdx.x % kLanes == 0 && j <= kGroup) cor[j] = c;\n"
+         "    }\n"
+         "    if (threadIdx.x == 0) out_k[a0 + d_begin] = (int)cor[0];\n"
+         "    return;\n")]),
+    "k4_part_no_merge": (("k4",), [
+        ("merge_path.cuh", "  for (int s = 1; s < W; s <<= 1) {",
+         "  for (int s = W; s < W; s <<= 1) {")]),
+    "k4_lanes_32": (("k4",), [
+        ("merge_pass.cu", "constexpr int kLanes = 4;",
+         "constexpr int kLanes = 32;")]),
+    **{f"k4_keys_{name}": (("k4",), [
+        ("merge_pass.cu", K4_KEYS.format("256, 4096, 5, 7, true"),
+         K4_KEYS.format(shape))])
+       for name, shape in (("tile_8192", "256, 8192, 3, 7, true"),
+                           ("one_tile", "256, 4096, 5, 1, true"),
+                           ("no_prefetch", "256, 4096, 5, 7, false"),
+                           ("6_ctas", "256, 4096, 6, 7, false"))},
+    **{f"k4_pairs_{name}": (("k4",), [
+        ("merge_pass.cu", K4_PAIRS.format("256, 2048, 6, 2, false"),
+         K4_PAIRS.format(shape))])
+       for name, shape in (("prefetch", "256, 2048, 2, 2, true"),
+                           ("one_tile", "256, 2048, 6, 1, false"),
+                           ("7_tiles", "256, 2048, 6, 7, false"),
+                           ("tile_4096", "256, 4096, 2, 2, true"))},
+    "k4_streaming_stores": (("k4",), [
+        ("merge_pass.cu", "    k[i] = smj_key(v);\n    p[i] = smj_payload(v);",
+         "    __stcs(k + i, smj_key(v));\n    __stcs(p + i, smj_payload(v));"),
+        ("merge_pass.cu", "    k[i] = v;", "    __stcs(k + i, v);")]),
+    **{f"k8_part_{what}": (("k8",), [
+        ("radix_hist.cu", "  if (lo < hi)\n    for_keys(",
+         "  unsigned acc = 0;\n  if (lo < hi)\n    for_keys("),
+        ("radix_hist.cu",
+         "      if (packed) {\n"
+         "        const unsigned sh = (pid & 1u) << 4;\n"
+         "        const unsigned old = atomicAdd(counts + (pid >> 1), "
+         "1u << sh);\n"
+         "        if (((old >> sh) & kHalf) == kHalf)\n"
+         "          on_wrap(counts + (pid >> 1), pid, old, fix);\n"
+         "      } else {\n"
+         "        atomicAdd(counts + pid, 1u);\n"
+         "      }", f"      acc += {expr};"),
+        ("radix_hist.cu", K8_ROW, "  if (acc == 0x9e3779b9u) counts[0] = "
+         "acc;\n" + K8_ROW)])
+       for what, expr in (("loads", "(unsigned)key"), ("ids", "pid"))},
+    "k8_packed_14": (("k8",), [
+        ("radix_hist.cu", "  return nbits > kLogWords ? 1 << (nbits - 1) : "
+         "1 << nbits;", "  return nbits > 13 ? 1 << (nbits - 1) : "
+         "1 << nbits;"),
+        ("radix_hist.cu",
+         "  const bool packed = fanout > (1 << kLogWords);",
+         "  const bool packed = fanout > (1 << 13);")]),
+    **{f"k8_vecs_{v}": (("k8",), [
+        ("radix_hist.cu", "constexpr int kVecs = 2;",
+         f"constexpr int kVecs = {v};")]) for v in (1, 4)},
+    "k8_512_threads": (("k8",), [
+        ("radix_hist.cu", "constexpr int kThreads = 1024;",
+         "constexpr int kThreads = 512;")]),
 }
 
 
@@ -150,6 +243,27 @@ def make_variant(name: str) -> str:
     return root
 
 
+def zipf_keys(n: int, dev) -> "torch.Tensor":
+    """n Zipf (z = 1.0) keys over a seeded permutation of the smoke's
+    alphabet of 2^20 values, drawn on the card by inverting the cumulative
+    weights (the smoke's host genzipf takes about 36 s at 128M)."""
+    import torch
+
+    import chip_smoke as cs
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    size = cs.ZIPF_ALPHABET
+    weights = 1.0 / torch.arange(1, size + 1, dtype=torch.float64,
+                                 device=dev)
+    cdf = torch.cumsum(weights, 0)
+    cdf /= cdf[-1].clone()
+    letters = torch.randperm(size, generator=gen, device=dev).to(
+        torch.int32) + 1
+    draws = torch.rand(n, generator=gen, dtype=torch.float64, device=dev)
+    rank = torch.searchsorted(cdf, draws).clamp_(max=size - 1)
+    return letters[rank]
+
+
 def worker(name: str, kernels: list[str]) -> None:
     """Measure one variant; its package comes first on sys.path."""
     sys.path.append(ROOT)  # chip_smoke's helpers, after the variant
@@ -158,6 +272,7 @@ def worker(name: str, kernels: list[str]) -> None:
     import chip_smoke as cs
     from avx_sort_merge_joins_tpu_torch.kernels import _build
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import partition as pt
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
     from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
     from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
@@ -168,7 +283,9 @@ def worker(name: str, kernels: list[str]) -> None:
     usage = cs.res_usage()
     kinds = {"block_sort_kernelILi16384E": "K1",
              "merge_join_count_kernel": "K3",
+             "merge_pass_kernel": "K4",
              "block_sort_pairs_kernelILi16384E": "K5",
+             "radix_hist_kernel": "K8",
              "remote_pull_kernel": "K11"}
     for fn, line in re.findall(r"Function ([^\s:]+):?\n([^\n]*)", usage):
         for pattern, kernel in kinds.items():
@@ -207,6 +324,55 @@ def worker(name: str, kernels: list[str]) -> None:
             print(f"[{name}] K3 {n} x {ns}: {ms:.3f} ms", flush=True)
             del sk
         del rk
+    if "k4" in what:
+        gen = torch.Generator(device=dev).manual_seed(11)
+        n = cs.MAIN_N
+        keys = torch.randint(1, n + 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        pays = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        first = sort_ops.sort_blocks_plain(keys, n, cs.BLOCK)
+        last_span = 1 << 26
+        cases = [
+            (f"keys span={cs.BLOCK}", first, None, cs.BLOCK),
+            (f"keys span={last_span}",
+             sort_ops.sorted_groups(keys, n, last_span), None, last_span),
+            (f"pairs span={cs.BLOCK}",
+             *sort_ops.sort_blocks_pairs_plain(keys, pays, n, cs.BLOCK),
+             cs.BLOCK)]
+        del keys, pays, first
+        for case, rk, rp, span in cases:
+            lens = (sort_ops.cdiv(n, span), n, span)
+            got = sort_ops.merge_pass(rk, rp, lens)
+            want = sort_ops.merge_pass_plain(rk, rp, lens)
+            exact = all(g is None or torch.equal(g, w)
+                        for g, w in zip(got, want))
+            if exact == name.startswith("k4_part_"):
+                raise AssertionError(f"{name}: K4 {case} exact={exact}")
+            del got, want
+            ms = cs.time_ms(lambda: sort_ops.merge_pass(rk, rp, lens), 10)
+            print(f"[{name}] K4 {n} {case}: {ms:.3f} ms", flush=True)
+        del cases
+    if "k8" in what:
+        gen = torch.Generator(device=dev).manual_seed(29)
+        n = cs.MAIN_N
+        uniform = torch.randint(1, 2**26, (n,), generator=gen,
+                                dtype=torch.int32, device=dev)
+        for dist, k in (("uniform", uniform), ("zipf", zipf_keys(n, dev))):
+            for bits in cs.HIST_BITS:
+                want = pt.radix_hist_plain(k, bits)
+                exact = torch.equal(pt.radix_hist(k, bits), want) and \
+                    torch.equal(pt.radix_hist_any(k, bits),
+                                want.sum(0, dtype=torch.int32))
+                if exact == name.startswith("k8_part_"):
+                    raise AssertionError(f"{name}: K8 {dist} bits={bits} "
+                                         f"exact={exact}")
+                del want
+                glob = cs.time_ms(lambda: pt.radix_hist_any(k, bits), 10)
+                tile = cs.time_ms(lambda: pt.radix_hist(k, bits), 10)
+                print(f"[{name}] K8 {n} {dist} bits={bits}: global "
+                      f"{glob:.3f} ms, per tile {tile:.3f} ms", flush=True)
+        del uniform
     if "k5" in what:
         gen = torch.Generator(device=dev).manual_seed(11)
         n = cs.MAIN_N
@@ -252,7 +418,7 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         worker(sys.argv[2], sys.argv[3:])
         return 0
-    kernels = sys.argv[1:] or ["k1", "k3", "k5", "k11"]
+    kernels = sys.argv[1:] or ["k1", "k3", "k4", "k5", "k8", "k11"]
     import torch
 
     if not torch.cuda.is_available():

@@ -1,10 +1,11 @@
 // The merge-path tile of K2/K6 (multiway_merge.cu) and K11
 // (remote_pull.cu): the W-way co-rank search of one tile boundary, run by
 // one warp, and the pairwise merge of one tile in shared memory, run by
-// the whole CTA.  W ascending runs (strips) lie `stride` slots apart in
-// int32 columns; an element is a key (E = int) or a (key, payload) pair
-// packed into one int64 whose signed order is the pairs' lexicographic
-// order (E = long long, smj_pack).
+// the whole CTA, which K4 (merge_pass.cu) takes at W = 2.  W ascending
+// runs (strips) lie `stride` slots apart in int32 columns; an element is
+// a key (E = int) or a (key, payload) pair packed into one int64 whose
+// signed order is the pairs' lexicographic order (E = long long,
+// smj_pack).
 //
 // Both are templated on the element type and on the load of the columns
 // (merge_tile.cuh's SmjLdgLoad for K2/K6, whose input is fixed during the
@@ -25,9 +26,11 @@
 // at W <= 32 (one run a lane) the search keeps them in registers, above
 // it in shared memory, so that registers do not grow with W.
 //
-// The tile merge loads the tile's W segments into shared memory with
-// coalesced loads and merges them in log2(W) rounds of pairwise merge path
-// between two buffers (each thread finds its co-rank by binary search,
+// The tile merge (merge_tile: load_tile, stage_tile, merge_rounds; K4,
+// merge_pass.cu, calls the three itself to load the next tile during a
+// merge) loads the tile's W segments into shared memory with coalesced
+// loads and merges them in log2(W) rounds of pairwise merge path between
+// two buffers (each thread finds its co-rank by binary search,
 // then merges kTile / threads outputs serially, the two heads in
 // registers; the lower runs win ties, so the rounds keep run order among
 // equal elements).
@@ -257,10 +260,10 @@ __device__ __forceinline__ int sw(int p) {
   return p + (p >> (sizeof(E) == 8 ? 4 : 5));
 }
 
-// Elements of one tile buffer.
-template <typename E>
+// Elements of one buffer of a tile of kTileN outputs.
+template <typename E, int kTileN = kTile>
 __host__ __device__ constexpr int buf_elems() {
-  return kTile + kTile / (sizeof(E) == 8 ? 16 : 32);
+  return kTileN + kTileN / (sizeof(E) == 8 ? 16 : 32);
 }
 
 // Co-rank of diagonal d of merge(buf[a0, a0 + na), buf[b0, b0 + nb)) in
@@ -282,46 +285,58 @@ __device__ __forceinline__ int merge_co_rank(const E* buf, int a0, int na,
   return lo;
 }
 
-// The whole CTA of kThreads threads (all of them call it): merges the tile
-// whose segment r is [src[r], src[r] + offs[r + 1] - offs[r]) of the
-// columns, offs[W] <= kTile outputs, W a power of two.  src and offs lie
-// in shared memory; buf0 and buf1 are buffers of buf_elems<E>() elements.
-// Returns the buffer that holds the merged tile, position p at sw<E>(p);
-// the caller writes it out.
-template <typename E, int kThreads, class C>
-__device__ const E* merge_tile(const C& cols, const long long* src,
-                               const int* offs, int W, E* buf0, E* buf1) {
-  constexpr int kPerThread = kTile / kThreads;
+// Loads the tile whose segment r is [src[r], src[r] + offs[r + 1] -
+// offs[r]) of the columns into registers: v[q] is slot tid + q * kThreads
+// of the tile (coalesced), offs[W] <= kTileN slots, W a power of two.  src
+// and offs lie in shared memory.
+template <typename E, int kThreads, int kTileN = kTile, class C>
+__device__ __forceinline__ void load_tile(const C& cols, const long long* src,
+                                          const int* offs, int W,
+                                          E (&v)[kTileN / kThreads]) {
+  constexpr int kPerThread = kTileN / kThreads;
   const int tid = threadIdx.x;
   const int n = offs[W];
-  {
-    // coalesced load of the segments: slot p of the tile comes from the
-    // segment s with offs[s] <= p < offs[s + 1]
-    int lo = 0, hi = W;
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (offs[mid] <= tid) lo = mid; else hi = mid;
-    }
-    E v[kPerThread];
+  // slot p of the tile comes from the segment s with offs[s] <= p <
+  // offs[s + 1]
+  int lo = 0, hi = W;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (offs[mid] <= tid) lo = mid; else hi = mid;
+  }
 #pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int p = tid + q * kThreads;
-      if (p < n) {
-        while (offs[lo + 1] <= p) ++lo;
-        v[q] = cols.template at<E>(src[lo] + (p - offs[lo]));
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int p = tid + q * kThreads;
-      if (p < n) buf0[sw<E>(p)] = v[q];
+  for (int q = 0; q < kPerThread; ++q) {
+    const int p = tid + q * kThreads;
+    if (p < n) {
+      while (offs[lo + 1] <= p) ++lo;
+      v[q] = cols.template at<E>(src[lo] + (p - offs[lo]));
     }
   }
-  __syncthreads();
+}
+
+// Writes load_tile's registers into the padded buffer: slot p at sw<E>(p).
+template <typename E, int kThreads, int kTileN = kTile>
+__device__ __forceinline__ void stage_tile(const E (&v)[kTileN / kThreads],
+                                           int n, E* buf) {
+#pragma unroll
+  for (int q = 0; q < kTileN / kThreads; ++q) {
+    const int p = threadIdx.x + q * kThreads;
+    if (p < n) buf[sw<E>(p)] = v[q];
+  }
+}
+
+// The whole CTA of kThreads threads (all of them call it): merges the
+// staged tile in buf0, segment r at [offs[r], offs[r + 1]), in log2(W)
+// pairwise rounds between buf0 and buf1 (buffers of buf_elems<E, kTileN>()
+// elements).  Returns the buffer that holds the merged tile, position p at
+// sw<E>(p), after a __syncthreads; the caller writes it out.
+template <typename E, int kThreads, int kTileN = kTile>
+__device__ const E* merge_rounds(const int* offs, int W, E* buf0, E* buf1) {
+  constexpr int kPerThread = kTileN / kThreads;
+  const int n = offs[W];
   // log2(W) rounds: merge pairs of s-segment runs from `from` into `to`
   E* from = buf0;
   E* to = buf1;
-  const int p0 = tid * kPerThread;
+  const int p0 = threadIdx.x * kPerThread;
   for (int s = 1; s < W; s <<= 1) {
     if (p0 < n) {
       // the pair j holding output p0: the first whose end is past it
@@ -369,6 +384,23 @@ __device__ const E* merge_tile(const C& cols, const long long* src,
     to = x;
   }
   return from;
+}
+
+// The whole CTA of kThreads threads (all of them call it): merges the tile
+// whose segment r is [src[r], src[r] + offs[r + 1] - offs[r]) of the
+// columns, offs[W] <= kTile outputs, W a power of two: load_tile,
+// stage_tile into buf0, merge_rounds.  src and offs lie in shared memory;
+// buf0 and buf1 are buffers of buf_elems<E>() elements.  Returns the
+// buffer that holds the merged tile, position p at sw<E>(p); the caller
+// writes it out.
+template <typename E, int kThreads, class C>
+__device__ const E* merge_tile(const C& cols, const long long* src,
+                               const int* offs, int W, E* buf0, E* buf1) {
+  E v[kTile / kThreads];
+  load_tile<E, kThreads>(cols, src, offs, W, v);
+  stage_tile<E, kThreads>(v, offs[W], buf0);
+  __syncthreads();
+  return merge_rounds<E, kThreads>(offs, W, buf0, buf1);
 }
 
 }  // namespace smj_mp

@@ -32,7 +32,6 @@ import torch
 
 from ..params import BLOCKSIZE_DEFAULT
 from . import sort as sort_ops
-from .bitonic import KEY_POS_INF
 
 LAUNCHES = 0  # K2 wrapper calls that launched the kernel since the last reset
 PAIR_LAUNCHES = 0  # K6
@@ -61,57 +60,21 @@ def multiway_merge_plain(keys: torch.Tensor, fanin: int, uniform_lens,
 
 def _check_varlen(keys: torch.Tensor, fanin: int, lens: torch.Tensor,
                   stride, payloads) -> None:
-    sort_ops._check_keys(keys, 0, "multiway_merge")
     if payloads is not None:
         sort_ops._check_payloads(keys, payloads, 0, "multiway_merge")
     if fanin < 2 or fanin & (fanin - 1):
         raise ValueError(f"multiway_merge: fanin {fanin} is not a power of 2")
-    if not isinstance(lens, torch.Tensor) or lens.dtype != torch.int32 \
-            or lens.dim() != 1 or lens.device != keys.device \
-            or not lens.is_contiguous():
-        raise ValueError("multiway_merge: lens must be a contiguous 1-D int32 "
-                         f"tensor on {keys.device}")
-    if stride is None or stride < 1:
-        raise ValueError(f"multiway_merge: lens needs a stride >= 1, got "
-                         f"{stride}")
-    if lens.numel() == 0 or lens.numel() % fanin:
-        raise ValueError(f"multiway_merge: {lens.numel()} runs are not whole "
-                         f"groups of {fanin}")
-    if keys.numel() < lens.numel() * stride:
-        raise ValueError(f"multiway_merge: {keys.numel()} slots hold fewer "
-                         f"than {lens.numel()} runs of stride {stride}")
+    sort_ops.check_lens(keys, lens, stride, fanin, "multiway_merge")
 
 
 def multiway_merge_varlen_plain(keys: torch.Tensor, fanin: int,
                                 lens: torch.Tensor, stride: int,
                                 payloads: torch.Tensor | None = None):
-    """Plain version of the varlen K2 and K6: one ``torch.sort`` of the live
-    keys (or packed pairs), then a stable one of their groups; each group's
-    sorted elements go to its region's start."""
-    dev = keys.device
-    nruns = lens.numel()
-    ln = lens.to(torch.int64).clamp(0, stride)
-    slot = torch.arange(nruns * stride, dtype=torch.int64, device=dev)
-    run = slot // stride
-    live = slot - run * stride < ln[run]
-    vals = keys[:nruns * stride][live].to(torch.int64)
-    if payloads is not None:
-        vals = sort_ops.pack_pairs(vals, payloads[:nruns * stride][live])
-    vals, order = torch.sort(vals)
-    gsorted, order = torch.sort(run[live][order] // fanin, stable=True)
-    vals = vals[order]
-    glen = ln.view(-1, fanin).sum(1)
-    first = torch.cumsum(glen, 0) - glen  # live elements before each group
-    rank = torch.arange(vals.numel(), dtype=torch.int64, device=dev) \
-        - first[gsorted]
-    at = gsorted * fanin * stride + rank
-    out = torch.full_like(keys, KEY_POS_INF)
-    if payloads is None:
-        out[at] = vals.to(torch.int32)
-        return out, glen.to(torch.int32)
-    out_p = torch.full_like(payloads, KEY_POS_INF)
-    out[at], out_p[at] = sort_ops.unpack_pairs(vals)
-    return (out, out_p), glen.to(torch.int32)
+    """Plain version of the varlen K2 and K6 (``sort.varlen_groups_plain``):
+    each group's sorted elements at its region's start."""
+    out, out_p, glen = sort_ops.varlen_groups_plain(keys, fanin, lens,
+                                                    stride, payloads)
+    return (out if payloads is None else (out, out_p)), glen
 
 
 def corank_scratch(keys: torch.Tensor, ngroups: int, stride: int,

@@ -9,7 +9,10 @@ the sort built on them (counterpart of
   (K5, ``csrc/block_sort_pairs.cu``).
 * ``merge_pass`` merges the run pairs (2j, 2j+1) of a uniform-lens layout
   into runs of twice the length, keys only or pairs (K4,
-  ``csrc/merge_pass.cu``, merge-path tiles).
+  ``csrc/merge_pass.cu``, merge-path tiles); with ``lens=`` (an int32
+  device vector) and ``stride=`` it merges ascending runs of any lengths at
+  a fixed stride (the varlen mode, the JAX ``merge_pass`` with a traced
+  ``lens`` and ``b_asc``).
 * ``sort``/``sort_descending``: K5, then log2(#blocks) K4 passes;
   ``sort_torch`` is one ``torch.sort`` of the packed pairs, the
   ``--scalarsort`` baseline and yardstick.
@@ -84,6 +87,61 @@ def check_uniform_lens(keys: torch.Tensor, uniform_lens, name: str) -> None:
     if nruns != max(1, cdiv(total, span)):
         raise ValueError(f"{name}: {nruns} runs of span {span} "
                          f"cannot hold exactly {total} keys")
+
+
+def check_lens(keys: torch.Tensor, lens, stride, group: int,
+               name: str) -> None:
+    """Raise unless ``lens`` is a contiguous 1-D int32 tensor on the keys'
+    device whose runs, ``stride`` slots apart, make whole groups of
+    ``group`` and fit in ``keys`` (the varlen layout)."""
+    _check_keys(keys, 0, name)
+    if not isinstance(lens, torch.Tensor) or lens.dtype != torch.int32 \
+            or lens.dim() != 1 or lens.device != keys.device \
+            or not lens.is_contiguous():
+        raise ValueError(f"{name}: lens must be a contiguous 1-D int32 "
+                         f"tensor on {keys.device}")
+    if stride is None or stride < 1:
+        raise ValueError(f"{name}: lens needs a stride >= 1, got {stride}")
+    if lens.numel() == 0 or lens.numel() % group:
+        raise ValueError(f"{name}: {lens.numel()} runs are not whole "
+                         f"groups of {group}")
+    if keys.numel() < lens.numel() * stride:
+        raise ValueError(f"{name}: {keys.numel()} slots hold fewer than "
+                         f"{lens.numel()} runs of stride {stride}")
+
+
+def varlen_groups_plain(keys: torch.Tensor, group: int, lens: torch.Tensor,
+                        stride: int, payloads: torch.Tensor | None = None):
+    """Plain version of a merge of each ``group`` consecutive runs of the
+    varlen layout (run r at ``r * stride``, ``clip(lens[r], 0, stride)``
+    elements, ascending): one ``torch.sort`` of the live keys (or packed
+    pairs), then a stable one of their groups; each group's sorted
+    elements go to its region's start, every other slot is INT32_MAX (on
+    both columns).  Returns ``(keys, payloads or None, group_lens)``."""
+    dev = keys.device
+    nruns = lens.numel()
+    ln = lens.to(torch.int64).clamp(0, stride)
+    slot = torch.arange(nruns * stride, dtype=torch.int64, device=dev)
+    run = slot // stride
+    live = slot - run * stride < ln[run]
+    vals = keys[:nruns * stride][live].to(torch.int64)
+    if payloads is not None:
+        vals = pack_pairs(vals, payloads[:nruns * stride][live])
+    vals, order = torch.sort(vals)
+    gsorted, order = torch.sort(run[live][order] // group, stable=True)
+    vals = vals[order]
+    glen = ln.view(-1, group).sum(1)
+    first = torch.cumsum(glen, 0) - glen  # live elements before each group
+    rank = torch.arange(vals.numel(), dtype=torch.int64, device=dev) \
+        - first[gsorted]
+    at = gsorted * group * stride + rank
+    out = torch.full_like(keys, KEY_POS_INF)
+    if payloads is None:
+        out[at] = vals.to(torch.int32)
+        return out, None, glen.to(torch.int32)
+    out_p = torch.full_like(payloads, KEY_POS_INF)
+    out[at], out_p[at] = unpack_pairs(vals)
+    return out, out_p, glen.to(torch.int32)
 
 
 def _padded(col: torch.Tensor, n: int, cap: int,
@@ -226,9 +284,15 @@ def sort_blocks_pairs(keys: torch.Tensor, payloads: torch.Tensor, n: int,
 # --------------------------------------------------------------------------
 
 def merge_pass_plain(keys: torch.Tensor, payloads: torch.Tensor | None,
-                     uniform_lens, descending: bool = False):
+                     uniform_lens=None, descending: bool = False, *,
+                     lens: torch.Tensor | None = None,
+                     stride: int | None = None):
     """Plain version of K4: ``torch.sort`` of each ``2 * span`` slice (of
-    the packed pairs in pair mode)."""
+    the packed pairs in pair mode); in the varlen mode ``torch.sort`` of
+    each pair's live elements, pads after them
+    (:func:`varlen_groups_plain`)."""
+    if lens is not None:
+        return varlen_groups_plain(keys, 2, lens, stride, payloads)
     _, total, span = uniform_lens
     if payloads is None:
         return sorted_groups(keys, total, 2 * span, descending), None
@@ -236,8 +300,31 @@ def merge_pass_plain(keys: torch.Tensor, payloads: torch.Tensor | None,
                                       2 * span, descending))
 
 
+def _check_merge_pass(keys: torch.Tensor, payloads, uniform_lens,
+                      descending: bool, lens, stride) -> None:
+    if payloads is not None:
+        _check_payloads(keys, payloads, 0, "merge_pass")
+    if lens is None:
+        if uniform_lens is None:
+            raise ValueError("merge_pass: needs uniform_lens or lens=")
+        check_uniform_lens(keys, uniform_lens, "merge_pass")
+        nruns, _, span = uniform_lens
+        if keys.numel() > cdiv(nruns, 2) * 2 * span:
+            raise ValueError(f"merge_pass: {keys.numel()} slots reach past "
+                             f"the last pair of {nruns} runs of span {span}")
+        return
+    if uniform_lens is not None or descending:
+        raise ValueError("merge_pass: lens= merges ascending runs and takes "
+                         "no uniform_lens")
+    check_lens(keys, lens, stride, 2, "merge_pass")
+    if keys.numel() != lens.numel() * stride:
+        raise ValueError(f"merge_pass: {keys.numel()} slots are not the "
+                         f"{lens.numel()} runs of stride {stride}")
+
+
 def merge_pass(keys: torch.Tensor, payloads: torch.Tensor | None,
-               uniform_lens, descending: bool = False):
+               uniform_lens=None, descending: bool = False, *,
+               lens: torch.Tensor | None = None, stride: int | None = None):
     """One pass of pairwise run merges.
 
     ``uniform_lens=(nruns, total, span)``: run r starts at ``r * span``
@@ -249,29 +336,47 @@ def merge_pass(keys: torch.Tensor, payloads: torch.Tensor | None,
     ``2 * span`` slots.  Returns new ``(keys, payloads or None)`` with as
     many slots as ``keys``; slots from ``total`` on hold the pad that
     sorts last (INT32_MAX ascending, INT32_MIN descending).
+
+    Varlen mode (``lens=``, ``stride=``; the JAX ``merge_pass`` with a
+    traced ``lens`` and ``b_asc=True``): run r starts at ``r * stride`` and
+    holds ``clip(lens[r], 0, stride)`` elements, ascending; ``lens`` is an
+    int32 tensor of even length on the keys' device, and ``keys`` holds
+    exactly ``lens.numel() * stride`` slots.  Pair j merges into the run at
+    ``2j * stride``; every slot past a pair's live elements holds
+    INT32_MAX, on both columns.  Returns ``(keys, payloads or None,
+    new_lens)``, ``new_lens = lens[0::2] + lens[1::2]`` (clipped as above)
+    an int32 tensor on the device: no host sync.
     """
-    check_uniform_lens(keys, uniform_lens, "merge_pass")
-    nruns, total, span = uniform_lens
-    if keys.numel() > cdiv(nruns, 2) * 2 * span:
-        raise ValueError(f"merge_pass: {keys.numel()} slots reach past the "
-                         f"last pair of {nruns} runs of span {span}")
-    if payloads is not None:
-        _check_payloads(keys, payloads, 0, "merge_pass")
+    _check_merge_pass(keys, payloads, uniform_lens, descending, lens,
+                      stride)
     if keys.device.type == "cpu":
-        return merge_pass_plain(keys, payloads, uniform_lens, descending)
+        return merge_pass_plain(keys, payloads, uniform_lens, descending,
+                                lens=lens, stride=stride)
     from ..kernels import _build
 
     global MERGE_PASS_LAUNCHES
     out_k = torch.empty_like(keys)
     out_p = None if payloads is None else torch.empty_like(payloads)
+    in_p = None if payloads is None else payloads.data_ptr()
+    dst_p = None if out_p is None else out_p.data_ptr()
     with _build.launching_on(keys) as stream:
-        code = _build.library().smj_merge_pass(
-            keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
-            out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
-            keys.numel(), total, span, int(descending), stream)
-    _build.check("smj_merge_pass", code)
+        if lens is None:
+            _, total, span = uniform_lens
+            entry = "smj_merge_pass"
+            code = _build.library().smj_merge_pass(
+                keys.data_ptr(), in_p, out_k.data_ptr(), dst_p, keys.numel(),
+                total, span, int(descending), stream)
+        else:
+            entry = "smj_merge_pass_varlen"
+            code = _build.library().smj_merge_pass_varlen(
+                keys.data_ptr(), in_p, out_k.data_ptr(), dst_p,
+                lens.data_ptr(), lens.numel(), stride, stream)
+    _build.check(entry, code)
     MERGE_PASS_LAUNCHES += 1
-    return out_k, out_p
+    if lens is None:
+        return out_k, out_p
+    return out_k, out_p, lens.view(-1, 2).clamp(0, stride).sum(
+        1, dtype=torch.int32)
 
 
 def pair_levels(n: int, block: int):

@@ -30,7 +30,13 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    ragged last run), and in pair mode in both directions with duplicate
    keys and payloads and payloads equal to the pads.  Then all 13 K4
    passes over one 128M relation and one K5 launch over 128M pairs, timed
-   beside their plain versions and library yardsticks.
+   beside their plain versions and library yardsticks.  (K4 at its tiles'
+   and CTAs' edges runs after phase 8's K2/K6 edges: run A of 1, T - 1, T,
+   T + 1, C - 1, C, C + 1 against an empty B, a B of 1, of T or as long
+   as A, T = K4_TILE and C = K4_CTA, and an empty pass; keys over the
+   domain or at its ends; a hot key over many tiles and CTAs; both
+   directions, keys and pairs; and the varlen mode with random, empty,
+   full and padding runs at strides 1, T + 1, 100,003 and 4,014,080.)
 5. Kernel vs plain, exact, at the other shapes the paths of phases 6-7
    give the kernels: one 32M mpsm S chunk (K1; K2 at each of its levels,
    fan-in 16, 16, 8; K3 of 128M R against it, also timed), and the 16M
@@ -76,10 +82,11 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    as the plain route (duplicate R keys: one row per match pair).
 11. Kernel vs plain, histograms, exact: K8 per tile and global at every
    fanout 2^1..2^16 and shifts up to 31 - bits over keys at both ends of
-   the domain with a ragged last tile, on a tile of 65,536 equal keys, and
-   at 128M keys for bits 7, 14 and 16, uniform and Zipf (z = 1.0, made on
-   the host); the 128M calls timed beside the plain version and
-   ``torch.bincount``.
+   the domain with a ragged last tile, on a tile of 65,536 equal keys, at
+   2^16 on 64M keys on the two bins of one packed word, on one low and on
+   one high bin (16-bit halves wrap in every CTA), and at 128M keys for
+   bits 7, 14 and 16, uniform and Zipf (z = 1.0, made on the host); the
+   128M calls timed beside the plain version and ``torch.bincount``.
 12. Kernel vs plain, two-run count, exact: K10 at the 128M route's shapes
    (runs of 67,108,864 and 60,891,136 keys a side; timed, with K3 on the
    same keys merged), with R's run 1 empty, and on a hot key past 2^31.
@@ -125,7 +132,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    and tile-merge kernels, printed; K1's and K5's registers, local
    memory, stack and CTAs an SM at each block size: a K1 or K5 with local
    memory or stack (their keys and pairs live in registers) fails the
-   run.
+   run.  The same for K4's six kernels and K8's (registers, local memory,
+   stack; a K4 or K8 with local memory or stack fails the run), and their
+   CTAs an SM: K4 keys and pairs, K8 at every fanout.
 20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
    shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
    slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
@@ -141,7 +150,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    plain version, torch.sort of the landing and the bulk composite
    (all-to-all, then K9 a shard), and in parts: a launch with every flag
    set and no push times the merge alone; the one-card copy/merge overlap
-   printed.
+   printed.  Then the varlen K4 at that join's landing of R (8 x 8 strips
+   of 4,014,080 slots, 128M live keys; the first pass dist_mpass would give
+   it), exact, timed beside a uniform pass over 128M keys in runs of 2^21.
 21. ``dist_mway_join_count(..., remote_pull="dma")`` over 8 shards, with
    the launch counts set to 0 just before each run and read just after:
    at 128M x 128M (count 128,000,000, K11 launched twice, K9 never, waits
@@ -225,6 +236,7 @@ KEY8B_SCALAR_N = 16_000_000
 PERSIST_N = 1_000_000
 HIST_CHECK_N = 3 * 65536 + 12_345  # three whole histogram tiles, one ragged
 HIST_BITS = (7, 14, 16)  # K8 timed at 128M keys
+HIST_WRAP_N = 64 << 20  # K8 at 2^16: halves wrap in every global CTA
 ZIPF_ALPHABET = 1 << 20  # the 128M Zipf keys' alphabet (S's maxid)
 PART_N = 8_388_608  # scripts/partitioning-bench.sh's 8M tuples
 PART_BITS = (2, 4, 6, 8, 10, 12, 14, 16)
@@ -245,6 +257,11 @@ PULL_EDGE_LENS = (MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1,
                   3 * MERGE_TILE + 7)  # strip lengths at the tile's edges
 PULL_EDGE_CAP = 16_384
 COUNT2_SPAN = 67_108_864  # run 0 of each side on the 128M two-run route
+K4_TILE = 4096  # outputs a merge-path tile of K4 (csrc/merge_pass.cu)
+K4_CTA = 7 * K4_TILE  # outputs a CTA of K4: its tiles' 8 boundaries
+K4_SPANS = (1, K4_TILE - 1, K4_TILE, K4_TILE + 1, K4_CTA - 1, K4_CTA,
+            K4_CTA + 1)  # run A at the tiles' and CTAs' edges
+K4_UNIFORM_SPAN = 1 << 21  # the uniform pass timed beside the varlen one
 K3_TILE = 1920  # merged elements a tile of K3 (csrc/merge_join_count.cu)
 K3_CTA = 8 * K3_TILE  # merged elements a CTA of K3
 BENCHES = [  # (module, argv): each once at its JAX defaults
@@ -1204,6 +1221,140 @@ def phase_merge_edges(dev: torch.device) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def merge_pass_check(case: str, keys: torch.Tensor, pays,
+                     descending: bool = False, uniform_lens=None,
+                     lens=None, stride=None) -> None:
+    """Hold one K4 call, uniform or varlen, against its plain version:
+    every slot of the merged columns and, varlen, the new lens."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    if lens is None:
+        got = sort_ops.merge_pass(keys, pays, uniform_lens, descending)
+        want = sort_ops.merge_pass_plain(keys, pays, uniform_lens,
+                                         descending)
+    else:
+        got = sort_ops.merge_pass(keys, pays, lens=lens, stride=stride)
+        want = sort_ops.merge_pass_plain(keys, pays, lens=lens,
+                                         stride=stride)
+    record("K4", case, tuple(g for g in got if g is not None),
+           tuple(w for w in want if w is not None))
+
+
+def directed_runs(keys: torch.Tensor, pays, n: int, span: int,
+                  descending: bool):
+    """keys[:n] (with pays) as runs of ``span`` sorted in the pass's
+    direction, pads after: a K4 pass's input."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    packed = sort_ops.pack_pairs(keys, torch.zeros_like(keys) if pays is None
+                                 else pays)
+    k, p = sort_ops.unpack_pairs(sort_ops.sorted_groups(packed, n, span,
+                                                        descending))
+    return k, (None if pays is None else p)
+
+
+def phase_k4_edges(dev: torch.device) -> None:
+    """K4 against its plain version, exact, where its tiles and CTAs have
+    their edges: run A of 1, T - 1, T, T + 1, C - 1, C and C + 1 elements (T
+    = K4_TILE, C = K4_CTA) against a B run that is empty, of 1, of T or as
+    long as A, and an empty pass; keys over the whole domain or at its
+    ends; one hot key over many tiles and CTAs (keys, identical pairs,
+    pairs that differ only in payload, and between other keys); both
+    directions, keys and pairs.  Then the varlen mode: random lens up to
+    the stride with empty runs, a full run and a zero-length run that pads
+    the run count to an even one (as dist_mpass pads a shard count), at
+    strides of 1, T + 1, 100,003 and DIST_CAP, keys and pairs."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(43)
+    rng = np.random.default_rng(43)
+    for case in ("uniform", "domain_ends"):
+        for span in K4_SPANS:
+            for lb in sorted({0, 1, min(K4_TILE, span), span}):
+                n = span + lb
+                k, p = edge_columns(n, case, gen, dev)
+                for pays in (None, p):
+                    for desc in (False, True):
+                        rk, rp = directed_runs(k, pays, n, span, desc)
+                        merge_pass_check(
+                            f"{case} A={span} B={lb} pairs={pays is not None}"
+                            f" descending={desc}", rk, rp, desc,
+                            uniform_lens=(-(-n // span), n, span))
+    k, p = edge_columns(K4_TILE, "uniform", gen, dev)
+    for desc in (False, True):
+        merge_pass_check(f"no element descending={desc}", k, p, desc,
+                         uniform_lens=(1, 0, K4_TILE))
+    span = 3 * K4_CTA + 5  # hot key: every boundary inside a tie
+    n = 4 * span - 7
+    k = torch.full((n,), -4, dtype=torch.int32, device=dev)
+    variants = {"keys": None, "same_pairs": torch.full_like(k, 9),
+                "payload_only": torch.randint(-3, 4, (n,), generator=gen,
+                                              dtype=torch.int32, device=dev)}
+    variants["payload_only"][::5] = KEY_INF
+    variants["payload_only"][::7] = -2**31
+    for name, pays in variants.items():
+        for mixed in (False, True):
+            kk = k.clone()
+            if mixed:  # the hot key between others
+                kk[::3] = torch.randint(-9, 9, (kk[::3].numel(),),
+                                        generator=gen, dtype=torch.int32,
+                                        device=dev)
+            for desc in (False, True):
+                rk, rp = directed_runs(kk, pays, n, span, desc)
+                merge_pass_check(f"hot key {name} mixed={mixed} "
+                                 f"descending={desc}", rk, rp, desc,
+                                 uniform_lens=(4, n, span))
+    for stride in (1, K4_TILE + 1, 100_003, DIST_CAP):
+        nr = DIST_SHARDS if stride == DIST_CAP else 10
+        lens = rng.integers(0, stride + 1, nr).tolist()
+        lens[1], lens[nr // 2], lens[nr - 2], lens[nr - 1] = 0, 0, stride, 0
+        k, p = edge_columns(nr * stride, "uniform", gen, dev)
+        for pays in (None, p):
+            lk, lp, tl = strips(lens, stride, k, pays)
+            merge_pass_check(f"varlen stride={stride} pairs={pays is not None}"
+                             f" lens={lens}", lk, lp, lens=tl, stride=stride)
+        del k, p, lk, lp
+    log(f"[edges] K4 at the tile and CTA edges, on a hot key and varlen: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_k4_varlen_shape(dev: torch.device, buckets, cap: int) -> None:
+    """The varlen K4 at the 8-shard 128M x 128M join's landing of R: every
+    shard's received strips (DIST_SHARDS x DIST_SHARDS runs of ``cap``
+    slots, 128M live keys) merged pairwise in one pass, the first pass
+    dist_mpass would give it, exact against its plain version; timed
+    beside a uniform pass over 128M keys in runs of K4_UNIFORM_SPAN."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(DIST_SHARDS, dev)
+    bflat, rcounts = buckets[0]  # the counts each shard receives
+    land = mesh.all_to_all(bflat).reshape(-1)
+    lens = rcounts.reshape(-1).contiguous()
+    live = int(lens.sum())
+    merge_pass_check(f"varlen 8-shard landing: {lens.numel()} runs of {cap}, "
+                     f"{live} keys", land, None, lens=lens, stride=cap)
+    ms = time_ms(lambda: sort_ops.merge_pass(land, None, lens=lens,
+                                             stride=cap))
+    plain = time_ms(lambda: sort_ops.merge_pass_plain(land, None, lens=lens,
+                                                      stride=cap))
+    bound = bound_ms(4 * live + 4 * land.numel(), live)[0]
+    log(f"[time] K4 varlen pass, {lens.numel()} runs of {cap} slots, {live} "
+        f"keys: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.3f} "
+        f"ms (live keys read, every slot written)")
+    del land
+    gen = torch.Generator(device=dev).manual_seed(47)
+    runs = sort_ops.sorted_groups(torch.randint(
+        1, MAIN_N + 1, (MAIN_N,), generator=gen, dtype=torch.int32,
+        device=dev), MAIN_N, K4_UNIFORM_SPAN)
+    ulens = (sort_ops.cdiv(MAIN_N, K4_UNIFORM_SPAN), MAIN_N, K4_UNIFORM_SPAN)
+    merge_pass_check(f"uniform span={K4_UNIFORM_SPAN} n={MAIN_N}", runs, None,
+                     uniform_lens=ulens)
+    ms = time_ms(lambda: sort_ops.merge_pass(runs, None, ulens))
+    log(f"[time] K4 uniform pass beside it, span {K4_UNIFORM_SPAN}, {MAIN_N} "
+        f"keys: kernel {ms:.3f} ms, bound "
+        f"{bound_ms(8 * MAIN_N, MAIN_N)[0]:.3f} ms")
+
+
 def phase_materialize_in_process(dev: torch.device) -> dict[str, int]:
     """The 128M materializing join through ``sortmergejoin_multiway``: the
     output relation against the plain route's, row for row."""
@@ -1324,7 +1475,18 @@ def phase_hist_kernels(dev: torch.device, times: Timings) -> None:
     for bits in (1, 7, 16):
         check(one_bin, bits, 0, "one-bin tile")
 
+    # 2^16 counts in 16-bit halves of 2^15 words: ids on both halves of
+    # one word, on one low bin, on one high bin, so many that halves wrap
+    # in every CTA of the global grid and in every one-bin tile
     gen = torch.Generator(device=dev).manual_seed(29)
+    n = HIST_WRAP_N
+    half = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32,
+                         device=dev)
+    for case, k in (("one word's two bins", 1 + 2 * 777 + half),
+                    ("one low bin", torch.full_like(half, 1 + 2 * 777)),
+                    ("one high bin", torch.full_like(half, 2 + 2 * 777))):
+        check(k, 16, 0, f"{case} n={n}")
+    del half, k
     uniform = torch.randint(1, 2**26, (MAIN_N,), generator=gen,
                             dtype=torch.int32, device=dev)
     datagen.seed_generator(31)
@@ -1944,6 +2106,40 @@ def phase_merge_resources() -> None:
                 int(res.get("STACK", 1)):
             raise AssertionError(f"K5 at block {block} keeps pairs in local "
                                  f"memory: {res}")
+    # K4 (keys or pairs; uniform ascending or descending, or varlen) and K8
+    found = re.findall(r"Function ([^\s:]*(?:merge_pass|radix_hist)_kernel"
+                       r"[^\s:]*):?\n([^\n]*)", usage)
+    if len([f for f, _ in found if "merge_pass" in f]) != 6 or \
+            len([f for f, _ in found if "radix_hist" in f]) != 1:
+        raise AssertionError(f"cuobjdump: K4/K8 kernels "
+                             f"{[f for f, _ in found]}")
+    for name, line in found:
+        res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
+        kernel = "K8 radix_hist_kernel" if "radix_hist" in name else (
+            "K4 merge_pass_kernel<"
+            f"{'pairs' if 'kernelIx' in name else 'keys'}, "
+            f"{'descending' if 'Lb1E' in name else 'ascending'}, "
+            f"{'varlen' if 'Varlen' in name else 'uniform'}>")
+        log(f"[sass] {kernel}: REG {res.get('REG')}, LOCAL "
+            f"{res.get('LOCAL')}, STACK {res.get('STACK')}, SHARED "
+            f"{res.get('SHARED')}")
+        if "REG" not in res or int(res.get("LOCAL", 1)) or \
+                int(res.get("STACK", 1)):
+            raise AssertionError(f"{kernel} uses local memory: {res}")
+    for pairs in (0, 1):
+        c = ctypes.c_int(0)
+        _build.check("smj_merge_pass_occupancy",
+                     _build.library().smj_merge_pass_occupancy(
+                         pairs, ctypes.byref(c)))
+        log(f"[sass] K4 {'pairs' if pairs else 'keys'}: {c.value} CTAs an SM")
+    per_bits = []
+    for bits in range(1, 17):
+        c = ctypes.c_int(0)
+        _build.check("smj_radix_hist_occupancy",
+                     _build.library().smj_radix_hist_occupancy(
+                         bits, ctypes.byref(c)))
+        per_bits.append(f"2^{bits}: {c.value}")
+    log(f"[sass] K8 CTAs an SM: {', '.join(per_bits)}")
 
 
 def pull_buckets(n: int, cap: int, case: str, gen: torch.Generator,
@@ -2272,12 +2468,14 @@ def main() -> int:
     timed("path shapes", phase_path_shapes, dev)
     timed("pair merge kernels", phase_pair_merge_kernels, dev, times)
     timed("merge edges", phase_merge_edges, dev)
+    timed("k4 edges", phase_k4_edges, dev)
     timed("hist kernels", phase_hist_kernels, dev, times)
     timed("count2 kernel", phase_count2_kernel, dev, times)
     buckets, cap = timed("dist kernels", phase_dist_kernels, dev, times)
     timed("k11 sass", phase_k11_sass)
     timed("resources", phase_merge_resources)
     timed("pull kernels", phase_pull_kernels, dev, times, buckets, cap)
+    timed("k4 varlen shape", phase_k4_varlen_shape, dev, buckets, cap)
     del buckets
     total = {k: 0 for k in KERNELS}
     for name, fn, *args in [

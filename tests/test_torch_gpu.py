@@ -272,6 +272,129 @@ def test_merge_pass_kernel_equals_plain(cuda, n, span, mode):
         assert torch.equal(got[1], want[1])
 
 
+K4_TILE = 4096  # outputs a merge-path tile of csrc/merge_pass.cu
+K4_CTA = 7 * K4_TILE  # outputs a CTA of it: 7 tiles
+
+
+def _merge_pass_both(keys, pays, desc=False, **kw):
+    """K4 and its plain version on the same runs, one launch checked."""
+    before = tsort.MERGE_PASS_LAUNCHES
+    if "lens" in kw:
+        got = tsort.merge_pass(keys, pays, **kw)
+        want = tsort.merge_pass_plain(keys, pays, **kw)
+    else:
+        got = tsort.merge_pass(keys, pays, kw["uniform_lens"], desc)
+        want = tsort.merge_pass_plain(keys, pays, kw["uniform_lens"], desc)
+    torch.cuda.synchronize()
+    assert tsort.MERGE_PASS_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        assert g is None or torch.equal(g, w)
+
+
+def _uniform_runs(k, p, n, span, desc):
+    """Runs of ``span`` sorted in the pass's direction (pairs packed)."""
+    packed = tsort.pack_pairs(k, torch.zeros_like(k) if p is None else p)
+    rk, rp = tsort.unpack_pairs(tsort.sorted_groups(packed, n, span, desc))
+    return rk, (None if p is None else rp)
+
+
+@pytest.mark.parametrize("span", [1, K4_TILE - 1, K4_TILE, K4_TILE + 1,
+                                  K4_CTA - 1, K4_CTA, K4_CTA + 1])
+@pytest.mark.parametrize("b", ["empty", "one", "tile", "full"])
+@pytest.mark.parametrize("mode", ["keys", "keys_desc", "pairs",
+                                  "pairs_desc"])
+def test_merge_pass_kernel_tile_edges(cuda, span, b, mode):
+    """K4 where its tiles and CTAs have their edges: run A of 1, a tile -
+    1, a tile, a tile + 1 and a CTA's outputs - 1, + 0, + 1, against a B
+    run that is empty, of one element, of a tile or as long as A; keys at
+    both ends of the domain, payloads equal to the pads; both directions,
+    keys and pairs."""
+    lb = {"empty": 0, "one": 1, "tile": min(K4_TILE, span), "full": span}[b]
+    n = span + lb
+    k, p = (t.to(cuda) for t in _pairs(n, span + lb, 2**31 - 2, 3))
+    desc = mode.endswith("desc")
+    rk, rp = _uniform_runs(k, p if mode.startswith("pairs") else None, n,
+                           span, desc)
+    _merge_pass_both(rk, rp, desc, uniform_lens=(-(-n // span), n, span))
+
+
+@pytest.mark.parametrize("case", ["keys", "same_pairs", "payload_only",
+                                  "between"])
+@pytest.mark.parametrize("desc", [False, True])
+def test_merge_pass_kernel_hot_key(cuda, case, desc):
+    """One key fills both runs over many tiles and CTAs, so every tile
+    boundary falls inside a tie: keys only, identical pairs, pairs that
+    differ only in payload, and the hot key between other keys."""
+    span = 3 * K4_CTA + 5
+    n = 4 * span - 7
+    k = torch.full((n,), -4, dtype=torch.int32, device=cuda)
+    p = None
+    if case == "same_pairs":
+        p = torch.full_like(k, 9)
+    elif case == "payload_only":
+        p = torch.randint(-3, 4, (n,), dtype=torch.int32, device=cuda)
+        p[::5] = INF32
+        p[::7] = -(2**31)
+    elif case == "between":
+        k[::3] = torch.randint(-9, 9, (k[::3].numel(),), dtype=torch.int32,
+                               device=cuda)
+    rk, rp = _uniform_runs(k, p, n, span, desc)
+    _merge_pass_both(rk, rp, desc, uniform_lens=(4, n, span))
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("stride", [1, K4_TILE + 1, 100_003])
+def test_varlen_merge_pass_kernel_equals_plain(cuda, stride, pairs):
+    """The varlen K4: random lens up to the stride, empty runs, a full
+    run, and a run padded to an even count (a zero-length last run, as
+    dist_mpass pads a shard count that is no power of two)."""
+    rng = np.random.default_rng(stride)
+    lens = rng.integers(0, stride + 1, 10).tolist()
+    lens[2] = lens[5] = 0
+    lens[7] = stride
+    lens[9] = 0  # the padding run
+    k, p = (t.to(cuda) for t in _pairs(10 * stride, stride, 2**31 - 2, 3))
+    lk, lp = _varlen_runs(lens, stride, k, p if pairs else None)
+    lt = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _merge_pass_both(lk, lp, lens=lt, stride=stride)
+    got_lens = tsort.merge_pass(lk, lp, lens=lt, stride=stride)[2]
+    assert got_lens.device == lk.device
+    assert got_lens.tolist() == [lens[i] + lens[i + 1]
+                                 for i in range(0, 10, 2)]
+
+
+def test_varlen_merge_pass_kernel_hot_key_and_two_passes(cuda):
+    """One key over every run and many tiles, merged through two varlen
+    passes down to one run (dist_mpass's chain over 4 received runs)."""
+    stride = 2 * K4_CTA + 3
+    lens = [stride, 17, 0, stride - 1]
+    k = torch.full((4 * stride,), 77, dtype=torch.int32, device=cuda)
+    p = torch.randint(-2, 3, (4 * stride,), dtype=torch.int32, device=cuda)
+    lk, lp = _varlen_runs(lens, stride, k, p)
+    lt = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _merge_pass_both(lk, lp, lens=lt, stride=stride)
+    k1, p1, l1 = tsort.merge_pass(lk, lp, lens=lt, stride=stride)
+    _merge_pass_both(k1, p1, lens=l1, stride=2 * stride)
+    k2, p2, l2 = tsort.merge_pass(k1, p1, lens=l1, stride=2 * stride)
+    n = sum(lens)
+    assert l2.tolist() == [n]
+    want = tsort.sort_torch(lk[lk != INF32], lp[lk != INF32])
+    assert torch.equal(k2[:n], want[0]) and torch.equal(p2[:n], want[1])
+
+
+def test_varlen_merge_pass_refuses_on_the_card(cuda):
+    keys = torch.zeros(40, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8], dtype=torch.int32,
+                        device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsort.merge_pass(keys, None, lens=lens[::2], stride=10)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsort.merge_pass(keys, None, lens=lens[:4].cpu(), stride=10)
+    with pytest.raises(ValueError, match="not the"):
+        tsort.merge_pass(keys, None, lens=lens[:2], stride=10)
+
+
 @pytest.mark.parametrize("n", [1, 1025, 200_001])
 def test_pair_sort_on_the_card_equals_sort_torch(cuda, n):
     k, p = (t.to(cuda) for t in _pairs(n, 3, 1000, 5))
@@ -484,6 +607,61 @@ def test_radix_hist_kernel_zipf_and_unaligned(cuda, nbits):
         assert torch.equal(tpt.radix_hist(k, nbits), want)
         assert torch.equal(tpt.radix_hist_any(k, nbits),
                            tpt.radix_hist_torch(k, nbits))
+
+
+@pytest.mark.parametrize("shift", [0, 7, 15])
+@pytest.mark.parametrize("n", [1, 65_535, 65_536, 2 * 65_536 + 3,
+                               3_000_017])
+def test_radix_hist_kernel_2_16_packed(cuda, n, shift):
+    """2^16 bins, which a CTA counts in the 16-bit halves of 2^15 words: a
+    tile of one key, a tile - 1, a tile, ragged tiles and a share a CTA of
+    the global grid; keys whose ids set or clear the bit above the lower
+    2^15 bins; aligned and unaligned starts."""
+    keys = _domain_keys(max(n + 1, 4), 16 + shift).to(cuda)
+    upper = keys | (1 << (15 + shift))
+    lower = keys & ~(1 << (15 + shift))
+    for k in (keys[:n], keys[1:], upper[:n] + 1, lower[:n] + 1):
+        before = tpt.LAUNCHES
+        tiles = tpt.radix_hist(k, 16, shift)
+        total = tpt.radix_hist_any(k, 16, shift)
+        torch.cuda.synchronize()
+        assert tpt.LAUNCHES == before + 2
+        want = tpt.radix_hist_plain(k, 16, shift)
+        assert torch.equal(tiles, want)
+        assert torch.equal(total, want.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 5, 8, 10, 13, 14, 15, 16])
+def test_radix_hist_kernel_hot_bins(cuda, nbits):
+    """Nine keys in ten on one bin (every lane of a warp on one counter),
+    per tile and global."""
+    rng = np.random.default_rng(nbits)
+    keys = rng.integers(1, 2**31 - 1, 5 * 65_536 + 77)
+    keys[rng.random(keys.size) < 0.9] = 1 + (1 << nbits) - 1
+    keys = torch.from_numpy(keys.astype(np.int32)).to(cuda)
+    want = tpt.radix_hist_plain(keys, nbits)
+    assert torch.equal(tpt.radix_hist(keys, nbits), want)
+    assert torch.equal(tpt.radix_hist_any(keys, nbits),
+                       want.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", ["two_bins_of_a_word", "low_bin",
+                                  "high_bin"])
+def test_radix_hist_kernel_2_16_wraps(cuda, case):
+    """40M keys on the two bins of one packed word, or on one of them: the
+    16-bit halves wrap in every CTA of the global grid (and in every
+    one-bin tile), low and high halves racing."""
+    n = 40_000_000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    half = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32,
+                         device=cuda)
+    keys = {"two_bins_of_a_word": 1 + 2 * 321 + half,
+            "low_bin": torch.full_like(half, 1 + 2 * 321),
+            "high_bin": torch.full_like(half, 2 + 2 * 321)}[case]
+    want = tpt.radix_hist_plain(keys, 16)
+    assert torch.equal(tpt.radix_hist(keys, 16), want)
+    assert torch.equal(tpt.radix_hist_any(keys, 16),
+                       want.sum(0, dtype=torch.int32))
 
 
 def test_partition_relation_on_the_card(cuda):
