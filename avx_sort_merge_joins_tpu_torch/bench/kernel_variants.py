@@ -1,16 +1,17 @@
 """Design choices of K1 (block sort), K3 (match count), K4 (merge pass),
 K5 (pair block sort), K8 (radix histogram) and K11 (remote-pull push and
-gated merge) of the PyTorch port, measured against each other on one
+gated merge) of the PyTorch port, and the parts of K9 (chunk-gated
+merge) and K10 (two-run count), measured against each other on one
 NVIDIA GPU, from the root of a checkout (it takes chip_smoke.py's
 helpers):
 
     python -m avx_sort_merge_joins_tpu_torch.bench.kernel_variants [k1 k3 ...]
 
-(the variants of the kernels named among k1, k3, k4, k5, k8, k11, default
-all; ``final`` always runs).  K4 is timed on 128M keys in one pass of
-span 16,384 and one of span 2^26, and on 128M pairs at span 16,384; K8 on
-128M keys at bits 7, 14 and 16, uniform and Zipf (z = 1.0 over 2^20
-values, drawn on the card), global and per tile.
+(the variants of the kernels named among k1, k3, k4, k5, k8, k9, k10,
+k11, default all; ``final`` always runs).  K4 is timed on 128M keys in
+one pass of span 16,384 and one of span 2^26, and on 128M pairs at span
+16,384; K8 on 128M keys at bits 7, 14 and 16, uniform and Zipf (z = 1.0
+over 2^20 values, drawn on the card), global and per tile.
 
 Each variant is a copy of the package in the checkout with one textual
 change to its CUDA sources, written under the gitignored csrc/build/variants/
@@ -72,6 +73,13 @@ and built there by the package's own builder:
   k8_vecs_1, k8_vecs_4  K8 with 1 or 4 16-byte loads in flight a thread
                    (committed: 2);
   k8_512_threads   K8 with 512 threads a CTA (committed: 1,024).
+
+``final`` also times K9 on shard 0's landing of R in the 8-shard 128M
+join, whole and in its parts (its entry point's mask: the co-ranks, the
+gate on them, the merge on them), with each of its kernels' device time
+a call from torch.profiler, and K10 at 128M x 128M, two runs a
+side, beside four K3 launches over the same four run pairs, the yardstick
+of its one-launch design.
 """
 
 import os
@@ -95,7 +103,7 @@ K8_ROW = "  int* row = out + (per_tile ? blockIdx.x * (long long)fanout : 0);"
 
 # name -> (what it measures, [(source, committed text, variant's text)])
 VARIANTS = {
-    "final": (("k1", "k3", "k4", "k5", "k8", "k11"), []),
+    "final": (("k1", "k3", "k4", "k5", "k8", "k9", "k10", "k11"), []),
     "k1_one_cta": (("k1",), [
         ("block_sort.cu", "constexpr int kMinBlocks = 2;",
          "constexpr int kMinBlocks = 1;")]),
@@ -135,8 +143,9 @@ VARIANTS = {
         ("merge_join_count.cu", "constexpr int kCountWindow = 2048;",
          "constexpr int kCountWindow = 4096;")]),
     "k3_32_registers": (("k3",), [
-        ("merge_join_count.cu", "__launch_bounds__(kCountThreads)",
-         "__launch_bounds__(kCountThreads, 16)")]),
+        ("merge_join_count.cu", "__launch_bounds__(kCountThreads)\n"
+         "merge_join_count_kernel(", "__launch_bounds__(kCountThreads, 16)\n"
+         "merge_join_count_kernel(")]),
     "k3_part_search": (("k3",), [
         ("merge_join_count.cu",
          "  for (int d = 0; d < span; d += kCountTile) {",
@@ -264,6 +273,30 @@ def zipf_keys(n: int, dev) -> "torch.Tensor":
     return letters[rank]
 
 
+def k9_device_ms(rf, land, lens, cap: int, chunk: int, arrive,
+                 calls: int = 20) -> dict:
+    """Milliseconds of device time a K9 call spends in each of its
+    kernels (K2's co-rank passes and tile merge, K9's gate), from
+    torch.profiler's CUDA activity over ``calls`` calls; the part
+    timings above run at the wrapper's host rate when a part is short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            rf.chunk_gated_merge(land, lens, cap, chunk, arrive)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"corank_kernel<[^>]*>|gate_kernel|merge_kernel<[^>]*>",
+                      e.key)
+        if m and e.device_time_total > 0:
+            ms = e.device_time_total / calls / 1e3
+            out[m.group(0)] = out.get(m.group(0), 0.0) + ms
+    return {k: round(v, 4) for k, v in out.items()} or "no device time"
+
+
 def worker(name: str, kernels: list[str]) -> None:
     """Measure one variant; its package comes first on sys.path."""
     sys.path.append(ROOT)  # chip_smoke's helpers, after the variant
@@ -283,6 +316,8 @@ def worker(name: str, kernels: list[str]) -> None:
     usage = cs.res_usage()
     kinds = {"block_sort_kernelILi16384E": "K1",
              "merge_join_count_kernel": "K3",
+             "merge_join_count2_kernel": "K10",
+             "gate_kernel": "K9 gate",
              "merge_pass_kernel": "K4",
              "block_sort_pairs_kernelILi16384E": "K5",
              "radix_hist_kernel": "K8",
@@ -393,6 +428,49 @@ def worker(name: str, kernels: list[str]) -> None:
             print(f"[{name}] K5 {n} pairs descending={desc}: {ms:.3f} ms",
                   flush=True)
         del keys, pays
+    if "k9" in what:
+        landings, cap, _, buckets = cs.dist_landings(dev)
+        del buckets
+        land, lens = landings[0]
+        del landings
+        w = cs.DIST_SHARDS
+        chunk = rf.pick_chunk_elems(cap, dm.TILE_ELEMS, w)
+        arrive = rf.arrival_schedule(w, cap // chunk, 1)
+        got = rf.chunk_gated_merge(land, lens, cap, chunk, arrive)
+        want = rf.chunk_gated_merge_plain(land, lens, cap, chunk, arrive)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: K9 != plain")
+        del got, want
+        parts = cs.gated_parts_ms(land, lens, cap, chunk, arrive, 20)
+        print(f"[{name}] K9 R landing of shard 0, {w} strips of {cap}, "
+              f"push schedule: {parts['all']:.3f} ms; co-ranks "
+              f"{parts['corank']:.3f}, gate {parts['gate']:.3f}, merge "
+              f"{parts['merge']:.3f}", flush=True)
+        print(f"[{name}] K9 device time a call by kernel (torch.profiler): "
+              f"{k9_device_ms(rf, land, lens, cap, chunk, arrive)}",
+              flush=True)
+        del land, lens
+    if "k10" in what:
+        gen = torch.Generator(device=dev).manual_seed(23)
+        n, span = cs.MAIN_N, cs.COUNT2_SPAN
+        rk = cs.two_run_column(torch.randperm(n, generator=gen, device=dev)
+                               .to(torch.int32) + 1, span)
+        sk = cs.two_run_column(torch.randint(1, n + 1, (n,), generator=gen,
+                                             dtype=torch.int32, device=dev),
+                               span)
+        got = int(mergejoin.merge_join_count_fused2(rk, sk, n, n, span,
+                                                    span))
+        if got != n:
+            raise AssertionError(f"{name}: K10 {got} != {n}")
+        ms = cs.time_ms(lambda: mergejoin.merge_join_count_fused2(
+            rk, sk, n, n, span, span), 10)
+        pairs = [(r, s) for r in mergejoin._two_runs(rk, n, span)
+                 for s in mergejoin._two_runs(sk, n, span)]
+        four = cs.time_ms(lambda: [mergejoin.merge_join_count_fused(
+            r, s, r.numel(), s.numel()) for r, s in pairs], 10)
+        print(f"[{name}] K10 {n} x {n}, two runs a side: {ms:.3f} ms; four "
+              f"K3 launches over the same pairs {four:.3f} ms", flush=True)
+        del rk, sk, pairs
     if "k11" in what:
         _, cap, _, buckets = cs.dist_landings(dev)
         w = cs.DIST_SHARDS
@@ -418,7 +496,8 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         worker(sys.argv[2], sys.argv[3:])
         return 0
-    kernels = sys.argv[1:] or ["k1", "k3", "k4", "k5", "k8", "k11"]
+    kernels = sys.argv[1:] or ["k1", "k3", "k4", "k5", "k8", "k9", "k10",
+                               "k11"]
     import torch
 
     if not torch.cuda.is_available():

@@ -46,17 +46,21 @@
 // through the warp (shuffles) and the block (shared memory) to one
 // atomicAdd a CTA.  No limbs and no overflow flag (nR * nS < 2^62).
 //
-// K7 and K10 keep a grid-stride loop in which each thread adds, for its R
-// keys, upper_bound - lower_bound over S (two binary searches over global
-// memory a key, bound by load latency; K3 ran so until its rebuild).  K7
-// forms each 64-bit key in registers from its two planes (smj_pack of (hi,
-// lo_biased) is the original int64 key) and probes both S planes on every
-// search step (smj_pair_bound), so equal hi planes with different lo never
-// match.  K10 needs no merge at all: the count does not depend on the
-// order of R, so its two runs are simply r[0, nR), and each R key adds its
-// count in each S run, so a key found in both runs of S counts in both.
-// Dropped with the merges: the 4-way tagged select, the double-buffered
-// windows and the spare rows past each run.
+// K10 is K3's CTA body over the four (R run, S run) pairs, in one launch:
+// the count does not depend on either side's order beyond each run being
+// ascending, so it is the sum of K3's count of each pair.  Each pair gets
+// its own CTAs, as many as K3 would give it; a CTA finds its pair from
+// the four pairs' first CTAs and counts its tiles of that pair's merged
+// order.  So each key is read twice (once in each pair it belongs to):
+// 0.612 ms at 128M x 128M, twice the function's bound.
+//
+// K7 keeps a grid-stride loop in which each thread adds, for its R keys,
+// upper_bound - lower_bound over S (two binary searches over global
+// memory a key, bound by load latency; K3 and K10 ran so until their
+// rebuilds).  It forms each 64-bit key in registers from its two planes
+// (smj_pack of (hi, lo_biased) is the original int64 key) and probes both
+// S planes on every search step (smj_pair_bound), so equal hi planes with
+// different lo never match.
 #include "smj_common.cuh"
 
 namespace {
@@ -223,24 +227,34 @@ __device__ __forceinline__ void load_window(const int* __restrict__ col,
     cp_async4(win + ((base + k) & kCountMask), col + k);
 }
 
-// One CTA counts kCountGroup tiles of the merged order (the last CTA
-// fewer).  Its first boundary and the R run that ends just before it come
-// from global searches; after that every boundary, run start and carry
-// follows from the windows, each thread keeping its own copy of these
-// uniform values in registers, as offsets from the CTA's first boundary.
-__global__ void __launch_bounds__(kCountThreads)
-merge_join_count_kernel(const int* __restrict__ r, long long nR,
-                        const int* __restrict__ s, long long nS,
-                        unsigned long long* out) {
+// Merged elements a CTA counts.
+constexpr long long kCountCta = (long long)kCountGroup * kCountTile;
+
+// CTAs that count r[0, nR) against s[0, nS): none when a side is empty.
+__host__ __device__ __forceinline__ long long count_ctas(long long nR,
+                                                         long long nS) {
+  return nR == 0 || nS == 0 ? 0 : (nR + nS + kCountCta - 1) / kCountCta;
+}
+
+// The whole CTA (every thread calls it): CTA `cta` of the count of
+// r[0, nR) against s[0, nS) counts kCountGroup tiles of their merged
+// order (the last CTA fewer) and adds them to *out.  Its first boundary
+// and the R run that ends just before it come from global searches; after
+// that every boundary, run start and carry follows from the windows, each
+// thread keeping its own copy of these uniform values in registers, as
+// offsets from the CTA's first boundary.
+__device__ __forceinline__ void count_cta(const int* __restrict__ r,
+                                          long long nR,
+                                          const int* __restrict__ s,
+                                          long long nS, long long cta,
+                                          unsigned long long* out) {
   __shared__ __align__(16) int rw[kCountWindow];
   __shared__ __align__(16) int sw[kCountWindow];
   __shared__ long long first_i, first_len;
   __shared__ int first_key;
-  const long long d_first =
-      (long long)blockIdx.x * (kCountGroup * kCountTile);
+  const long long d_first = cta * kCountCta;
   const long long left = nR + nS - d_first;
-  const int span = (int)(left < kCountGroup * kCountTile
-                             ? left : kCountGroup * kCountTile);
+  const int span = (int)(left < kCountCta ? left : kCountCta);
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     const long long i = corank2(r, nR, s, nS, d_first, lane);
@@ -363,6 +377,39 @@ merge_join_count_kernel(const int* __restrict__ r, long long nR,
   block_add<kCountThreads>(acc, out);
 }
 
+// K3: one CTA a kCountCta merged elements.
+__global__ void __launch_bounds__(kCountThreads)
+merge_join_count_kernel(const int* __restrict__ r, long long nR,
+                        const int* __restrict__ s, long long nS,
+                        unsigned long long* out) {
+  count_cta(r, nR, s, nS, blockIdx.x, out);
+}
+
+// K10's four pairs: pair q counts r[q] against s[q] with its CTAs from
+// first[q] on, up to the next pair's first.
+struct CountPairs {
+  const int* r[4];
+  const int* s[4];
+  long long nr[4], ns[4], first[4];
+};
+
+// a[q] with constant indices only, so that the parameter stays out of
+// local memory.
+template <typename T>
+__device__ __forceinline__ T pick(const T (&a)[4], int q) {
+  return q == 0 ? a[0] : q == 1 ? a[1] : q == 2 ? a[2] : a[3];
+}
+
+__global__ void __launch_bounds__(kCountThreads)
+merge_join_count2_kernel(const CountPairs p, unsigned long long* out) {
+  const long long b = blockIdx.x;
+  // the last pair that starts at or before b (an empty pair starts where
+  // the next one does)
+  const int q = (b >= p.first[1]) + (b >= p.first[2]) + (b >= p.first[3]);
+  count_cta(pick(p.r, q), pick(p.nr, q), pick(p.s, q), pick(p.ns, q),
+            b - pick(p.first, q), out);
+}
+
 __global__ void merge_join_count64_kernel(const int* __restrict__ rh,
                                           const int* __restrict__ rl,
                                           long long nR,
@@ -382,31 +429,6 @@ __global__ void merge_join_count64_kernel(const int* __restrict__ rh,
   block_add(acc, out);
 }
 
-// Number of elements equal to `key` in the ascending a[lo, hi).
-__device__ __forceinline__ long long count_in(const int* __restrict__ a,
-                                              long long lo, long long hi,
-                                              int key) {
-  const long long first = smj_lower_bound(a, lo, hi, key);
-  if (first == hi || __ldg(a + first) != key) return 0;
-  return smj_upper_bound(a, first + 1, hi, key) - first;
-}
-
-__global__ void merge_join_count2_kernel(const int* __restrict__ r,
-                                         long long nR,
-                                         const int* __restrict__ s,
-                                         long long s0_end, long long s1_lo,
-                                         long long s1_end,
-                                         unsigned long long* out) {
-  unsigned long long acc = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nR;
-       i += stride) {
-    const int key = r[i];
-    acc += count_in(s, 0, s0_end, key) + count_in(s, s1_lo, s1_end, key);
-  }
-  block_add(acc, out);
-}
-
 }  // namespace
 
 // Adds the match count of r[0, nR) and s[0, nS) to *out (int64, zeroed by
@@ -414,9 +436,9 @@ __global__ void merge_join_count2_kernel(const int* __restrict__ r,
 SMJ_API int smj_merge_join_count(const int* r, long long nR, const int* s,
                                  long long nS, unsigned long long* out,
                                  void* stream) {
-  if (nR == 0 || nS == 0) return (int)cudaSuccess;
-  const long long per_cta = (long long)kCountGroup * kCountTile;
-  const long long blocks = (nR + nS + per_cta - 1) / per_cta;
+  const long long blocks = count_ctas(nR, nS);
+  if (blocks == 0) return (int)cudaSuccess;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   merge_join_count_kernel<<<(unsigned)blocks, kCountThreads, 0,
                             (cudaStream_t)stream>>>(r, nR, s, nS, out);
   return (int)cudaGetLastError();
@@ -436,19 +458,32 @@ SMJ_API int smj_merge_join_count64(const int* rh, const int* rl, long long nR,
   return (int)cudaGetLastError();
 }
 
-// The same where S holds two ascending runs, s[0, min(nS, span_s)) and
-// s[span_s, nS) (empty when nS <= span_s); R's two runs together are
-// r[0, nR), in any order.
+// The same where each side holds two ascending runs: R's r[0, min(nR,
+// span_r)) and r[span_r, nR), S's s[0, min(nS, span_s)) and s[span_s,
+// nS) (a run 1 is empty when n <= span).
 SMJ_API int smj_merge_join_count2(const int* r, long long nR, const int* s,
-                                  long long nS, long long span_s,
-                                  unsigned long long* out, void* stream) {
-  if (nR == 0) return (int)cudaSuccess;
-  long long blocks = (nR + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const long long s0_end = nS < span_s ? nS : span_s;
-  const long long s1_end = nS > span_s ? nS : span_s;
-  merge_join_count2_kernel<<<(unsigned)blocks, kThreads, 0,
-                             (cudaStream_t)stream>>>(r, nR, s, s0_end, span_s,
-                                                     s1_end, out);
+                                  long long nS, long long span_r,
+                                  long long span_s, unsigned long long* out,
+                                  void* stream) {
+  if (span_r < 1 || span_s < 1) return (int)cudaErrorInvalidValue;
+  const long long r0 = nR < span_r ? nR : span_r;
+  const long long s0 = nS < span_s ? nS : span_s;
+  const int* const rs[2] = {r, r + r0};
+  const int* const ss[2] = {s, s + s0};
+  const long long nrs[2] = {r0, nR - r0}, nss[2] = {s0, nS - s0};
+  CountPairs p;
+  long long ctas = 0;
+  for (int q = 0; q < 4; ++q) {  // (R0, S0), (R0, S1), (R1, S0), (R1, S1)
+    p.r[q] = rs[q >> 1];
+    p.nr[q] = nrs[q >> 1];
+    p.s[q] = ss[q & 1];
+    p.ns[q] = nss[q & 1];
+    p.first[q] = ctas;
+    ctas += count_ctas(p.nr[q], p.ns[q]);
+  }
+  if (ctas == 0) return (int)cudaSuccess;
+  if (ctas > INT_MAX) return (int)cudaErrorInvalidValue;
+  merge_join_count2_kernel<<<(unsigned)ctas, kCountThreads, 0,
+                             (cudaStream_t)stream>>>(p, out);
   return (int)cudaGetLastError();
 }

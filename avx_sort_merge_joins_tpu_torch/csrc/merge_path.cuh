@@ -1,16 +1,17 @@
-// The merge-path tile of K2/K6 (multiway_merge.cu) and K11
-// (remote_pull.cu): the W-way co-rank search of one tile boundary, run by
-// one warp, and the pairwise merge of one tile in shared memory, run by
-// the whole CTA, which K4 (merge_pass.cu) takes at W = 2.  W ascending
-// runs (strips) lie `stride` slots apart in int32 columns; an element is
-// a key (E = int) or a (key, payload) pair packed into one int64 whose
-// signed order is the pairs' lexicographic order (E = long long,
-// smj_pack).
+// The merge-path tile of K2/K6 (multiway_merge.cu, whose varlen mode K9,
+// chunk_gated_merge.cu, runs) and K11 (remote_pull.cu): the W-way co-rank
+// search of one tile boundary, run by one warp, and the pairwise merge of
+// one tile in shared memory, run by the whole CTA, which K4
+// (merge_pass.cu) takes at W = 2.  W ascending runs (strips) lie `stride`
+// slots apart in int32 columns; an element is a key (E = int) or a (key,
+// payload) pair packed into one int64 whose signed order is the pairs'
+// lexicographic order (E = long long, smj_pack).
 //
 // Both are templated on the element type and on the load of the columns
-// (merge_tile.cuh's SmjLdgLoad for K2/K6, whose input is fixed during the
-// launch; SmjPlainLoad for K11, whose landing other CTAs write during the
-// launch and which may not take the non-coherent read-only path).
+// (SmjLdgLoad, an __ldg, for K2/K6, whose input is fixed during the
+// launch; SmjPlainLoad, a plain coherent load, for K11, whose landing
+// other CTAs write during the launch and which may not take the
+// non-coherent read-only path).
 //
 // The co-rank of boundary b is every run's consumed prefix c[r]: how many
 // of the first b merged outputs come from run r, ties to the lower run.
@@ -36,7 +37,19 @@
 // equal elements).
 #pragma once
 
-#include "merge_tile.cuh"
+#include "smj_common.cuh"
+
+struct SmjLdgLoad {
+  __device__ __forceinline__ int operator()(const int* p) const {
+    return __ldg(p);
+  }
+};
+
+struct SmjPlainLoad {
+  __device__ __forceinline__ int operator()(const int* p) const {
+    return *p;
+  }
+};
 
 namespace smj_mp {
 

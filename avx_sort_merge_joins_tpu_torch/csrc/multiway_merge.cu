@@ -24,7 +24,9 @@
 // search by dependent loads.
 //
 // Design: merge-path tiles of kTile outputs, three launches; the co-rank
-// search and the tile merge are merge_path.cuh's, shared with K11.
+// search and the tile merge are merge_path.cuh's, shared with K11.  K9
+// (chunk_gated_merge.cu) runs the varlen mode's launches, its gate
+// between the co-ranks and the tile merge.
 //   1. corank_kernel, coarse: one warp per coarse boundary b = min(t *
 //      kTile, live) of a group, t a multiple of kCoarse, finds each run's
 //      consumed prefix c[t][r] (ties go to the lower run), its windows

@@ -29,28 +29,6 @@ __device__ __forceinline__ int smj_payload(long long v) {
   return (int)((unsigned)v ^ 0x80000000u);
 }
 
-// First index in a[lo, hi) whose key is >= key.
-__device__ __forceinline__ long long smj_lower_bound(const int* __restrict__ a,
-                                                     long long lo, long long hi,
-                                                     int key) {
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// First index in a[lo, hi) whose key is > key.
-__device__ __forceinline__ long long smj_upper_bound(const int* __restrict__ a,
-                                                     long long lo, long long hi,
-                                                     int key) {
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) <= key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 // Bounds over a (key, payload) column pair in lexicographic order, the
 // order of smj_pack: the first index in [lo, hi) whose pair is >= v
 // (kUpper false) or > v (kUpper true).  Each step loads both planes at

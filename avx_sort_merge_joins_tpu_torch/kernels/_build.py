@@ -44,15 +44,15 @@ _SIGNATURES = {
     "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
                                   _I, _P),
     "smj_multiway_merge_scratch": (_L, _L, _I),
-    "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I,
-                              _P),
+    "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _L, _P, _L, _L, _L, _I,
+                              _I, _I, _P),
     "smj_chunk_gated_merge_tile": (),
     "smj_merge_pass": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
     "smj_merge_pass_varlen": (_P, _P, _P, _P, _P, _L, _L, _P),
     "smj_merge_pass_occupancy": (_I, _IP),
     "smj_merge_join_count": (_P, _L, _P, _L, _P, _P),
     "smj_merge_join_count64": (_P, _P, _L, _P, _P, _L, _P, _P),
-    "smj_merge_join_count2": (_P, _L, _P, _L, _L, _P, _P),
+    "smj_merge_join_count2": (_P, _L, _P, _L, _L, _L, _P, _P),
     "smj_radix_hist": (_P, _L, _I, _I, _I, _P, _P),
     "smj_radix_hist_occupancy": (_I, _IP),
     "smj_remote_pull": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P),

@@ -21,7 +21,8 @@ ascending), and the base-2^30 count limbs
 with their ``CountLimbOverflow`` flag -- the count is int64 throughout, so
 a hot key with cntR * cntS >= 2^29 needs no recount.  K10 also drops the
 4-way tagged select, the double-buffered windows and the ``ensure_rows``
-spare rows: it merges nothing.
+spare rows: it runs K3's count over each (R run, S run) pair, all four in
+one launch, and merges no run with another.
 """
 
 from __future__ import annotations
@@ -157,8 +158,8 @@ def merge_join_count_fused2(rk: torch.Tensor, sk: torch.Tensor, nR: int,
     global LAUNCHES2
     with _build.launching_on(rk) as stream:
         code = _build.library().smj_merge_join_count2(
-            rk.data_ptr(), nR, sk.data_ptr(), nS, span_s, out.data_ptr(),
-            stream)
+            rk.data_ptr(), nR, sk.data_ptr(), nS, span_r, span_s,
+            out.data_ptr(), stream)
     _build.check("smj_merge_join_count2", code)
     LAUNCHES2 += 1
     return out

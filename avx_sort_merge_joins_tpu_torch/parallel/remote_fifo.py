@@ -44,8 +44,9 @@ from ..ops.bitonic import KEY_POS_INF
 LAUNCHES = 0  # K9 kernel launches since the last reset
 PULL_LAUNCHES = 0  # K11 kernel launches since the last reset
 
-# Output keys per merge tile: the kernel's kTile (smj_chunk_gated_merge_tile
-# reports it on the card), and the tiles the plain version gates with.
+# Output keys per merge tile: the kernel's (K2's merge-path tile;
+# smj_chunk_gated_merge_tile reports it on the card), and the tiles the
+# plain version gates with.
 GATE_TILE = 4096
 # The most shards K11 takes (its kMaxShards).
 PULL_MAX_SHARDS = 256
@@ -266,14 +267,24 @@ def chunk_gated_merge(landing: torch.Tensor, lens: torch.Tensor,
         return chunk_gated_merge_plain(landing, lens, stride, chunk_elems,
                                        arrive_rounds)
     arrive = _checked(landing, lens, stride, chunk_elems, arrive_rounds)
+    return _gated_launch(landing, lens, stride, chunk_elems, arrive)
+
+
+def _gated_launch(landing: torch.Tensor, lens: torch.Tensor, stride: int,
+                  chunk_elems: int, arrive: torch.Tensor, parts: int = 15,
+                  scratch: torch.Tensor | None = None):
+    """K9 on checked inputs (``arrive`` as :func:`_checked` returns it).
+    ``parts``, a mask of 1 (coarse co-ranks), 2 (fine co-ranks), 8 (the
+    gate) and 4 (the tile merge), picks the launches, the gate and the
+    merge on the co-ranks ``scratch`` holds, for timing each."""
     from ..kernels import _build
+    from ..ops import multiwaymerge as mw
 
     global LAUNCHES
     W, max_chunks = arrive.shape
-    nbounds = -(-(W * stride) // GATE_TILE) + 1
+    if scratch is None:
+        scratch = mw.corank_scratch(landing, 1, stride, W)
     out = torch.empty_like(landing)
-    corank = torch.empty(nbounds * W, dtype=torch.int64,
-                         device=landing.device)
     stats = torch.empty(W + 1, dtype=torch.int32, device=landing.device)
     lib = _build.library()
     if lib.smj_chunk_gated_merge_tile() != GATE_TILE:
@@ -282,8 +293,9 @@ def chunk_gated_merge(landing: torch.Tensor, lens: torch.Tensor,
     with _build.launching_on(landing) as stream:
         code = lib.smj_chunk_gated_merge(
             landing.data_ptr(), lens.data_ptr(), arrive.data_ptr(),
-            out.data_ptr(), corank.data_ptr(), stats.data_ptr(),
-            landing.numel(), stride, chunk_elems, W, max_chunks, stream)
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            stats.data_ptr(), landing.numel(), stride, chunk_elems, W,
+            max_chunks, parts, stream)
     _build.check("smj_chunk_gated_merge", code)
     LAUNCHES += 1
     return out, stats[:W], stats[W]

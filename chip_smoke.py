@@ -88,8 +88,11 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    bits 7, 14 and 16, uniform and Zipf (z = 1.0, made on the host); the
    128M calls timed beside the plain version and ``torch.bincount``.
 12. Kernel vs plain, two-run count, exact: K10 at the 128M route's shapes
-   (runs of 67,108,864 and 60,891,136 keys a side; timed, with K3 on the
-   same keys merged), with R's run 1 empty, and on a hot key past 2^31.
+   (runs of 67,108,864 and 60,891,136 keys a side; timed, beside four K3
+   launches over the same four run pairs and K3 on the same keys merged),
+   with R's or S's run 1 empty, with S cut at 64,000,000 (span_r !=
+   span_s), on runs of one key each (2^43 matches), on keys at +-(2^31 -
+   2) and on a hot key past 2^31.
 13. The two-run route: ``_mway_count_device`` at 128M x 128M under
    SMJ_COUNT2=1 must count 128,000,000 with K1 2, K2 6, K10 1 and K3 0
    launches, and under SMJ_COUNT2=0 with K3 1 and K10 0; both timed.
@@ -111,10 +114,14 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    strip and a slow one), waiting ceil(len / 81,920) chunks a strip with
    no violation, and through the varlen K2; K3 of the two merged columns;
    K9 at W = 2, 4, 16 with an empty strip and one chunk a strip; the
-   varlen K2 at fan-in 2, 4, 16 with ragged and empty runs; K1 and K2 at
-   one shard's 16M shapes.  K9 timed beside its plain version and
-   torch.sort of the landing column, and the ungated varlen K2 on it; K3
-   of the two merged columns timed.
+   K9 at W = 32, 64 and 1,024 (strips of 8,192, chunks of 1,024, a
+   landing 12,293 slots longer than the strips) under the four schedules,
+   ragged and with every slot one key, and shard 0's landing of R with
+   every slot one key (ties decide every co-rank); the varlen K2 at
+   fan-in 2, 4, 16 with ragged and empty runs; K1 and K2 at one shard's
+   16M shapes.  K9 timed beside its plain version and torch.sort of the
+   landing column, and in its parts (co-ranks, gate, tile merge), and the
+   ungated varlen K2 on it; K3 of the two merged columns timed.
 18. The distributed m-way paths, each with the launch counts set to 0 just
    before it and read just after: ``-a m-way -n 8`` at 128M x 128M and
    with ``-S RING``, ``-S RANDOM`` and ``-z 1.0`` at 16M x 16M through the
@@ -134,7 +141,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    memory or stack (their keys and pairs live in registers) fails the
    run.  The same for K4's six kernels and K8's (registers, local memory,
    stack; a K4 or K8 with local memory or stack fails the run), and their
-   CTAs an SM: K4 keys and pairs, K8 at every fanout.
+   CTAs an SM: K4 keys and pairs, K8 at every fanout; and for K3's and
+   K10's kernels (one CTA body) and K9's gate (its co-ranks and merge are
+   K2's kernels): local memory or stack fails the run.
 20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
    shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
    slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
@@ -431,6 +440,26 @@ def merge_parts_ms(runs: torch.Tensor, pays, n: int, level) -> dict:
             parts=mask, scratch=scratch))
 
     return {"corank": part(1 | 2), "coarse": part(1), "merge": part(4)}
+
+
+def gated_parts_ms(land: torch.Tensor, lens: torch.Tensor, stride: int,
+                   chunk: int, arrive, reps: int = REPS) -> dict:
+    """One K9 call timed whole and in its parts, CUDA events: the two
+    co-rank passes, the gate on their co-ranks, and the tile merge on
+    them."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+
+    table = rf._checked(land, lens, stride, chunk, arrive)
+    scratch = mw.corank_scratch(land, 1, stride, lens.numel())
+
+    def part(mask):
+        return time_ms(lambda: rf._gated_launch(
+            land, lens, stride, chunk, table, parts=mask, scratch=scratch),
+            reps)
+
+    return {"all": part(15), "corank": part(1 | 2), "gate": part(8),
+            "merge": part(4)}
 
 
 def k3_cases(rng: np.random.Generator,
@@ -1528,8 +1557,10 @@ def two_run_column(keys: torch.Tensor, span: int) -> torch.Tensor:
 
 def phase_count2_kernel(dev: torch.device, times: Timings) -> None:
     """Exactness of K10 against its plain version at the 128M route's
-    two-run shapes, on a hot key past 2^31 and with run 1 empty on one
-    side; K10 timed there, with K3 on the same keys merged."""
+    two-run shapes, with R's or S's run 1 empty, with S cut elsewhere than
+    R, on runs of one key each, on keys at the domain's ends and on a hot
+    key past 2^31; K10 timed there, beside four K3 launches over the same
+    four run pairs and K3 on the same keys merged."""
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
 
@@ -1542,8 +1573,9 @@ def phase_count2_kernel(dev: torch.device, times: Timings) -> None:
     gen = torch.Generator(device=dev).manual_seed(23)
     rk = two_run_column(torch.randperm(MAIN_N, generator=gen, device=dev)
                         .to(torch.int32) + 1, span)
-    sk = two_run_column(torch.randint(1, MAIN_N + 1, (MAIN_N,), generator=gen,
-                                      dtype=torch.int32, device=dev), span)
+    s_keys = torch.randint(1, MAIN_N + 1, (MAIN_N,), generator=gen,
+                           dtype=torch.int32, device=dev)
+    sk = two_run_column(s_keys, span)
     got = mergejoin.merge_join_count_fused2(rk, sk, MAIN_N, MAIN_N, span,
                                             span)
     record("K10", f"main_shape runs {span} + {MAIN_N - span}", got,
@@ -1556,6 +1588,40 @@ def phase_count2_kernel(dev: torch.device, times: Timings) -> None:
                                              span),
            mergejoin.merge_join_count_fused2_plain(rk, sk, span, MAIN_N,
                                                    span, span))
+    record("K10", f"S run 1 empty: {MAIN_N} x {span}",
+           mergejoin.merge_join_count_fused2(rk, sk, MAIN_N, span, span,
+                                             span),
+           mergejoin.merge_join_count_fused2_plain(rk, sk, MAIN_N, span,
+                                                   span, span))
+    span_s = 64_000_000  # S cut elsewhere than R
+    s_other = two_run_column(s_keys, span_s)
+    record("K10", f"span_r {span} != span_s {span_s}: {MAIN_N} x {MAIN_N}",
+           mergejoin.merge_join_count_fused2(rk, s_other, MAIN_N, MAIN_N,
+                                             span, span_s),
+           mergejoin.merge_join_count_fused2_plain(rk, s_other, MAIN_N,
+                                                   MAIN_N, span, span_s))
+    del s_other, s_keys
+    # runs of one key: R's runs hold 5 and 6, S's 6 and 5 (2^43 matches)
+    half = 1 << 21
+    one = torch.cat([torch.full((half,), 5, dtype=torch.int32, device=dev),
+                     torch.full((half,), 6, dtype=torch.int32, device=dev)])
+    flip = one.flip(0).contiguous()
+    got = mergejoin.merge_join_count_fused2(one, flip, 2 * half, 2 * half,
+                                            half, half)
+    record("K10", "runs of one key", got,
+           mergejoin.merge_join_count_fused2_plain(one, flip, 2 * half,
+                                                   2 * half, half, half))
+    if int(got) != 2 * half * half:
+        raise AssertionError(f"K10 runs of one key: {int(got)}")
+    rng = np.random.default_rng(29)
+    ends = [two_run_column(torch.from_numpy(rng.choice(
+        [-DOMAIN_MAX, DOMAIN_MAX], n).astype(np.int32)).to(dev), sp)
+        for n, sp in ((1_000_003, 600_000), (900_001, 500_000))]
+    record("K10", "domain ends +-(2^31 - 2)",
+           mergejoin.merge_join_count_fused2(*ends, 1_000_003, 900_001,
+                                             600_000, 500_000),
+           mergejoin.merge_join_count_fused2_plain(*ends, 1_000_003, 900_001,
+                                                   600_000, 500_000))
     hot = torch.full((1 << 16,), 7, dtype=torch.int32, device=dev)
     got = mergejoin.merge_join_count_fused2(hot, hot, 1 << 16, 1 << 16,
                                             40_000, 1 << 15)
@@ -1571,11 +1637,17 @@ def phase_count2_kernel(dev: torch.device, times: Timings) -> None:
               time_ms(lambda: mergejoin.merge_join_count_fused2_plain(
                   rk, sk, MAIN_N, MAIN_N, span, span)),
               None, 8 * MAIN_N + 8, 4 * MAIN_N)
+    pairs = [(r, s) for r in mergejoin._two_runs(rk, MAIN_N, span)
+             for s in mergejoin._two_runs(sk, MAIN_N, span)]
+    four = time_ms(lambda: [mergejoin.merge_join_count_fused(
+        r, s, r.numel(), s.numel()) for r, s in pairs])
+    del pairs
     rs, ss = torch.sort(rk).values, torch.sort(sk).values
     k3 = time_ms(lambda: mergejoin.merge_join_count_fused(rs, ss, MAIN_N,
                                                           MAIN_N))
     log(f"[time] K10 count {MAIN_N} x {MAIN_N} over two runs a side: "
-        f"{times.entry('K10')}; K3 on the same keys merged: {k3:.3f} ms")
+        f"{times.entry('K10')}; four K3 launches over the same four run "
+        f"pairs: {four:.3f} ms; K3 on the same keys merged: {k3:.3f} ms")
 
 
 def phase_count2_route(dev: torch.device) -> dict[str, int]:
@@ -1848,6 +1920,38 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
                    f"{arrive.max()}", rf.chunk_gated_merge(
                        land, lens, cap, cap, arrive),
                    rf.chunk_gated_merge_plain(land, lens, cap, cap, arrive))
+    # W = 32, 64, 1,024 at a small stride (above 32 strips the co-rank
+    # windows lie in shared memory), a landing longer than the W strips,
+    # and strips that all hold one key, so that ties to the lower strip
+    # decide every co-rank and the waits at every tile
+    stride, small_chunk = 2 * MERGE_TILE, MERGE_TILE // 4
+    for w in (32, 64, 1024):
+        land, lens = sorted_strips(w, stride, gen, dev)
+        land = torch.cat([land, torch.full((3 * MERGE_TILE + 5,), KEY_INF,
+                                           dtype=torch.int32, device=dev)])
+        for keys in ("ragged", "one key"):
+            if keys == "one key":
+                land = torch.full_like(land, 7)
+            for case, arrive in gate_schedules(
+                    w, stride // small_chunk).items():
+                got = rf.chunk_gated_merge(land, lens, stride, small_chunk,
+                                           arrive)
+                record("K9", f"W={w} stride={stride} cap={land.numel()} "
+                       f"{keys} {case}", got,
+                       rf.chunk_gated_merge_plain(land, lens, stride,
+                                                  small_chunk, arrive))
+                if got[1].tolist() != [-(-n // small_chunk)
+                                       for n in lens.tolist()] \
+                        or int(got[2]) != 0:
+                    raise AssertionError(f"K9 W={w} {keys} {case}: waited "
+                                         f"{got[1].tolist()}, violation "
+                                         f"{int(got[2])}")
+    same = torch.full_like(land_r, 7)
+    for case, arrive in gate_schedules(W, nch).items():
+        record("K9", f"R W={W} one key {case}",
+               rf.chunk_gated_merge(same, lens_r, cap, chunk, arrive),
+               rf.chunk_gated_merge_plain(same, lens_r, cap, chunk, arrive))
+    del same
     for fanin in (2, 4, 16):  # two groups of ragged and empty runs
         land, lens = sorted_strips(2 * fanin, VARLEN_STRIDE, gen, dev)
         lens[fanin] = 0
@@ -1886,10 +1990,13 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
     varlen = time_ms(lambda: mw.multiway_merge(land_r, W, lens=lens_r,
                                                stride=cap))
     vbound = bound_ms(4 * total + 4 * land_r.numel(), total * math.log2(W))
+    parts = gated_parts_ms(land_r, lens_r, cap, chunk, arrive)
     log(f"[time] K9 {W} strips of {cap} ({total} live keys), chunk {chunk}, "
-        f"push schedule: {times.entry('K9')}; the ungated varlen K2 "
-        f"(fan-in {W}) on the same landing: {varlen:.3f} ms (bound "
-        f"{vbound[0]:.3f} ms)")
+        f"push schedule: {times.entry('K9')}; in parts: co-ranks "
+        f"{parts['corank']:.3f} ms, gate {parts['gate']:.3f} ms, merge "
+        f"{parts['merge']:.3f} ms (whole {parts['all']:.3f} ms); the ungated "
+        f"varlen K2 (fan-in {W}) on the same landing: {varlen:.3f} ms "
+        f"(bound {vbound[0]:.3f} ms)")
     return buckets, cap
 
 
@@ -2046,7 +2153,8 @@ def phase_merge_resources() -> None:
     memory on top.  K1's registers, local memory and stack, and the CTAs
     an SM it keeps at each block size: its keys live in registers, and a
     key array in local memory (LOCAL or STACK above 0) fails the run.  The
-    same for K5, whose packed pairs live in registers too."""
+    same for K5, whose packed pairs live in registers too, and for K4's,
+    K8's, K3's, K10's and K9's gate's kernels."""
     import ctypes
 
     from avx_sort_merge_joins_tpu_torch.kernels import _build
@@ -2120,6 +2228,27 @@ def phase_merge_resources() -> None:
             f"{'pairs' if 'kernelIx' in name else 'keys'}, "
             f"{'descending' if 'Lb1E' in name else 'ascending'}, "
             f"{'varlen' if 'Varlen' in name else 'uniform'}>")
+        log(f"[sass] {kernel}: REG {res.get('REG')}, LOCAL "
+            f"{res.get('LOCAL')}, STACK {res.get('STACK')}, SHARED "
+            f"{res.get('SHARED')}")
+        if "REG" not in res or int(res.get("LOCAL", 1)) or \
+                int(res.get("STACK", 1)):
+            raise AssertionError(f"{kernel} uses local memory: {res}")
+    # K3 and K10 (one CTA body) and K9's gate; K9's co-ranks and merge
+    # are K2's kernels, above
+    found = re.findall(r"Function ([^\s:]*(?:merge_join_count2?_kernel|"
+                       r"gate_kernel)[^\s:]*):?\n([^\n]*)", usage)
+    if sorted(re.search(r"(merge_join_count2?_kernel|gate_kernel)",
+                        f).group(1) for f, _ in found) != [
+            "gate_kernel", "merge_join_count2_kernel",
+            "merge_join_count_kernel"]:
+        raise AssertionError(f"cuobjdump: K3/K9/K10 kernels "
+                             f"{[f for f, _ in found]}")
+    for name, line in found:
+        res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
+        kernel = ("K9 gate_kernel" if "gate_kernel" in name else
+                  "K10 merge_join_count2_kernel" if "count2" in name else
+                  "K3 merge_join_count_kernel")
         log(f"[sass] {kernel}: REG {res.get('REG')}, LOCAL "
             f"{res.get('LOCAL')}, STACK {res.get('STACK')}, SHARED "
             f"{res.get('SHARED')}")

@@ -73,6 +73,35 @@ def test_count2_matches_jax_kernel():
         == tmj.merge_join_count_numpy(rk, sk)
 
 
+def _two_runs_cut(rng, n, span, key):
+    """Two ascending runs of n keys in [0, 400) cut at span, with ``key``
+    the last three keys of run 0 and the first three of run 1."""
+    run0 = np.r_[rng.integers(0, key, span - 3), [key] * 3]
+    run1 = np.r_[[key] * 3, rng.integers(key, 400, n - span - 3)]
+    return np.concatenate([np.sort(run0), np.sort(run1)]).astype(np.int32)
+
+
+def test_count2_cut_keys_match_jax_kernel():
+    """R cut at 1,024 and S at 512 (span_r != span_s), the key 200 on both
+    sides of each side's cut, against JAX's merge_join_count_fused2
+    (interpret mode): R's shape is test_count2_matches_jax_kernel's."""
+    rng = np.random.default_rng(3)
+    nR, nS, r_rows, s_rows = 1500, 900, ROWS, ROWS // 2
+    span_r, span_s = r_rows * 128, s_rows * 128
+    rk = _two_runs_cut(rng, nR, span_r, 200)
+    sk = _two_runs_cut(rng, nS, span_s, 200)
+    r2d = np.concatenate([rk, np.full(2 * span_r - nR, 2**31 - 1, np.int32)])
+    s2d = np.concatenate([sk, np.full(2 * span_s - nS, 2**31 - 1, np.int32)])
+    want = jmj.finish_count_fused(jmj.merge_join_count_fused2(
+        jnp.asarray(r2d.reshape(-1, 128)), jnp.asarray(s2d.reshape(-1, 128)),
+        nR, nS, r_rows, s_rows, tile_rows=ROWS))
+    got = tmj.merge_join_count_fused2_plain(torch.from_numpy(rk),
+                                            torch.from_numpy(sk), nR, nS,
+                                            span_r, span_s)
+    assert int(got) == want == tmj.merge_join_count_numpy(rk, sk)
+    assert want > 36  # the cut key: 6 in R times 6 in S, and more
+
+
 @pytest.mark.parametrize("nR,span_r,nS,span_s", [
     (5000, 4096, 3000, 2048),   # ragged run 1 on both sides
     (4096, 4096, 3000, 2048),   # R's run 1 empty

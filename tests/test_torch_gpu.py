@@ -706,6 +706,58 @@ def test_count2_hot_key_passes_2_31(cuda):
     assert int(got) == 1 << 32
 
 
+K3_CTA = 8 * 1920  # merged elements a CTA of K3's tile body (K10's too)
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("a,ctas", [(1, 1), (7_680, 1), (10_000, 2)])
+def test_count2_kernel_at_cta_edges(cuda, a, ctas, edge):
+    """Every run pair's merged length just under, at and just over a
+    multiple of one CTA's tiles: R runs of a keys, S runs of b, a + b =
+    ctas * 15,360 + edge."""
+    b = ctas * K3_CTA + edge - a
+    rk = _two_run_column(2 * a, a, a + edge + 3, 40).to(cuda)
+    sk = _two_run_column(2 * b, b, b + edge + 4, 40).to(cuda)
+    got = tmj.merge_join_count_fused2(rk, sk, 2 * a, 2 * b, a, b)
+    assert int(got) == int(tmj.merge_join_count_fused2_plain(
+        rk, sk, 2 * a, 2 * b, a, b))
+
+
+def _hot_cut_column(n, span, seed):
+    """Two runs whose cut falls inside the key 7's run on both sides: run
+    0 ends with 7s, run 1 starts with them."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.concatenate([
+        np.sort(rng.integers(0, 8, span)),
+        np.sort(rng.integers(7, 15, n - span))]).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["S run 1 empty", "hot key cut",
+                                  "domain ends"])
+def test_count2_kernel_cases(cuda, case):
+    dmax = 2**31 - 2
+    if case == "S run 1 empty":
+        nR, span_r, nS, span_s = 200_000, 131_072, 100_000, 131_072
+        rk = _two_run_column(nR, span_r, 5, 5000)
+        sk = _two_run_column(nS, span_s, 6, 5000)
+    elif case == "hot key cut":
+        nR, span_r, nS, span_s = 90_000, 50_000, 70_000, 36_667
+        rk = _hot_cut_column(nR, span_r, 7)
+        sk = _hot_cut_column(nS, span_s, 8)
+    else:
+        nR, span_r, nS, span_s = 100_003, 60_000, 90_001, 50_000
+        rng = np.random.default_rng(9)
+        rk, sk = (torch.cat([torch.sort(torch.from_numpy(
+            rng.choice([-dmax, dmax], m).astype(np.int32))).values
+            for m in (sp, n - sp)]) for n, sp in ((nR, span_r),
+                                                  (nS, span_s)))
+    rk, sk = rk.to(cuda), sk.to(cuda)
+    got = tmj.merge_join_count_fused2(rk, sk, nR, nS, span_r, span_s)
+    want = tmj.merge_join_count_fused2_plain(rk, sk, nR, nS, span_r, span_s)
+    assert int(got) == int(want) == tmj.merge_join_count_numpy(
+        rk[:nR].cpu().numpy(), sk[:nS].cpu().numpy())
+
+
 def test_mway_count2_route_on_the_card(cuda, monkeypatch):
     """SMJ_COUNT2=1: 19 blocks a side take one fan-in-16 level to two
     runs, then K10; K3 is not launched."""
@@ -765,6 +817,33 @@ def test_chunk_gated_merge_kernel_equals_plain(cuda, W, whole_strip):
         got = trf.chunk_gated_merge(land, tlens, stride, chunk, arrive)
         torch.cuda.synchronize()
         assert trf.LAUNCHES == before + 1
+        want = trf.chunk_gated_merge_plain(land, tlens, stride, chunk,
+                                           arrive)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), case
+        assert got[1].tolist() == [-(-int(n) // chunk) for n in lens]
+        assert int(got[2]) == 0
+
+
+@pytest.mark.parametrize("W", [32, 64, 1024])
+@pytest.mark.parametrize("keys", ["ragged", "one key"])
+def test_chunk_gated_merge_kernel_wide(cuda, W, keys):
+    """K9 above 32 strips (the co-rank windows in shared memory) on a
+    landing longer than the W strips, ragged or with every slot one key
+    (ties to the lower strip decide every co-rank), under the four
+    schedules."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+
+    stride, chunk = 8192, 1024
+    rng = np.random.default_rng(W)
+    lens = rng.integers(0, stride + 1, W)
+    lens[0], lens[-1] = 0, stride
+    land = _landing(lens, stride, W, kmax=50, extra=3 * 4096 + 5).to(cuda)
+    if keys == "one key":
+        land.fill_(7)
+    tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for case, arrive in _gate_schedules(W, stride // chunk).items():
+        got = trf.chunk_gated_merge(land, tlens, stride, chunk, arrive)
         want = trf.chunk_gated_merge_plain(land, tlens, stride, chunk,
                                            arrive)
         for g, w in zip(got, want):

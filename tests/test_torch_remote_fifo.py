@@ -178,6 +178,37 @@ def test_chunk_gated_merge_equals_jax(case):
     assert int(v) == int(jv) == 0
 
 
+@pytest.mark.parametrize("case", list(SCHEDULES))
+def test_chunk_gated_merge_ties_equal_jax(case):
+    """test_chunk_gated_merge_equals_jax's shapes with the strips drawn
+    from four keys, so that ties to the lower strip decide the consumed
+    prefixes at every tile boundary: the plain version, at the kernel's
+    tile and at JAX's, against JAX in interpret mode."""
+    tile_rows, stride_rows, chunk = 8, 32, 1024
+    lens = [3900, 0, 4096, 1111]
+    stride = stride_rows * LANES
+    rng = np.random.default_rng(11)
+    land = np.full(len(lens) * stride + (tile_rows + 8) * LANES, INF,
+                   np.int32)
+    for s, ln in enumerate(lens):
+        land[s * stride:s * stride + ln] = np.sort(rng.integers(-2, 2, ln))
+    jm, jw, jv = jrf.chunk_gated_merge(
+        jnp.asarray(land.reshape(-1, LANES)), lens, stride_rows, chunk,
+        SCHEDULES[case], tile_rows=tile_rows, interpret=True)
+    total = sum(lens)
+    tl = torch.from_numpy(land)
+    tlens = torch.tensor(lens, dtype=torch.int32)
+    for tile in (trf.GATE_TILE, tile_rows * LANES):
+        m, w, v = trf.chunk_gated_merge_plain(tl, tlens, stride, chunk,
+                                              SCHEDULES[case], tile=tile)
+        np.testing.assert_array_equal(m[:total].numpy(),
+                                      np.asarray(jm).reshape(-1)[:total])
+        assert bool((m[total:] == INF).all())
+        assert w.tolist() == np.asarray(jw).tolist() == \
+            [-(-ln // chunk) for ln in lens]
+        assert int(v) == int(jv) == 0
+
+
 @pytest.mark.parametrize("W,lens,chunk", [
     (2, [0, 0], 64), (2, [5000, 1], 8192), (8, [0, 3, 700, 4096, 0, 1, 64,
                                                 2000], 512),
