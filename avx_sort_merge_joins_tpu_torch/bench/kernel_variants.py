@@ -1,16 +1,18 @@
 """Design choices of K1 (block sort), K3 (match count), K4 (merge pass),
-K5 (pair block sort), K8 (radix histogram) and K11 (remote-pull push and
-gated merge) of the PyTorch port, and the parts of K9 (chunk-gated
-merge) and K10 (two-run count), measured against each other on one
-NVIDIA GPU, from the root of a checkout (it takes chip_smoke.py's
-helpers):
+K5 (pair block sort), K7 (64-bit match count), K8 (radix histogram) and
+K11 (remote-pull push and gated merge) of the PyTorch port, and the parts
+of K9 (chunk-gated merge) and K10 (two-run count), measured against each
+other on one NVIDIA GPU, from the root of a checkout (it takes
+chip_smoke.py's helpers):
 
     python -m avx_sort_merge_joins_tpu_torch.bench.kernel_variants [k1 k3 ...]
 
-(the variants of the kernels named among k1, k3, k4, k5, k8, k9, k10,
-k11, default all; ``final`` always runs).  K4 is timed on 128M keys in
-one pass of span 16,384 and one of span 2^26, and on 128M pairs at span
-16,384; K8 on 128M keys at bits 7, 14 and 16, uniform and Zipf (z = 1.0
+(the variants of the kernels named among k1, k3, k4, k5, k7, k8, k9,
+k10, k11, default all; ``final`` always runs).  K4 is timed on 128M keys
+in one pass of span 16,384 and one of span 2^26, and on 128M pairs at
+span 16,384; K7 at 128M x 128M widened int32 keys, beside K3 on the same
+int32 keys (the committed K3 in every variant: a yardstick that does not
+change); K8 on 128M keys at bits 7, 14 and 16, uniform and Zipf (z = 1.0
 over 2^20 values, drawn on the card), global and per tile.
 
 Each variant is a copy of the package in the checkout with one textual
@@ -41,6 +43,15 @@ and built there by the package's own builder:
   k3_part_*        timing only, their output is wrong: K3 making its
                    global searches and nothing else, or copying its tiles
                    and splitting them without walking them;
+  k7_tile_7, k7_256_threads_7, k7_tile_7_copy_ahead, k7_group_4,
+  k7_group_8, k7_group_32  K7 in another shape (Count64Shape in
+                   csrc/merge_join_count.cu: threads, merged elements a
+                   thread, tiles a CTA, window slots, tiles copied ahead;
+                   committed: 128, 15, 16, 2,048, 0);
+  k7_part_*        timing only, their output is wrong: K7 making its
+                   global searches and nothing else, or copying its tiles
+                   and splitting them without walking them (K3 and K10
+                   unchanged);
   k4_part_*        timing only, their output is wrong: K4 making its tile
                    boundaries' searches and nothing else, or loading and
                    storing its tiles without merging them;
@@ -98,12 +109,16 @@ VARIANTS_DIR = os.path.join(CSRC, "build", "variants")
 K4_KEYS = "struct Shape<int> : ShapeOf<{}> {{}};"
 K4_PAIRS = "struct Shape<long long> : ShapeOf<{}> {{}};"
 
+# K7's shape (csrc/merge_join_count.cu), by its arguments
+K7_SHAPE = "struct Count64Shape : CountShape<{}> {{}};"
+
 # the line after K8's counting loop
 K8_ROW = "  int* row = out + (per_tile ? blockIdx.x * (long long)fanout : 0);"
 
 # name -> (what it measures, [(source, committed text, variant's text)])
 VARIANTS = {
-    "final": (("k1", "k3", "k4", "k5", "k8", "k9", "k10", "k11"), []),
+    "final": (("k1", "k3", "k4", "k5", "k7", "k8", "k9", "k10", "k11"),
+              []),
     "k1_one_cta": (("k1",), [
         ("block_sort.cu", "constexpr int kMinBlocks = 2;",
          "constexpr int kMinBlocks = 1;")]),
@@ -148,10 +163,26 @@ VARIANTS = {
          "merge_join_count_kernel(")]),
     "k3_part_search": (("k3",), [
         ("merge_join_count.cu",
-         "  for (int d = 0; d < span; d += kCountTile) {",
-         "  for (int d = span; d < span; d += kCountTile) {")]),
+         "  for (int d = 0; d < span; d += kTile) {",
+         "  for (int d = span; d < span; d += kTile) {")]),
     "k3_part_no_walk": (("k3",), [
         ("merge_join_count.cu", "    if (dl < D) {", "    if (false) {")]),
+    **{f"k7_{name}": (("k7",), [
+        ("merge_join_count.cu", K7_SHAPE.format("128, 15, 16, 2048, 0"),
+         K7_SHAPE.format(shape))])
+       for name, shape in (("tile_7", "128, 7, 8, 1024, 0"),
+                           ("256_threads_7", "256, 7, 8, 2048, 0"),
+                           ("tile_7_copy_ahead", "128, 7, 8, 2048, 1"),
+                           ("group_4", "128, 15, 4, 2048, 0"),
+                           ("group_8", "128, 15, 8, 2048, 0"),
+                           ("group_32", "128, 15, 32, 2048, 0"))},
+    "k7_part_search": (("k7",), [
+        ("merge_join_count.cu",
+         "  for (int d = 0; d < span; d += kTile) {",
+         "  for (int d = kPlanes == 2 ? span : 0; d < span; d += kTile) {")]),
+    "k7_part_no_walk": (("k7",), [
+        ("merge_join_count.cu", "    if (dl < D) {",
+         "    if (kPlanes == 1 && dl < D) {")]),
     "k5_network_only": (("k5",), [
         ("block_sort_pairs.cu", "constexpr int kRunMax = kPer;",
          "constexpr int kRunMax = 16384;")]),
@@ -317,6 +348,7 @@ def worker(name: str, kernels: list[str]) -> None:
     kinds = {"block_sort_kernelILi16384E": "K1",
              "merge_join_count_kernel": "K3",
              "merge_join_count2_kernel": "K10",
+             "merge_join_count64_kernel": "K7",
              "gate_kernel": "K9 gate",
              "merge_pass_kernel": "K4",
              "block_sort_pairs_kernelILi16384E": "K5",
@@ -327,8 +359,8 @@ def worker(name: str, kernels: list[str]) -> None:
             if pattern in fn:
                 res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
                 print(f"[{name}] {kernel}: REG {res.get('REG')}, STACK "
-                      f"{res.get('STACK')}, LOCAL {res.get('LOCAL')}",
-                      flush=True)
+                      f"{res.get('STACK')}, LOCAL {res.get('LOCAL')}, "
+                      f"SHARED {res.get('SHARED')}", flush=True)
     dev = torch.device("cuda", 0)
     what = [k for k in VARIANTS[name][0] if k in kernels]
     if "k1" in what:
@@ -359,6 +391,33 @@ def worker(name: str, kernels: list[str]) -> None:
             print(f"[{name}] K3 {n} x {ns}: {ms:.3f} ms", flush=True)
             del sk
         del rk
+    if "k7" in what:
+        from avx_sort_merge_joins_tpu_torch.ops import join64
+
+        gen = torch.Generator(device=dev).manual_seed(37)
+        rhi, rlo, r64 = cs.wide_planes(cs.CHECK_N, gen, dev)
+        shi, slo, s64 = cs.wide_planes(cs.CHECK_N, gen, dev)
+        exact = int(mergejoin.merge_join_count_fused64(
+            rhi, rlo, shi, slo, cs.CHECK_N, cs.CHECK_N)) == int(
+            join64.merge_join_count_torch64(r64, s64))
+        del rhi, rlo, r64, shi, slo, s64
+        n = cs.MAIN_N
+        rk = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+        sk = torch.sort(torch.randint(1, n + 1, (n,), generator=gen,
+                                      dtype=torch.int32, device=dev)).values
+        rhi, rlo = join64.widen32(rk)
+        shi, slo = join64.widen32(sk)
+        exact = exact and int(mergejoin.merge_join_count_fused64(
+            rhi, rlo, shi, slo, n, n)) == n
+        if exact == name.startswith("k7_part_"):
+            raise AssertionError(f"{name}: K7 exact={exact}")
+        ms = cs.time_ms(lambda: mergejoin.merge_join_count_fused64(
+            rhi, rlo, shi, slo, n, n), 10)
+        k3 = cs.time_ms(lambda: mergejoin.merge_join_count_fused(
+            rk, sk, n, n), 10)
+        print(f"[{name}] K7 {n} x {n}: {ms:.3f} ms; K3 on the same int32 "
+              f"keys {k3:.3f} ms", flush=True)
+        del rk, sk, rhi, rlo, shi, slo
     if "k4" in what:
         gen = torch.Generator(device=dev).manual_seed(11)
         n = cs.MAIN_N
@@ -496,8 +555,8 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         worker(sys.argv[2], sys.argv[3:])
         return 0
-    kernels = sys.argv[1:] or ["k1", "k3", "k4", "k5", "k8", "k9", "k10",
-                               "k11"]
+    kernels = sys.argv[1:] or ["k1", "k3", "k4", "k5", "k7", "k8", "k9",
+                               "k10", "k11"]
     import torch
 
     if not torch.cuda.is_available():

@@ -7,14 +7,16 @@ on stderr so scripts can split the streams (joincommon.c:175-196).
 Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
 -x -y -z -f --nchunks --scalarsort --scalarmerge --non-unique
 --full-range``, the materializing m-way join (``--materialize``),
-``--persist DIR``, the 64-bit-key count join (``--key8b``) and the
-distributed m-way count join ``-a m-way -n N -S NEXT|RING|RANDOM`` on a
-mesh of N shards on one device (``parallel/dist_mway.py``).  Every other
-flag of the reference, and ``-n N`` with the other algorithms,
-``--materialize`` or ``--key8b``, is parsed and refused with "not yet
-ported" and exit code 2.  Relations and kernels run on the card (``--device
-cuda``, the default; without a card the CLI exits 1).  ``--device cpu``
-runs them on the CPU through the kernels' plain PyTorch versions.
+``--persist DIR``, the 64-bit-key count join (``--key8b``; with ``-n N``
+it runs on one device as the JAX CLI does, after the fan-out is raised to
+N) and the distributed m-way count join ``-a m-way -n N -S
+NEXT|RING|RANDOM`` on a mesh of N shards on one device
+(``parallel/dist_mway.py``).  Every other flag of the reference, and ``-n
+N`` with the other algorithms or ``--materialize``, is parsed and refused
+with "not yet ported" and exit code 2.  Relations and kernels run on the
+card (``--device cuda``, the default; without a card the CLI exits 1).
+``--device cpu`` runs them on the CPU through the kernels' plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -88,11 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> list[str]:
     """The flags of this run that the port does not carry yet."""
-    dist = args.nthreads > 1
+    dist = args.nthreads > 1 and not args.key8b  # KEY_8B runs on one device
     checks = [
         (dist and args.algo != "m-way", f"-n {args.nthreads} -a {args.algo}"),
         (dist and args.materialize, f"-n {args.nthreads} --materialize"),
-        (dist and args.key8b, f"-n {args.nthreads} --key8b"),
         (args.mwaybufsize != 0, "-m"),
         (args.perfout is not None, "-o"),
         (args.mapping_file is not None, "--mapping-file"),

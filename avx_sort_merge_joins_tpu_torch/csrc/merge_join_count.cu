@@ -16,35 +16,43 @@
 // and then the two sides, through three tagged bitonic selects per tile.
 //
 // What bounds them on the H100: each key has to be read once, 4 B (K7: 8
-// B), so 128M x 128M keys take 0.306 ms at 3.35 TB/s; nothing is written
-// but one int64.
+// B), so 128M x 128M keys take 0.306 ms at 3.35 TB/s (K7: 0.611); nothing
+// is written but one int64.
 //
 // K3's design: a read-once merge-path count.  The merged order of R and S
 // (ties to R, so key k's merged range is its R run, then its S run) is cut
-// into tiles of kCountTile elements, kCountGroup consecutive tiles a CTA:
-// balanced by elements, so a hot key spreads over as many tiles as it
-// fills.  A CTA finds where its range starts with one two-run merge-path
-// search over R and S, in which a warp's 32 lanes test 32 points a round
-// (about 6 rounds at 128M), and where the run of equal R keys that ends
-// just before it starts (a galloping 32-lane search back).  Those are the
-// only searches in device memory: two a CTA, not one a key (a search a
-// tile boundary measured slower: its scattered sectors cost about as many
-// bytes as the keys).  R and S then stream through two circular windows
-// in shared memory: for each tile the CTA copies only the keys the tile
+// into tiles of kTile elements, kGroup consecutive tiles a CTA: balanced
+// by elements, so a hot key spreads over as many tiles as it fills.  A
+// CTA finds where its range starts with one two-run merge-path search over
+// R and S, in which a warp's 32 lanes test 32 points a round (about 6
+// rounds at 128M), and where the run of equal R keys that ends just before
+// it starts (a galloping 32-lane search back).  Those are the only
+// searches in device memory: two a CTA, not one a key (a search a tile
+// boundary measured slower: its scattered sectors cost about as many bytes
+// as the keys).  R and S then stream through circular windows in shared
+// memory, one a plane: for each tile the CTA copies only the keys the tile
 // may take that are not in the windows yet, with cp.async (16 bytes a copy
-// where a vector of the column is whole), so each key is read once.  The
-// tile's split between R and S, and each thread's share of kCountPer
-// merged elements, come from merge-path searches in the windows; each
-// thread then walks its elements in order without branches.  An S element
-// s adds cntR(s) = (R elements before it in the merged order) - (first
-// index of its R run): the walk knows the run's first index once it has
-// taken that element, the thread gallops back through the window for the
-// run it starts in, and a run that began before the tile counts from a
-// negative start, the run's length before the tile, which each thread
-// carries in registers from tile to tile.  So no key is owned across
-// tiles and nothing is counted twice.  The per-thread int64 sums go
-// through the warp (shuffles) and the block (shared memory) to one
-// atomicAdd a CTA.  No limbs and no overflow flag (nR * nS < 2^62).
+// where a vector of the plane is whole), so each key is read once.  The
+// tile's split between R and S, and each thread's share of kPer merged
+// elements, come from merge-path searches in the windows; each thread then
+// walks its elements in order without branches.  An S element s adds
+// cntR(s) = (R elements before it in the merged order) - (first index of
+// its R run): the walk knows the run's first index once it has taken that
+// element, the thread gallops back through the window for the run it
+// starts in, and a run that began before the tile counts from a negative
+// start, the run's length before the tile, which each thread carries in
+// registers from tile to tile.  So no key is owned across tiles and
+// nothing is counted twice.  The per-thread int64 sums go through the warp
+// (shuffles) and the block (shared memory) to one atomicAdd a CTA.  No
+// limbs and no overflow flag (nR * nS < 2^62).
+//
+// That CTA body, `count_cta`, is a template over the column type: Col32,
+// one int32 plane a side (K3, K10), or Col64, the (hi, lo) planes of K7,
+// each with its own window, whose keys are formed in registers as
+// smj_pack(hi, lo) and compared as int64, so equal hi planes with
+// different lo never match.  K7 is that body at blockIdx.x over two
+// planes a side, in its own shape (Count64Shape): each key of each plane
+// is read once, apart from the two global searches of a CTA.
 //
 // K10 is K3's CTA body over the four (R run, S run) pairs, in one launch:
 // the count does not depend on either side's order beyond each run being
@@ -53,41 +61,79 @@
 // the four pairs' first CTAs and counts its tiles of that pair's merged
 // order.  So each key is read twice (once in each pair it belongs to):
 // 0.612 ms at 128M x 128M, twice the function's bound.
-//
-// K7 keeps a grid-stride loop in which each thread adds, for its R keys,
-// upper_bound - lower_bound over S (two binary searches over global
-// memory a key, bound by load latency; K3 and K10 ran so until their
-// rebuilds).  It forms each 64-bit key in registers from its two planes
-// (smj_pack of (hi, lo_biased) is the original int64 key) and probes both
-// S planes on every search step (smj_pair_bound), so equal hi planes with
-// different lo never match.
 #include "smj_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 8192;
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// K3: kCountPer merged elements a thread (odd, so that the threads'
-// walks start on spread banks), tiles of kCountTile, kCountGroup tiles a
-// CTA; R and S each sit in a circular window of kCountWindow slots of
-// shared memory, which holds the tile being walked and the kCountAhead
-// tiles after it, being copied.
+// A count's shape: kPerN merged elements a thread (odd, so that the
+// threads' walks start on spread banks), tiles of kThreadsN * kPerN,
+// kGroupN tiles a CTA; each plane of R and S sits in a circular window of
+// kWindowN slots of shared memory, which holds the tile being walked and
+// the kAheadN tiles after it, being copied.
+template <int kThreadsN, int kPerN, int kGroupN, int kWindowN, int kAheadN>
+struct CountShape {
+  static constexpr int kThreads = kThreadsN;
+  static constexpr int kPer = kPerN;
+  static constexpr int kTile = kThreadsN * kPerN;
+  static constexpr int kGroup = kGroupN;
+  static constexpr int kWindow = kWindowN;
+  static constexpr int kMask = kWindowN - 1;
+  static constexpr int kAhead = kAheadN;
+  // merged elements a CTA counts
+  static constexpr long long kCta = (long long)kGroupN * kTile;
+  static_assert((kWindow & kMask) == 0 && kWindow >= (1 + kAhead) * kTile,
+                "the window is a power of two that holds the tiles in it");
+};
+
+// K3 and K10: one int32 plane a side, 16 KB of windows a CTA.
 constexpr int kCountThreads = 128;
 constexpr int kCountPer = 15;
-constexpr int kCountTile = kCountThreads * kCountPer;
 constexpr int kCountGroup = 8;
 constexpr int kCountAhead = 0;
 constexpr int kCountWindow = 2048;
-constexpr int kCountMask = kCountWindow - 1;
-static_assert((kCountWindow & kCountMask) == 0 &&
-                  kCountWindow >= (1 + kCountAhead) * kCountTile,
-              "the window is a power of two that holds the tiles in it");
+using Count32Shape = CountShape<kCountThreads, kCountPer, kCountGroup,
+                                kCountWindow, kCountAhead>;
+// K7: two planes a side, 32 KB of windows a CTA; 16 tiles a CTA, which
+// halves the CTAs' global searches (8 and 4 measured slower).
+struct Count64Shape : CountShape<128, 15, 16, 2048, 0> {};
+
+// A sorted key column in device memory.  Col32: one int32 plane.  Col64:
+// the planes hi and lo (its sign bit flipped), whose smj_pack is the int64
+// key.  at(i) reads key i from the planes; in(w, k) forms the key in slot
+// k of the planes' windows w.
+struct Col32 {
+  using Key = int;
+  static constexpr int kPlanes = 1;
+  const int* plane[kPlanes];
+  __device__ __forceinline__ Key at(long long i) const {
+    return __ldg(plane[0] + i);
+  }
+  template <int W>
+  __device__ __forceinline__ static Key in(const int (&w)[kPlanes][W],
+                                           int k) {
+    return w[0][k];
+  }
+};
+
+struct Col64 {
+  using Key = long long;
+  static constexpr int kPlanes = 2;
+  const int* plane[kPlanes];
+  __device__ __forceinline__ Key at(long long i) const {
+    return smj_pack(__ldg(plane[0] + i), __ldg(plane[1] + i));
+  }
+  template <int W>
+  __device__ __forceinline__ static Key in(const int (&w)[kPlanes][W],
+                                           int k) {
+    return smj_pack(w[0][k], w[1][k]);
+  }
+};
 
 // Adds the block's sum of `acc` to *out: shuffles within the warp, shared
 // memory across warps, one atomicAdd per block.  Every thread calls it.
-template <int kT = kThreads>
+template <int kT>
 __device__ __forceinline__ void block_add(unsigned long long acc,
                                           unsigned long long* out) {
   __shared__ unsigned long long warp_sums[kT / 32];
@@ -116,15 +162,15 @@ __device__ __forceinline__ long long lane_of(long long v, int src) {
 // holds by definition; the test holds up to the answer and fails after
 // it).  Each round the lanes test 32 points spread over the open range
 // and keep the gap between the last that holds and the first that fails.
-__device__ long long corank2(const int* __restrict__ r, long long nR,
-                             const int* __restrict__ s, long long nS,
-                             long long d, int lane) {
+template <class C>
+__device__ long long corank2(const C& r, long long nR, const C& s,
+                             long long nS, long long d, int lane) {
   long long lo = d > nS ? d - nS : 0;
   long long hi = d < nR ? d : nR;
   while (lo < hi) {
     const long long len = hi - lo;
     const long long m = lo + 1 + (len >= 32 ? lane * len / 32 : lane);
-    const bool holds = m <= hi && __ldg(r + m - 1) <= __ldg(s + d - m);
+    const bool holds = m <= hi && r.at(m - 1) <= s.at(d - m);
     const int c = __popc(__ballot_sync(kFullWarp, holds));
     const long long below = lane_of(m, c > 0 ? c - 1 : 0);
     const long long above = lane_of(m, c < 32 ? c : 31);
@@ -137,18 +183,18 @@ __device__ long long corank2(const int* __restrict__ r, long long nR,
 // One warp: the first index of the run of equal keys that ends at r[e].
 // The lanes first test e - 2^l (lane 31: "before index 0"), then narrow
 // the gap they find 32 points a round.
-__device__ long long run_start(const int* __restrict__ r, long long e,
-                               int lane) {
-  const int key = __ldg(r + e);
+template <class C>
+__device__ long long run_start(const C& r, long long e, int lane) {
+  const typename C::Key key = r.at(e);
   long long p = lane == 31 ? -1 : e - (1LL << lane);
-  bool other = p < 0 || __ldg(r + p) != key;
+  bool other = p < 0 || r.at(p) != key;
   int f = __ffs(__ballot_sync(kFullWarp, other)) - 1;  // lane 31 differs
   long long lo = lane_of(p, f) < 0 ? -1 : lane_of(p, f);  // r[lo] != key
   long long hi = f == 0 ? e : lane_of(p, f > 0 ? f - 1 : 0);  // == key
   while (hi - lo > 1) {
     const long long len = hi - lo - 1;  // unknown slots (lo, hi)
     const long long m = lo + 1 + (len >= 32 ? lane * len / 32 : lane);
-    other = m < hi && __ldg(r + m) != key;
+    other = m < hi && r.at(m) != key;
     const int c = __popc(__ballot_sync(kFullWarp, other));
     const long long below = lane_of(m, c > 0 ? c - 1 : 0);
     const long long above = lane_of(m, c < 32 ? c : 31);
@@ -161,9 +207,9 @@ __device__ long long run_start(const int* __restrict__ r, long long e,
 
 // First index q in [0, i) with at(q), ..., at(i - 1) all equal to key =
 // at(i - 1) (0 when i == 0): a gallop back, then a binary search.
-template <class At>
+template <class At, typename Key>
 __device__ __forceinline__ int local_run_start(const At& at, int i,
-                                               int key) {
+                                               Key key) {
   if (i == 0) return 0;
   int hi = i - 1, step = 1, lo = hi - 1;
   while (lo >= 0 && at(lo) == key) {
@@ -207,54 +253,57 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Starts copying col[from, to) into the circular window win (element k
-// at slot (base + k) & kCountMask, where base + k is the element's index
-// in its column modulo the window; to - from <= kCountWindow), without
-// waiting: the whole 16-byte vectors of the column inside the range 16
-// bytes at a time when the column is aligned, the rest 4 bytes at a time.
-// Slots outside the range are not written: they may hold live elements.
-__device__ __forceinline__ void load_window(const int* __restrict__ col,
+// Starts copying plane[from, to) into the circular window win (element k
+// at slot (base + k) & Shape::kMask, where base + k is the element's index
+// in its plane modulo the window; to - from <= Shape::kWindow), without
+// waiting: the whole 16-byte vectors of the plane inside the range 16
+// bytes at a time when the planes are aligned, the rest 4 bytes at a
+// time.  Slots outside the range are not written: they may hold live
+// elements.
+template <class Shape>
+__device__ __forceinline__ void load_window(const int* __restrict__ plane,
                                             int from, int to, int* win,
                                             int base, bool aligned) {
   int h = from + ((4 - ((base + from) & 3)) & 3);  // whole vectors [h, e)
   int e = to - ((base + to) & 3);
   if (!aligned || h >= e) h = e = to;
-  for (int k = from + threadIdx.x; k < h; k += kCountThreads)
-    cp_async4(win + ((base + k) & kCountMask), col + k);
-  for (int k = h + 4 * threadIdx.x; k < e; k += 4 * kCountThreads)
-    cp_async16(win + ((base + k) & kCountMask), col + k, 16);
-  for (int k = e + threadIdx.x; k < to; k += kCountThreads)
-    cp_async4(win + ((base + k) & kCountMask), col + k);
+  for (int k = from + threadIdx.x; k < h; k += Shape::kThreads)
+    cp_async4(win + ((base + k) & Shape::kMask), plane + k);
+  for (int k = h + 4 * threadIdx.x; k < e; k += 4 * Shape::kThreads)
+    cp_async16(win + ((base + k) & Shape::kMask), plane + k, 16);
+  for (int k = e + threadIdx.x; k < to; k += Shape::kThreads)
+    cp_async4(win + ((base + k) & Shape::kMask), plane + k);
 }
 
-// Merged elements a CTA counts.
-constexpr long long kCountCta = (long long)kCountGroup * kCountTile;
-
 // CTAs that count r[0, nR) against s[0, nS): none when a side is empty.
+template <class Shape>
 __host__ __device__ __forceinline__ long long count_ctas(long long nR,
                                                          long long nS) {
-  return nR == 0 || nS == 0 ? 0 : (nR + nS + kCountCta - 1) / kCountCta;
+  return nR == 0 || nS == 0 ? 0 : (nR + nS + Shape::kCta - 1) / Shape::kCta;
 }
 
 // The whole CTA (every thread calls it): CTA `cta` of the count of
-// r[0, nR) against s[0, nS) counts kCountGroup tiles of their merged
+// r[0, nR) against s[0, nS) counts Shape::kGroup tiles of their merged
 // order (the last CTA fewer) and adds them to *out.  Its first boundary
 // and the R run that ends just before it come from global searches; after
 // that every boundary, run start and carry follows from the windows, each
 // thread keeping its own copy of these uniform values in registers, as
 // offsets from the CTA's first boundary.
-__device__ __forceinline__ void count_cta(const int* __restrict__ r,
-                                          long long nR,
-                                          const int* __restrict__ s,
-                                          long long nS, long long cta,
+template <class Shape, class C>
+__device__ __forceinline__ void count_cta(const C& r, long long nR,
+                                          const C& s, long long nS,
+                                          long long cta,
                                           unsigned long long* out) {
-  __shared__ __align__(16) int rw[kCountWindow];
-  __shared__ __align__(16) int sw[kCountWindow];
+  using Key = typename C::Key;
+  constexpr int kPlanes = C::kPlanes, kMask = Shape::kMask;
+  constexpr int kTile = Shape::kTile, kAhead = Shape::kAhead;
+  __shared__ __align__(16) int rw[kPlanes][Shape::kWindow];
+  __shared__ __align__(16) int sw[kPlanes][Shape::kWindow];
   __shared__ long long first_i, first_len;
-  __shared__ int first_key;
-  const long long d_first = cta * kCountCta;
+  __shared__ Key first_key;
+  const long long d_first = cta * Shape::kCta;
   const long long left = nR + nS - d_first;
-  const int span = (int)(left < kCountCta ? left : kCountCta);
+  const int span = (int)(left < Shape::kCta ? left : Shape::kCta);
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     const long long i = corank2(r, nR, s, nS, d_first, lane);
@@ -262,51 +311,63 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
     if (lane == 0) {
       first_i = i;
       first_len = i - c;
-      first_key = i > 0 ? __ldg(r + i - 1) : 0;
+      first_key = i > 0 ? r.at(i - 1) : Key(0);
     }
   }
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(s)) &
-       15) == 0;
+  uintptr_t addresses = 0;
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q)
+    addresses |= reinterpret_cast<uintptr_t>(r.plane[q]) |
+                 reinterpret_cast<uintptr_t>(s.plane[q]);
+  const bool aligned = (addresses & 15) == 0;
   __syncthreads();
   // this CTA's columns: R from i_first, S from j_first, at most nr and ns
   // of each
   const long long i_first = first_i, j_first = d_first - first_i;
-  const int* const rc = r + i_first;
-  const int* const sc = s + j_first;
+  C rc = r, sc = s;
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) {
+    rc.plane[q] += i_first;
+    sc.plane[q] += j_first;
+  }
   const int nr = (int)(nR - i_first < span ? nR - i_first : span);
   const int ns = (int)(nS - j_first < span ? nS - j_first : span);
-  const int rbase = (int)(i_first & kCountMask);
-  const int sbase = (int)(j_first & kCountMask);
+  const int rbase = (int)(i_first & kMask);
+  const int sbase = (int)(j_first & kMask);
   const bool r_before = i_first > 0;
   // the tile: R from i0, S from j0; the R run that ends just before it:
   // key carry_key, carry_len elements; copies started: R to r_lo, S to
   // s_lo
   int i0 = 0, j0 = 0, r_lo = 0, s_lo = 0;
   long long carry_len = first_len;
-  int carry_key = first_key;
+  Key carry_key = first_key;
   // starts copying whatever the next `reach` merged elements may take
   auto copy_ahead = [&](int reach) {
     const int r_to = i0 + reach < nr ? i0 + reach : nr;
     const int s_to = j0 + reach < ns ? j0 + reach : ns;
-    if (r_to > r_lo) load_window(rc, r_lo, r_to, rw, rbase, aligned);
-    if (s_to > s_lo) load_window(sc, s_lo, s_to, sw, sbase, aligned);
+#pragma unroll
+    for (int q = 0; q < kPlanes; ++q) {
+      if (r_to > r_lo)
+        load_window<Shape>(rc.plane[q], r_lo, r_to, rw[q], rbase, aligned);
+      if (s_to > s_lo)
+        load_window<Shape>(sc.plane[q], s_lo, s_to, sw[q], sbase, aligned);
+    }
     r_lo = r_to > r_lo ? r_to : r_lo;
     s_lo = s_to > s_lo ? s_to : s_lo;
     cp_async_commit();
   };
-  if (kCountAhead > 0) copy_ahead(span < kCountTile ? span : kCountTile);
+  if (kAhead > 0) copy_ahead(span < kTile ? span : kTile);
   unsigned long long acc = 0;
-  for (int d = 0; d < span; d += kCountTile) {
-    const int D = span - d < kCountTile ? span - d : kCountTile;
-    // this tile and the kCountAhead after it take at most D + kCountAhead
-    // * kCountTile elements of each side: copy those during this walk
-    copy_ahead(D + kCountAhead * kCountTile);
-    cp_async_wait<kCountAhead>();  // this thread's copies for this tile
-    __syncthreads();               // everyone's
-    const int rb = (rbase + i0) & kCountMask, sb = (sbase + j0) & kCountMask;
-    auto R = [&](int k) { return rw[(rb + k) & kCountMask]; };
-    auto S = [&](int k) { return sw[(sb + k) & kCountMask]; };
+  for (int d = 0; d < span; d += kTile) {
+    const int D = span - d < kTile ? span - d : kTile;
+    // this tile and the kAhead after it take at most D + kAhead * kTile
+    // elements of each side: copy those during this walk
+    copy_ahead(D + kAhead * kTile);
+    cp_async_wait<kAhead>();  // this thread's copies for this tile
+    __syncthreads();          // everyone's
+    const int rb = (rbase + i0) & kMask, sb = (sbase + j0) & kMask;
+    auto R = [&](int k) { return C::in(rw, (rb + k) & kMask); };
+    auto S = [&](int k) { return C::in(sw, (sb + k) & kMask); };
     // the tile's split: a of its D elements from R, b from S
     const int va = nr - i0 < D ? nr - i0 : D, vb = ns - j0 < D ? ns - j0 : D;
     int lo = D - vb, hi = va;
@@ -316,9 +377,9 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
     }
     const int a = lo, b = D - lo;
     const bool before = r_before || i0 > 0;  // an R element before the tile
-    const int dl = threadIdx.x * kCountPer;
+    const int dl = threadIdx.x * Shape::kPer;
     if (dl < D) {
-      const int dend = dl + kCountPer < D ? dl + kCountPer : D;
+      const int dend = dl + Shape::kPer < D ? dl + Shape::kPer : D;
       lo = dl > b ? dl - b : 0;
       hi = dl < a ? dl : a;
       while (lo < hi) {
@@ -330,7 +391,7 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
       // (negative: the run began before the tile).  With no R element
       // before the thread's first, last = R(0): every S key taken before
       // R(0) is smaller.
-      int last;
+      Key last;
       long long start;
       if (ri > 0) {
         last = R(ri - 1);
@@ -344,7 +405,7 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
         start = 0;
       }
       unsigned long long sum = 0;
-      int ra = R(ri), sh = S(sj);
+      Key ra = R(ri), sh = S(sj);
       // one merged element a step, without branches: R's head if it is
       // <= S's (a new run when its key changes), else S's (a match when
       // its key is the run's); then one load refills the head taken
@@ -355,7 +416,7 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
         sum += !take_r && sh == last ? (unsigned long long)(ri - start) : 0;
         ri += take_r;
         sj += !take_r;
-        const int next = take_r ? R(ri) : S(sj);
+        const Key next = take_r ? R(ri) : S(sj);
         ra = take_r ? next : ra;
         sh = take_r ? sh : next;
       }
@@ -363,7 +424,7 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
     }
     // the R run that ends with the tile's last R element, for the next
     if (a > 0) {
-      const int key = R(a - 1);
+      const Key key = R(a - 1);
       const int q = local_run_start(R, a, key);
       carry_len = q == 0 && before && carry_key == key ? carry_len + a
                                                        : a - q;
@@ -374,15 +435,15 @@ __device__ __forceinline__ void count_cta(const int* __restrict__ r,
     j0 += b;
   }
   cp_async_wait<0>();  // copies ahead past the last tile, unused
-  block_add<kCountThreads>(acc, out);
+  block_add<Shape::kThreads>(acc, out);
 }
 
-// K3: one CTA a kCountCta merged elements.
+// K3: one CTA a Count32Shape::kCta merged elements.
 __global__ void __launch_bounds__(kCountThreads)
 merge_join_count_kernel(const int* __restrict__ r, long long nR,
                         const int* __restrict__ s, long long nS,
                         unsigned long long* out) {
-  count_cta(r, nR, s, nS, blockIdx.x, out);
+  count_cta<Count32Shape>(Col32{{r}}, nR, Col32{{s}}, nS, blockIdx.x, out);
 }
 
 // K10's four pairs: pair q counts r[q] against s[q] with its CTAs from
@@ -406,27 +467,21 @@ merge_join_count2_kernel(const CountPairs p, unsigned long long* out) {
   // the last pair that starts at or before b (an empty pair starts where
   // the next one does)
   const int q = (b >= p.first[1]) + (b >= p.first[2]) + (b >= p.first[3]);
-  count_cta(pick(p.r, q), pick(p.nr, q), pick(p.s, q), pick(p.ns, q),
-            b - pick(p.first, q), out);
+  count_cta<Count32Shape>(Col32{{pick(p.r, q)}}, pick(p.nr, q),
+                          Col32{{pick(p.s, q)}}, pick(p.ns, q),
+                          b - pick(p.first, q), out);
 }
 
-__global__ void merge_join_count64_kernel(const int* __restrict__ rh,
-                                          const int* __restrict__ rl,
-                                          long long nR,
-                                          const int* __restrict__ sh,
-                                          const int* __restrict__ sl,
-                                          long long nS,
-                                          unsigned long long* out) {
-  unsigned long long acc = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nR;
-       i += stride) {
-    const long long key = smj_pack(rh[i], rl[i]);
-    const long long lo = smj_pair_bound<false>(sh, sl, 0, nS, key);
-    if (lo < nS && smj_pack(__ldg(sh + lo), __ldg(sl + lo)) == key)
-      acc += smj_pair_bound<true>(sh, sl, lo + 1, nS, key) - lo;
-  }
-  block_add(acc, out);
+// K7: K3's CTA body over the (hi, lo) planes, one CTA a
+// Count64Shape::kCta merged elements.
+__global__ void __launch_bounds__(Count64Shape::kThreads)
+merge_join_count64_kernel(const int* __restrict__ rh,
+                          const int* __restrict__ rl, long long nR,
+                          const int* __restrict__ sh,
+                          const int* __restrict__ sl, long long nS,
+                          unsigned long long* out) {
+  count_cta<Count64Shape>(Col64{{rh, rl}}, nR, Col64{{sh, sl}}, nS,
+                          blockIdx.x, out);
 }
 
 }  // namespace
@@ -436,7 +491,7 @@ __global__ void merge_join_count64_kernel(const int* __restrict__ rh,
 SMJ_API int smj_merge_join_count(const int* r, long long nR, const int* s,
                                  long long nS, unsigned long long* out,
                                  void* stream) {
-  const long long blocks = count_ctas(nR, nS);
+  const long long blocks = count_ctas<Count32Shape>(nR, nS);
   if (blocks == 0) return (int)cudaSuccess;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   merge_join_count_kernel<<<(unsigned)blocks, kCountThreads, 0,
@@ -449,10 +504,10 @@ SMJ_API int smj_merge_join_count(const int* r, long long nR, const int* s,
 SMJ_API int smj_merge_join_count64(const int* rh, const int* rl, long long nR,
                                    const int* sh, const int* sl, long long nS,
                                    unsigned long long* out, void* stream) {
-  if (nR == 0) return (int)cudaSuccess;
-  long long blocks = (nR + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  merge_join_count64_kernel<<<(unsigned)blocks, kThreads, 0,
+  const long long blocks = count_ctas<Count64Shape>(nR, nS);
+  if (blocks == 0) return (int)cudaSuccess;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  merge_join_count64_kernel<<<(unsigned)blocks, Count64Shape::kThreads, 0,
                               (cudaStream_t)stream>>>(rh, rl, nR, sh, sl, nS,
                                                       out);
   return (int)cudaGetLastError();
@@ -479,7 +534,7 @@ SMJ_API int smj_merge_join_count2(const int* r, long long nR, const int* s,
     p.s[q] = ss[q & 1];
     p.ns[q] = nss[q & 1];
     p.first[q] = ctas;
-    ctas += count_ctas(p.nr[q], p.ns[q]);
+    ctas += count_ctas<Count32Shape>(p.nr[q], p.ns[q]);
   }
   if (ctas == 0) return (int)cudaSuccess;
   if (ctas > INT_MAX) return (int)cudaErrorInvalidValue;

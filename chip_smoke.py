@@ -57,12 +57,15 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    totals, identical pairs in several runs and pad-valued payloads, then
    at every level of a 128M-pair sort (fan-in 16, 16, 16, 2; timed, also
    in its parts, as K2's) and of a 32M-pair one (16, 16, 8); K7 (64-bit
-   match count) on keys whose hi plane varies, on one hot key whose
-   product passes 2^31, and on 128M x 128M sorted planes (timed).  Then
-   K2 and K6 where the merge-path tiles have their edges: group totals of
-   MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1 and 3 MERGE_TILE + 7 at
-   fan-in 2, 4, 8, 16, uniform and varlen, keys over the whole domain or
-   at +-(2^31 - 2) with payloads INT32_MAX and INT32_MIN; one hot key
+   match count) on keys whose hi plane varies (also with each of the four
+   planes a view at a 4-byte offset: the 4-byte copy path), on equal hi
+   planes with different lo planes, on one hot key whose product passes
+   2^31, on one hot key over many CTAs, and on 128M x 128M sorted planes
+   (timed).  Then K2 and K6 where the merge-path tiles have their edges:
+   group totals of MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1 and 3
+   MERGE_TILE + 7 at fan-in 2, 4, 8, 16, uniform and varlen, keys over the
+   whole domain or at +-(2^31 - 2) with payloads INT32_MAX and INT32_MIN;
+   one hot key
    in every run over many tiles (keys, identical pairs, pairs that differ
    only in payload, alone and between other keys); the varlen K6 at
    dist_materialize's landing (8 strips of 4,014,080 slots, ragged and
@@ -141,9 +144,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    memory or stack (their keys and pairs live in registers) fails the
    run.  The same for K4's six kernels and K8's (registers, local memory,
    stack; a K4 or K8 with local memory or stack fails the run), and their
-   CTAs an SM: K4 keys and pairs, K8 at every fanout; and for K3's and
-   K10's kernels (one CTA body) and K9's gate (its co-ranks and merge are
-   K2's kernels): local memory or stack fails the run.
+   CTAs an SM: K4 keys and pairs, K8 at every fanout; and for K3's, K7's
+   and K10's kernels (one CTA body; K7's static shared memory printed)
+   and K9's gate (its co-ranks and merge are K2's kernels): local memory
+   or stack fails the run.
 20. Kernel vs plain, exact: K11 (push and chunk-gated merge of every
    shard in one launch) at n = 2, 4, 8, 16 shards with strips of 131,072
    slots, chunk = a strip and 16K, 32K, 64K keys, uniform keys, empty
@@ -1062,7 +1066,43 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
     base = int(join64.merge_join_count_torch64(r64, s64))
     if int(got) != base or base < n // 4:
         raise AssertionError(f"K7 wide keys: {int(got)} != baseline {base}")
-    # equal hi planes with different lo planes never match
+    # each plane in turn a view at a 4-byte offset: the kernel's 16-byte
+    # copies need all four planes 16-byte aligned, else it copies 4 bytes
+    # at a time
+    planes = [rhi, rlo, shi, slo]
+    for q, what in enumerate(("R hi", "R lo", "S hi", "S lo")):
+        moved = list(planes)
+        moved[q] = torch.empty(planes[q].numel() + 1, dtype=torch.int32,
+                               device=dev)[1:].copy_(planes[q])
+        if moved[q].data_ptr() % 16 == 0:
+            raise AssertionError("K7 offset view: still 16-byte aligned")
+        got = mergejoin.merge_join_count_fused64(*moved, n, n // 2)
+        record("K7", f"wide_keys, {what} at a 4-byte offset", got,
+               mergejoin.merge_join_count_fused64_plain(*moved, n, n // 2))
+        if int(got) != base:
+            raise AssertionError(f"K7 {what} at a 4-byte offset: "
+                                 f"{int(got)} != baseline {base}")
+    del planes, moved
+    # one 64-bit key 100,000 times in R and 200,000 times in S, between
+    # other keys: its run crosses many of K7's CTAs (30,720 merged
+    # elements each)
+    hot = r64[n // 3].reshape(1)
+    r64h = torch.sort(torch.cat([r64[:50_000], hot.expand(100_000)])).values
+    s64h = torch.sort(torch.cat([r64[:70_000:2], hot.expand(200_000)])).values
+    got = mergejoin.merge_join_count_fused64(
+        *sort_ops.unpack_pairs(r64h), *sort_ops.unpack_pairs(s64h),
+        r64h.numel(), s64h.numel())
+    record("K7", "hot key over many CTAs", got,
+           mergejoin.merge_join_count_fused64_plain(
+               *sort_ops.unpack_pairs(r64h), *sort_ops.unpack_pairs(s64h),
+               r64h.numel(), s64h.numel()))
+    base = int(join64.merge_join_count_torch64(r64h, s64h))
+    if int(got) != base or base < 100_000 * 200_000:
+        raise AssertionError(f"K7 hot key over many CTAs: {int(got)} != "
+                             f"baseline {base}")
+    del r64h, s64h
+    # equal hi planes with different lo planes never match, also where
+    # the tiles have their edges
     even = torch.arange(0, 2 * n, 2, dtype=torch.int32, device=dev)
     same_hi = torch.full_like(even, -3)
     record("K7", "no_matches", mergejoin.merge_join_count_fused64(
@@ -2154,7 +2194,7 @@ def phase_merge_resources() -> None:
     an SM it keeps at each block size: its keys live in registers, and a
     key array in local memory (LOCAL or STACK above 0) fails the run.  The
     same for K5, whose packed pairs live in registers too, and for K4's,
-    K8's, K3's, K10's and K9's gate's kernels."""
+    K8's, K3's, K7's, K10's and K9's gate's kernels."""
     import ctypes
 
     from avx_sort_merge_joins_tpu_torch.kernels import _build
@@ -2234,20 +2274,21 @@ def phase_merge_resources() -> None:
         if "REG" not in res or int(res.get("LOCAL", 1)) or \
                 int(res.get("STACK", 1)):
             raise AssertionError(f"{kernel} uses local memory: {res}")
-    # K3 and K10 (one CTA body) and K9's gate; K9's co-ranks and merge
-    # are K2's kernels, above
-    found = re.findall(r"Function ([^\s:]*(?:merge_join_count2?_kernel|"
-                       r"gate_kernel)[^\s:]*):?\n([^\n]*)", usage)
-    if sorted(re.search(r"(merge_join_count2?_kernel|gate_kernel)",
+    # K3, K7 and K10 (one CTA body) and K9's gate; K9's co-ranks and
+    # merge are K2's kernels, above
+    found = re.findall(r"Function ([^\s:]*(?:merge_join_count(?:2|64)?_"
+                       r"kernel|gate_kernel)[^\s:]*):?\n([^\n]*)", usage)
+    if sorted(re.search(r"(merge_join_count(?:2|64)?_kernel|gate_kernel)",
                         f).group(1) for f, _ in found) != [
             "gate_kernel", "merge_join_count2_kernel",
-            "merge_join_count_kernel"]:
-        raise AssertionError(f"cuobjdump: K3/K9/K10 kernels "
+            "merge_join_count64_kernel", "merge_join_count_kernel"]:
+        raise AssertionError(f"cuobjdump: K3/K7/K9/K10 kernels "
                              f"{[f for f, _ in found]}")
     for name, line in found:
         res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
         kernel = ("K9 gate_kernel" if "gate_kernel" in name else
                   "K10 merge_join_count2_kernel" if "count2" in name else
+                  "K7 merge_join_count64_kernel" if "count64" in name else
                   "K3 merge_join_count_kernel")
         log(f"[sass] {kernel}: REG {res.get('REG')}, LOCAL "
             f"{res.get('LOCAL')}, STACK {res.get('STACK')}, SHARED "

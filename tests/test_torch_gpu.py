@@ -477,35 +477,126 @@ def test_merge_tuples_on_the_card(cuda, na, nb):
     assert none is None and torch.equal(gk, wk)
 
 
-def _wide_sorted_planes(n, seed, cuda):
+K7_TILE = 1920  # merged elements a tile of K7 (csrc/merge_join_count.cu)
+K7_CTA = 16 * K7_TILE  # merged elements a CTA of K7
+
+
+def _wide_keys(n, seed):
+    """n int64 keys drawn from n // 3 values spread over the int64 range:
+    the hi plane varies and keys repeat; the lo plane wraps at 2^32 - 1."""
     rng = np.random.default_rng(seed)
     pool = rng.integers(-(2**62), 2**62, max(2, n // 3)).astype(np.int64)
     pool[0], pool[1] = 2**32 - 1, 2**32
-    keys = np.sort(pool[rng.integers(0, len(pool), n)])
-    hi, lo = tj.split64(keys)
-    return keys, torch.from_numpy(hi).to(cuda), torch.from_numpy(lo).to(cuda)
+    return pool[rng.integers(0, len(pool), n)]
 
 
-@pytest.mark.parametrize("nR,nS", [(1, 1), (5000, 7000), (200_000, 150_000)])
-def test_count64_kernel_equals_plain(cuda, nR, nS):
-    """K7 on keys whose hi plane varies; equal hi with other lo never
-    matches."""
-    rk, rhi, rlo = _wide_sorted_planes(nR, 3, cuda)
-    sk, shi, slo = _wide_sorted_planes(nS, 3, cuda)
+def k7_case(kind):
+    """Sorted int64 (R, S) keys at the edges of K7's merge-path tiles
+    (the CPU tests of tests/test_torch_join64.py count the same)."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    pool = rng.integers(-(2**62), 2**62, 40)  # the hi plane varies
+
+    def draw(n):
+        return pool[rng.integers(0, len(pool), n)]
+
+    hot = np.int64((0x1234 << 32) | 0x9ABC)
+    if kind.startswith("wide_"):  # "wide_<nR>_<nS>"
+        _, nr, ns = kind.split("_")
+        r, s = _wide_keys(int(nr), 3), _wide_keys(int(ns), 3)
+    elif kind == "hot_key_over_3_ctas":
+        r = np.r_[np.full(30_000, hot), draw(300)]
+        s = np.r_[np.full(32_000, hot), draw(300)]
+    elif kind == "hot_key_in_S_over_100_tiles":
+        r = np.r_[hot, draw(2000)]
+        s = np.r_[np.full(100 * K7_TILE, hot), draw(500)]
+    elif kind == "runs_across_tile_and_window":
+        # runs a little shorter and longer than a tile and than the
+        # 2,048-slot window, on both sides, and keys on one side only
+        lens = np.array([1919, 1920, 1921, 2047, 2048, 2049])
+        keys = np.sort(pool[:6])
+        r = np.r_[np.repeat(keys, lens), pool[6:20]]
+        s = np.r_[np.repeat(keys, lens[::-1]), pool[20:34]]
+    elif kind == "hi_ties_lo_differs":
+        # two hi planes; R's lo planes even, S's any: equal hi with
+        # another lo at every tile edge, and equal lo with another hi
+        r = (rng.choice([5, 6], 2500) << 32) | 2 * rng.integers(0, 300, 2500)
+        s = (rng.choice([5, 6], 2600) << 32) | rng.integers(0, 600, 2600)
+    elif kind == "domain_ends":
+        # both ends of each plane: hi -2^31 and 2^31 - 1, lo 0 and
+        # 2^32 - 1 (lo_biased -2^31 and 2^31 - 1)
+        ends = np.array([-2**63, -2**63 + 1, -2**63 + 2**32 - 1, -2**32, -1,
+                         0, 2**32 - 1, 2**63 - 2**32, 2**63 - 2, 2**63 - 1],
+                        np.int64)
+        r, s = rng.choice(ends, 5000), rng.choice(ends, 7000)
+    elif kind == "R_of_length_1":
+        r, s = pool[[7]], draw(9000)
+    elif kind == "S_of_length_1":
+        r, s = draw(9000), pool[[7]]
+    elif kind == "empty_R":
+        r, s = pool[:0], draw(5000)
+    elif kind == "empty_S":
+        r, s = draw(5000), pool[:0]
+    elif kind == "both_empty":
+        r = s = pool[:0]
+    else:  # "<tile|cta>_<delta>_<nR: 1, half, n - 1>"
+        size, delta, share = kind.split("_")
+        n = {"tile": K7_TILE, "cta": K7_CTA}[size] + int(delta)
+        nr = {"1": 1, "half": n // 2, "all": n - 1}[share]
+        r, s = draw(nr), draw(n - nr)
+    return (np.sort(np.asarray(r, np.int64)),
+            np.sort(np.asarray(s, np.int64)))
+
+
+K7_KINDS = [
+    "hot_key_over_3_ctas", "hot_key_in_S_over_100_tiles",
+    "runs_across_tile_and_window", "hi_ties_lo_differs", "domain_ends",
+    "R_of_length_1", "S_of_length_1", "empty_R", "empty_S", "both_empty",
+    *(f"{size}_{delta}_{share}" for size in ("tile", "cta")
+      for delta in (-1, 0, 1) for share in ("1", "half", "all"))]
+
+
+def _plane_on(cuda, plane, offset):
+    """An int32 plane on the card, as a view ``offset`` elements into its
+    storage."""
+    t = torch.empty(plane.size + offset, dtype=torch.int32, device=cuda)
+    return t[offset:].copy_(torch.from_numpy(plane))
+
+
+@pytest.mark.parametrize("moved", [None, 0, 1, 2, 3],
+                         ids=["aligned", "R_hi+4B", "R_lo+4B", "S_hi+4B",
+                              "S_lo+4B"])
+@pytest.mark.parametrize("kind", ["wide_1_1", "wide_5000_7000",
+                                  "wide_200000_150000", *K7_KINDS])
+def test_count64_kernel_equals_plain(cuda, kind, moved):
+    """K7 exact on keys whose hi plane varies and where its merge-path
+    tiles have their edges (hot keys over many CTAs and tiles, runs across
+    a tile and the window, equal hi with other lo, the planes' ends, a
+    side of one key or none, nR + nS at a tile's and a CTA's size - 1, + 0
+    and + 1), with all four planes 16-byte aligned or one of them a view
+    at a 4-byte offset (the 4-byte copy path); one launch a call, none
+    with an empty side."""
+    rk, sk = k7_case(kind)
+    nR, nS = rk.size, sk.size
+    rhi, rlo, shi, slo = planes = [
+        _plane_on(cuda, p, int(q == moved))
+        for q, p in enumerate((*tj.split64(rk), *tj.split64(sk)))]
+    if moved is not None and planes[moved].numel():
+        assert planes[moved].data_ptr() % 16 == 4
     before = tmj.LAUNCHES64
     got = tmj.merge_join_count_fused64(rhi, rlo, shi, slo, nR, nS)
     torch.cuda.synchronize()
-    assert tmj.LAUNCHES64 == before + 1
+    assert tmj.LAUNCHES64 == before + (nR > 0 and nS > 0)
     assert got.dtype == torch.int64 and got.device.type == "cuda"
     assert int(got) == int(tmj.merge_join_count_fused64_plain(
         rhi, rlo, shi, slo, nR, nS)) == tj.merge_join_count_numpy64(rk, sk)
-    # the same hi plane against shifted lo planes: no match at all
-    assert int(tmj.merge_join_count_fused64(
-        torch.zeros_like(rhi), torch.arange(nR, dtype=torch.int32,
-                                            device=cuda) * 2,
-        torch.zeros_like(shi), torch.arange(nS, dtype=torch.int32,
-                                            device=cuda) * 2 + 1,
-        nR, nS)) == 0
+    if kind.startswith("wide_"):
+        # the same hi plane against shifted lo planes: no match at all
+        assert int(tmj.merge_join_count_fused64(
+            torch.zeros_like(rhi), torch.arange(nR, dtype=torch.int32,
+                                                device=cuda) * 2,
+            torch.zeros_like(shi), torch.arange(nS, dtype=torch.int32,
+                                                device=cuda) * 2 + 1,
+            nR, nS)) == 0
 
 
 def test_count64_hot_key_passes_2_31(cuda):

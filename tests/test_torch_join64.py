@@ -1,21 +1,31 @@
 """KEY_8B (64-bit keys as two int32 planes) of the PyTorch port against the
 JAX package (Pallas in interpret mode) and the numpy oracle on the same
-seeded inputs, on the CPU path of the wrappers; and the four KEY_8B golden
-counts of the compiled reference binary through the port's CLI.
-Tolerance: exact equality."""
+seeded inputs, on the CPU path of the wrappers; the inputs K7's merge-path
+tiles must count exactly (the card tests' K7 cases); and the four KEY_8B
+golden counts of the compiled reference binary through the port's CLI,
+also with ``-n N``.  Tolerance: exact equality."""
+
+import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+from avx_sort_merge_joins_tpu import cli as jcli
 from avx_sort_merge_joins_tpu.ops import join64 as jj
+from avx_sort_merge_joins_tpu.ops import mergejoin as jmj
+from avx_sort_merge_joins_tpu.ops.bitonic import KEY_POS_INF, LANES
 from avx_sort_merge_joins_tpu_torch import cli as tcli
 from avx_sort_merge_joins_tpu_torch.ops import join64 as tj
 from avx_sort_merge_joins_tpu_torch.ops import mergejoin as tmj
 from avx_sort_merge_joins_tpu_torch.ops import sort as tsort
+from test_torch_gpu import K7_KINDS, k7_case
 
 DOMAIN_MAX = 2**31 - 2
+INT64_MAX = 2**63 - 1
+JAX_MAX_N = 16385  # the JAX kernels run in interpret mode up to this size
 
 
 def _wide_keys(n, seed):
@@ -62,7 +72,7 @@ def test_sort64_matches_jax(n):
     thi, tlo = tj.sort64(torch.from_numpy(hi), torch.from_numpy(lo), n)
     got = tj.join64(thi[:n].numpy(), tlo[:n].numpy())
     np.testing.assert_array_equal(got, np.sort(k))
-    if n <= 16385:  # the JAX sort in interpret mode, at the smaller sizes
+    if n <= JAX_MAX_N:  # the JAX sort in interpret mode, at smaller sizes
         jhi, jlo = jj.sort64(jnp.asarray(hi), jnp.asarray(lo), n)
         np.testing.assert_array_equal(thi[:n].numpy(), np.asarray(jhi))
         np.testing.assert_array_equal(tlo[:n].numpy(), np.asarray(jlo))
@@ -90,6 +100,44 @@ def test_fused64_matches_the_oracle_on_wide_keys(nR, nS):
             *(jnp.asarray(a) for a in tj.split64(rk)),
             *(jnp.asarray(a) for a in tj.split64(sk)), nR, nS))
         assert got_j == want
+
+
+@functools.cache
+def _jax_count64_jit():
+    return jax.jit(lambda rh, rl, sh, sl, nR, nS:
+                   jmj.merge_join_count_fused64(rh, rl, sh, sl, nR, nS))
+
+
+def _jax_count64(rk, sk):
+    """The JAX ``merge_join_count_fused64`` (``_count_kernel64``) of sorted
+    int64 keys, each side's planes padded to one layout of 256 rows of
+    128 lanes, so that every case shares one compile."""
+    def planes(k):
+        out = np.full((2, 256 * LANES), KEY_POS_INF, np.int32)
+        out[0, :k.size], out[1, :k.size] = jj.split64(k)
+        return [jnp.asarray(p.reshape(-1, LANES)) for p in out]
+
+    return jmj.finish_count_fused(_jax_count64_jit()(
+        *planes(rk), *planes(sk), rk.size, sk.size))
+
+
+@pytest.mark.parametrize("kind", K7_KINDS)
+def test_count64_at_tile_edges_against_numpy_and_jax(kind):
+    """The inputs K7's merge-path tiles must count exactly (hot keys over
+    many CTAs and tiles, runs across a tile and the window, equal hi with
+    other lo at the tile edges, the planes' ends, a side of one key or
+    none, nR + nS at a tile's and a CTA's size - 1, + 0 and + 1), through
+    the CPU path of its wrapper."""
+    rk, sk = k7_case(kind)
+    got = tmj.merge_join_count_fused64(
+        *(torch.from_numpy(p) for p in (*tj.split64(rk), *tj.split64(sk))),
+        rk.size, sk.size)
+    assert int(got) == tj.merge_join_count_numpy64(rk, sk)
+    if max(rk.size, sk.size) <= JAX_MAX_N:
+        # the JAX kernel pads its planes with (INT32_MAX, INT32_MAX), the
+        # key 2^63 - 1: it counts the keys below that one
+        jr, js = rk[rk != INT64_MAX], sk[sk != INT64_MAX]
+        assert _jax_count64(jr, js) == tj.merge_join_count_numpy64(jr, js)
 
 
 def _key_columns(kind, nR, nS, seed):
@@ -177,3 +225,39 @@ def test_cli_key8b_reference_golden(argv, expected, scalar, capsys):
     assert len(stats) == 1 and stats[0].startswith(
         f"[STATS] NUMTUPLES {n}, TUPLES-PER-SECOND ")
     assert stats[0].endswith(", DEVICE cpu")
+
+
+@pytest.mark.parametrize("argv,expected", KEY8B_GOLDEN[:2],
+                         ids=["key8b-default", "key8b-nonunique"])
+def test_cli_key8b_on_n_shards_runs_on_one_device(argv, expected, capsys):
+    """``-n 4 --key8b`` is the one-device KEY_8B join, as in the JAX CLI
+    (cli.py:403-432): the same Results line and [STATS] line as ``-n 1``,
+    the reference's golden count."""
+    for n in ("1", "4"):
+        assert tcli.main(["--key8b", "-n", n, *argv, "--device", "cpu"]) \
+            == 0
+        out, err = capsys.readouterr()
+        assert out.strip().splitlines()[-1] == f"Results = {expected}"
+        stats = [ln for ln in err.splitlines() if ln.startswith("[STATS]")]
+        assert len(stats) == 1 and stats[0].startswith(
+            f"[STATS] NUMTUPLES {int(argv[1]) + int(argv[3])}, "
+            "TUPLES-PER-SECOND ") and stats[0].endswith(", DEVICE cpu")
+        assert "not yet ported" not in err
+
+
+def test_cli_key8b_raises_the_fanout_to_n(monkeypatch, capsys):
+    """A fan-out below N is raised to the power of two at or above N
+    before the KEY_8B join, with a warning, as the JAX CLI's ``_validate``
+    does (cli.py:349-356)."""
+    argv = ["--key8b", "-n", "5", "-f", "2", "-r", "3000", "-s", "3000"]
+    assert jcli.main([*argv, "--scalarsort"]) == 0
+    out, err = capsys.readouterr()
+    assert "raising partfanout" in err and "Results = 3000" in out
+    fanins = []
+    join = tj.key8b_join_count
+    monkeypatch.setattr(tj, "key8b_join_count", lambda *a, **k: (
+        fanins.append(k["fanin"]), join(*a, **k))[1])
+    assert tcli.main([*argv, "--device", "cpu"]) == 0
+    out, err = capsys.readouterr()
+    assert "raising partfanout" in err and "Results = 3000" in out
+    assert fanins == [8]
