@@ -9,12 +9,14 @@ Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
 --full-range``, the materializing m-way join (``--materialize``),
 ``--persist DIR``, the 64-bit-key count join (``--key8b``; with ``-n N``
 it runs on one device as the JAX CLI does, after the fan-out is raised to
-N) and the distributed m-way count join ``-a m-way -n N -S
-NEXT|RING|RANDOM`` on a mesh of N shards on one device
-(``parallel/dist_mway.py``).  Every other flag of the reference, and ``-n
-N`` with the other algorithms or ``--materialize``, is parsed and refused
-with "not yet ported" and exit code 2.  Relations and kernels run on the
-card (``--device cuda``, the default; without a card the CLI exits 1).
+N), and on a mesh of N shards on one device (``parallel/``) the
+distributed count joins ``-a m-way -n N -S NEXT|RING|RANDOM``, ``-a m-pass
+-n N`` and ``-a mpsm -n N``, and the distributed materializing join ``-n N
+--materialize [--persist DIR]`` (for any ``-a``, with a warning when it is
+not m-way, as in the JAX CLI; ``--persist`` streams Out.tbl a shard at a
+time).  ``-m``, ``-o`` and ``--mapping-file`` are parsed and refused with
+"not yet ported" and exit code 2.  Relations and kernels run on the card
+(``--device cuda``, the default; without a card the CLI exits 1).
 ``--device cpu`` runs them on the CPU through the kernels' plain PyTorch
 versions.
 """
@@ -40,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["m-way", "m-pass", "mpsm"],
                    help="join algorithm")
     p.add_argument("-n", "--nthreads", type=int, default=1,
-                   help="shards of the mesh; past 1 the distributed m-way "
+                   help="shards of the mesh; past 1 the distributed "
                         "join runs N shards on one device")
     p.add_argument("-r", "--r-size", type=int, default=128_000_000)
     p.add_argument("-s", "--s-size", type=int, default=128_000_000)
@@ -68,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mpsm: number of local S runs")
     p.add_argument("--materialize", action="store_true",
                    help="produce join output tuples, not only the count "
-                        "(m-way)")
+                        "(m-way; with -n N for any -a)")
     p.add_argument("--persist", metavar="DIR", default=None,
                    help="write R.tbl/S.tbl/Out.tbl (generator.c:200-213)")
     p.add_argument("--key8b", action="store_true",
@@ -90,10 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> list[str]:
     """The flags of this run that the port does not carry yet."""
-    dist = args.nthreads > 1 and not args.key8b  # KEY_8B runs on one device
     checks = [
-        (dist and args.algo != "m-way", f"-n {args.nthreads} -a {args.algo}"),
-        (dist and args.materialize, f"-n {args.nthreads} --materialize"),
         (args.mwaybufsize != 0, "-m"),
         (args.perfout is not None, "-o"),
         (args.mapping_file is not None, "--mapping-file"),
@@ -151,18 +150,14 @@ class BucketOverflow(Exception):
     slack: the count would not be exact."""
 
 
-def _run_dist_mway(args, R, S):
-    """``-a m-way -n N``: the distributed m-way count join on a mesh of N
-    shards on the relations' device, through the phased entry point so that
-    the record row gets SORT / MERGE1 / MJOIN columns (the JAX CLI,
-    cli.py:221-262).  ``--scalarsort``/``--scalarmerge`` select the
-    ``torch.sort`` baseline route."""
+def _run_dist_mway(args, R, S, mesh):
+    """``-a m-way -n N``: the distributed m-way count join, through the
+    phased entry point so that the record row gets SORT / MERGE1 / MJOIN
+    columns (the JAX CLI, cli.py:221-262)."""
     from .parallel import dist_mway
-    from .parallel.mesh import make_mesh
     from .types import JoinResult
     from .utils.log import info
 
-    mesh = make_mesh(args.nthreads, R.keys.device)
     xpath = ("bulk all_to_all" if args.numastrategy == "NEXT" else
              f"{args.numastrategy}-scheduled collective_permute rounds")
     info(f"exchange path: {xpath}, a device-side copy between the "
@@ -170,24 +165,102 @@ def _run_dist_mway(args, R, S):
          "interconnect")
     cnt, overflow, phases = dist_mway.dist_mway_join_phased(
         R.keys, S.keys, R.num_tuples, S.num_tuples, mesh,
-        fanin=args.partfanout,
-        use_kernels=not (args.scalarsort or args.scalarmerge),
+        fanin=args.partfanout, use_kernels=_use_kernels(args),
         numa_strategy=(args.numastrategy if args.numastrategy != "NEXT"
                        else None))
-    if overflow:
-        raise BucketOverflow(f"exchange bucket overflow ({overflow} "
-                             "tuples); raise slack")
+    _check_overflow(overflow)
     total = phases["total"]
     return JoinResult(totalresults=cnt, resultlist=[], phases=phases,
                       throughput=(R.num_tuples + S.num_tuples) / total
                       if total > 0 else 0.0)
 
 
+def _use_kernels(args) -> bool:
+    """``--scalarsort``/``--scalarmerge`` select the ``torch.sort``
+    baseline route of a distributed join (the JAX CLI's
+    ``use_pallas=False``)."""
+    return not (args.scalarsort or args.scalarmerge)
+
+
+def _check_overflow(overflow: int) -> None:
+    if overflow:
+        raise BucketOverflow(f"exchange bucket overflow ({overflow} "
+                             "tuples); raise slack")
+
+
+def _run_dist_materialize(args, R, S, mesh):
+    """``-n N --materialize``: the distributed materializing join.  Under
+    ``--persist DIR`` the output streams into DIR/Out.tbl a shard at a
+    time, and the result carries no relation (the JAX CLI, cli.py:117-153).
+    """
+    import os
+
+    from .parallel import dist_materialize
+    from .types import JoinResult, Relation, ThreadResult
+    from .utils.log import info
+
+    stream_to = None
+    if args.persist:
+        os.makedirs(args.persist, exist_ok=True)
+        stream_to = os.path.join(args.persist, "Out.tbl")
+    t0 = time.perf_counter()
+    ks, ps, cnt, overflow = dist_materialize.dist_join_materialize(
+        R.keys, R.payloads, S.keys, S.payloads, R.num_tuples, S.num_tuples,
+        mesh, stream_to=stream_to)
+    dt = time.perf_counter() - t0
+    _check_overflow(overflow)
+    results = []
+    if stream_to is not None:
+        info(f"streamed {cnt} output tuples to {stream_to}")
+    else:
+        results = [ThreadResult(nresults=cnt, shard_id=0,
+                                results=Relation(ks, ps, cnt))]
+    return JoinResult(totalresults=cnt, resultlist=results,
+                      phases={"total": dt},
+                      throughput=(R.num_tuples + S.num_tuples) / dt)
+
+
+def _run_dist(args, R, S):
+    """``-n N``: a distributed join on a mesh of N shards on the relations'
+    device, routed as the JAX CLI routes it (cli.py:209-281): mpsm takes
+    the ``-f`` fan-in and m-pass none; ``--scalarsort``/``--scalarmerge``
+    select the baseline route of each count join, and the materializing
+    join takes neither flag.  Each but m-way reports one ``total``
+    phase."""
+    from .parallel.mesh import make_mesh
+    from .types import JoinResult
+    from .utils.log import warn
+
+    mesh = make_mesh(args.nthreads, R.keys.device)
+    if args.materialize:
+        if args.algo != "m-way":
+            warn("--materialize with -n>1 uses the distributed m-way "
+                 "pipeline")
+        return _run_dist_materialize(args, R, S, mesh)
+    if args.algo == "m-way":
+        return _run_dist_mway(args, R, S, mesh)
+    t0 = time.perf_counter()
+    if args.algo == "mpsm":
+        from .parallel import dist_mpsm
+        cnt, overflow = dist_mpsm.dist_mpsm_join_count(
+            R.keys, S.keys, R.num_tuples, S.num_tuples, mesh,
+            fanin=args.partfanout, use_kernels=_use_kernels(args))
+    else:
+        from .parallel import dist_mpass
+        cnt, overflow = dist_mpass.dist_mpass_join_count(
+            R.keys, S.keys, R.num_tuples, S.num_tuples, mesh,
+            use_kernels=_use_kernels(args))
+    dt = time.perf_counter() - t0
+    _check_overflow(overflow)
+    return JoinResult(totalresults=cnt, resultlist=[], phases={"total": dt},
+                      throughput=(R.num_tuples + S.num_tuples) / dt)
+
+
 def run_join(args, R, S):
     from .types import JoinConfig
 
     if args.nthreads > 1:
-        return _run_dist_mway(args, R, S)
+        return _run_dist(args, R, S)
 
     config = JoinConfig(
         nthreads=args.nthreads,
@@ -242,7 +315,8 @@ def _validate(args) -> str | None:
         # the reference requires fanout >= nthreads (main.c:866-869)
         warn("raising partfanout to the shard count")
         args.partfanout = 1 << (args.nthreads - 1).bit_length()
-    if args.materialize and args.algo != "m-way" and not args.key8b:
+    if args.materialize and args.algo != "m-way" and not args.key8b \
+            and args.nthreads == 1:
         return ("--materialize: the JAX package materializes on m-way only "
                 f"(its {args.algo} join ignores the flag)")
     if args.nchunks != 1 and (args.algo != "mpsm" or args.nthreads > 1):

@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 
 from ..models.common import device_sync
-from ..ops import mergejoin, multiwaymerge as mw
+from ..ops import mergejoin, multiwaymerge as mw, sort as sort_ops
 from ..ops.bitonic import KEY_POS_INF
 from ..params import BLOCKSIZE_DEFAULT
 from ..types import NumaStrategy
@@ -70,35 +70,82 @@ def _local_sorted(keys: torch.Tensor, block: int, fanin: int,
                   use_kernels: bool) -> torch.Tensor:
     """One shard's keys ascending, pads (INT32_MAX) last: the multiway sort
     (K1 + K2), or ``torch.sort`` on the baseline route.  The live prefix is
-    ``[:keys.numel()]``."""
+    ``[:keys.numel()]``; the column has at least one slot, as the JAX
+    package's padded rows do, so that an empty shard's splitter samples
+    read its pad."""
     if use_kernels:
         return mw.multiway_sort(keys, keys.numel(), block, fanin)
-    return torch.sort(keys).values
+    return torch.sort(_at_least_one_slot(keys)).values
 
 
-def _slice_buckets(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
-                   n_chips: int, cap: int):
-    """Cut one shard's sorted column into per-destination buckets: bucket d
-    holds the live keys in [bounds[d], bounds[d+1]), a contiguous slice
-    found by a rank search.  Everything past ``n_valid`` is masked to +inf
-    first: a k-way merge leaves garbage past its live prefix.  Returns
-    ``((n_chips*cap,) keys, int32 counts, overflow)``."""
+def _at_least_one_slot(col: torch.Tensor) -> torch.Tensor:
+    return col if col.numel() else torch.full(
+        (1,), KEY_POS_INF, dtype=col.dtype, device=col.device)
+
+
+def _local_sorted_pair(keys: torch.Tensor, payloads: torch.Tensor,
+                       block: int, fanin: int, use_kernels: bool):
+    """One shard's (key, payload) pairs in lexicographic order, pads
+    (INT32_MAX, INT32_MAX) last: the multiway sort with payloads (K5 + K6),
+    or one ``torch.sort`` of the packed pairs on the baseline route.
+    Returns ``(keys, payloads)`` with at least one slot each."""
+    if use_kernels:
+        return mw.multiway_sort(keys, keys.numel(), block, fanin,
+                                payloads=payloads)
+    return sort_ops.unpack_pairs(torch.sort(sort_ops.pack_pairs(
+        _at_least_one_slot(keys), _at_least_one_slot(payloads))).values)
+
+
+def _bucket_ranks(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
+                  n_chips: int, cap: int):
+    """Where the per-destination buckets of one shard's sorted column lie:
+    bucket d holds the live keys in [bounds[d], bounds[d+1]), a contiguous
+    slice found by a rank search.  Returns ``(at, keep, counts,
+    overflow)``: ``at`` the ``(n_chips, cap)`` source slots of the bucket
+    slots, ``keep`` which of them are live, int32 counts."""
     dev = ks.device
-    kv = torch.full((n_valid + cap,), KEY_POS_INF, dtype=torch.int32,
-                    device=dev)
-    kv[:n_valid] = ks[:n_valid]
-    inner = torch.searchsorted(kv[:n_valid], bounds[1:]) if n_chips > 1 \
+    inner = torch.searchsorted(ks[:n_valid], bounds[1:]) if n_chips > 1 \
         else torch.zeros(0, dtype=torch.int64, device=dev)
     starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), inner,
                         torch.full((1,), n_valid, dtype=torch.int64,
                                    device=dev)])
     ln = starts[1:] - starts[:-1]
     lane = torch.arange(cap, dtype=torch.int64, device=dev)
-    vals = kv[starts[:-1, None] + lane[None, :]]
-    vals = torch.where(lane[None, :] < ln[:, None], vals, KEY_POS_INF)
     overflow = torch.clamp(ln - cap, min=0).sum()
-    return (vals.reshape(-1), torch.clamp(ln, max=cap).to(torch.int32),
-            overflow)
+    return (starts[:-1, None] + lane[None, :], lane[None, :] < ln[:, None],
+            torch.clamp(ln, max=cap).to(torch.int32), overflow)
+
+
+def _cut(col: torch.Tensor, n_valid: int, at: torch.Tensor,
+         keep: torch.Tensor, fill: int) -> torch.Tensor:
+    """The bucket slots ``at`` of ``col[:n_valid]``, ``fill`` where not
+    ``keep``.  Everything past ``n_valid`` is masked first: a k-way merge
+    leaves garbage past its live prefix."""
+    cv = torch.full((n_valid + at.shape[1],), fill, dtype=torch.int32,
+                    device=col.device)
+    cv[:n_valid] = col[:n_valid]
+    return torch.where(keep, cv[at], fill).reshape(-1)
+
+
+def _slice_buckets(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
+                   n_chips: int, cap: int):
+    """Cut one shard's sorted column into per-destination buckets
+    (:func:`_bucket_ranks`).  Returns ``((n_chips*cap,) keys, int32
+    counts, overflow)``, +inf past each bucket's keys."""
+    at, keep, counts, overflow = _bucket_ranks(ks, n_valid, bounds, n_chips,
+                                               cap)
+    return _cut(ks, n_valid, at, keep, KEY_POS_INF), counts, overflow
+
+
+def _slice_buckets_pair(ks: torch.Tensor, ps: torch.Tensor, n_valid: int,
+                        bounds: torch.Tensor, n_chips: int, cap: int):
+    """:func:`_slice_buckets` cutting both columns of one shard's sorted
+    pairs at the same ranks.  Returns ``(keys, payloads, counts,
+    overflow)``; the payload pads are 0."""
+    at, keep, counts, overflow = _bucket_ranks(ks, n_valid, bounds, n_chips,
+                                               cap)
+    return (_cut(ks, n_valid, at, keep, KEY_POS_INF),
+            _cut(ps, n_valid, at, keep, 0), counts, overflow)
 
 
 def _equidepth_bounds(mesh: Mesh, r_sorted, s_sorted, nvr, nvs):
@@ -152,27 +199,38 @@ def _exchange(mesh: Mesh, bflat: torch.Tensor, cap: int, schedule,
 
 
 def _merge_levels_varlen(keys: torch.Tensor, lens: torch.Tensor,
-                         stride: int, nruns: int, fanin: int):
-    """k-way merge levels of the varlen K2 until one run is left."""
+                         stride: int, nruns: int, fanin: int,
+                         payloads: torch.Tensor | None = None):
+    """k-way merge levels of the varlen K2 (K6 with ``payloads``) until one
+    run is left.  Returns ``(merged, lens)``, ``merged`` a column or a
+    ``(keys, payloads)`` tuple, as ``multiway_merge`` returns it."""
     while nruns > 1:
         w = min(max(2, fanin), nruns)
-        keys, lens = mw.multiway_merge(keys, w, lens=lens, stride=stride)
+        merged, lens = mw.multiway_merge(keys, w, payloads=payloads,
+                                         lens=lens, stride=stride)
+        keys, payloads = merged if payloads is not None else (merged, None)
         stride *= w
         nruns = -(-nruns // w)
-    return keys, lens
+    return (keys if payloads is None else (keys, payloads)), lens
 
 
 def _pad_runs(recv: torch.Tensor, counts: torch.Tensor, n: int, cap: int,
-              nruns: int):
-    """One shard's received runs padded to ``nruns`` with empty ones."""
+              nruns: int, payloads: torch.Tensor | None = None):
+    """One shard's received runs padded to ``nruns`` with empty ones.
+    Returns ``(keys, counts, payloads or None)``."""
     extra = nruns - n
     if extra == 0:
-        return recv, counts
+        return recv, counts, payloads
     dev = recv.device
-    return (torch.cat([recv, torch.full((extra * cap,), KEY_POS_INF,
-                                        dtype=torch.int32, device=dev)]),
+
+    def pad(col, fill):
+        return torch.cat([col, torch.full((extra * cap,), fill,
+                                          dtype=torch.int32, device=dev)])
+
+    return (pad(recv, KEY_POS_INF),
             torch.cat([counts, torch.zeros(extra, dtype=torch.int32,
-                                           device=dev)]))
+                                           device=dev)]),
+            None if payloads is None else pad(payloads, 0))
 
 
 def _merge_received(recv: torch.Tensor, counts: torch.Tensor, n: int,
@@ -185,8 +243,23 @@ def _merge_received(recv: torch.Tensor, counts: torch.Tensor, n: int,
     if not use_kernels:
         return torch.sort(recv).values
     nruns = _pow2_runs(n)
-    keys, lens = _pad_runs(recv, counts, n, cap, nruns)
+    keys, lens, _ = _pad_runs(recv, counts, n, cap, nruns)
     return _merge_levels_varlen(keys, lens, cap, nruns, fanin)[0]
+
+
+def _merge_received_pair(recv_k: torch.Tensor, recv_p: torch.Tensor,
+                         counts: torch.Tensor, n: int, cap: int, fanin: int,
+                         use_kernels: bool):
+    """:func:`_merge_received` of (key, payload) runs in lexicographic
+    order: the varlen K6, or one ``torch.sort`` of the packed pairs on the
+    baseline route.  Returns ``(keys, payloads)``; the live prefix is the
+    sum of ``counts``."""
+    if not use_kernels:
+        return sort_ops.unpack_pairs(torch.sort(sort_ops.pack_pairs(
+            recv_k, recv_p)).values)
+    nruns = _pow2_runs(n)
+    keys, lens, pays = _pad_runs(recv_k, counts, n, cap, nruns, recv_p)
+    return _merge_levels_varlen(keys, lens, cap, nruns, fanin, pays)[0]
 
 
 def _merge_received_gated(recv: torch.Tensor, counts: torch.Tensor, n: int,
@@ -197,7 +270,7 @@ def _merge_received_gated(recv: torch.Tensor, counts: torch.Tensor, n: int,
     (a one-shard mesh gets an empty second one).  Returns (merged,
     violation)."""
     nruns = max(2, _pow2_runs(n))
-    landing, lens = _pad_runs(recv, counts, n, cap, nruns)
+    landing, lens, _ = _pad_runs(recv, counts, n, cap, nruns)
     chunk = rf.pick_chunk_elems(cap, TILE_ELEMS, nruns)
     arrive = rf.arrival_schedule(nruns, cap // chunk, rate=pull_rate)
     merged, _waited, viol = rf.chunk_gated_merge(landing, lens, cap, chunk,
@@ -205,25 +278,31 @@ def _merge_received_gated(recv: torch.Tensor, counts: torch.Tensor, n: int,
     return merged, viol
 
 
-def _overlap_receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
-                     cap: int, fanin: int, ngroups: int = 2):
-    """Permute-round delivery with group merges as the groups fill: round t
-    brings each shard the bucket of shard (me - t); the runs of each
-    ``n / ngroups`` consecutive rounds k-way merge as one group (the
-    reference's merge-while-reading, sortmergejoin_multiway.c:494-518),
-    and one two-way merge of the groups finishes.  Returns the merged
-    column of each shard."""
+def _arrivals(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
+              cap: int):
+    """Permute-round delivery: round t brings each shard the bucket of
+    shard (me - t), one ``mesh.ppermute`` a round.  Yields each round's
+    ``(n, cap)`` piece and ``(n,)`` counts as it arrives."""
     n = mesh.n
     me = torch.arange(n, device=bflat.device)
     b3 = bflat.reshape(n, n, cap)
-    pieces, cnts = [], []
     for t in range(n):
         piece, cnt = b3[me, (me + t) % n], counts[me, (me + t) % n]
         if t:
             perm = [(x, (x + t) % n) for x in range(n)]
             piece, cnt = mesh.ppermute(piece, perm), mesh.ppermute(cnt, perm)
-        pieces.append(piece)
-        cnts.append(cnt)
+        yield piece, cnt
+
+
+def _overlap_receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
+                     cap: int, fanin: int, ngroups: int = 2):
+    """Permute-round delivery (:func:`_arrivals`) with group merges as the
+    groups fill: the runs of each ``n / ngroups`` consecutive rounds k-way
+    merge as one group (the reference's merge-while-reading,
+    sortmergejoin_multiway.c:494-518), and one two-way merge of the groups
+    finishes.  Returns the merged column of each shard."""
+    n = mesh.n
+    pieces, cnts = zip(*_arrivals(mesh, bflat, counts, cap))
     per_group = n // ngroups
     merged = []
     for m in range(n):
@@ -273,6 +352,57 @@ def _schedule(mesh: Mesh, numa_strategy, next_as_rounds: bool):
     return None
 
 
+def _shape(n_keys: int, n: int, slack: float):
+    """One relation's layout over ``n`` shards at one slack: ``(shard,
+    cap, nv)``, the shard size, the bucket capacity and each shard's live
+    count."""
+    shard = -(-n_keys // n)
+    return (shard, ex.bucket_cap(shard, n, slack, TILE_ELEMS),
+            ex.valid_counts(n_keys, shard, n))
+
+
+def _cut_all(ks: list, nv, bounds: torch.Tensor, cap: int, ps=None):
+    """Every shard's buckets, stacked: :func:`_slice_buckets` of each
+    sorted column of ``ks``, with ``ps`` :func:`_slice_buckets_pair`.
+    Empties the lists, freeing the sorted columns before the next phase.
+    Returns ``(keys (n, n*cap), payloads or None, counts (n, n),
+    overflow)``."""
+    n = len(ks)
+    cut = [_slice_buckets(ks[me], int(nv[me]), bounds, n, cap)
+           if ps is None else
+           _slice_buckets_pair(ks[me], ps[me], int(nv[me]), bounds, n, cap)
+           for me in range(n)]
+    del ks[:]
+    if ps is not None:
+        del ps[:]
+    *cols, counts, overflow = (torch.stack(c) for c in zip(*cut))
+    return (cols[0], cols[1] if ps is not None else None, counts,
+            overflow.sum())
+
+
+def _receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor, cap: int,
+             schedule=None, hier=None):
+    """:func:`_exchange` of the bucket stack and of its counts: ``(recv,
+    rcounts)``, shard d's run from shard s at ``recv[d, s*cap:]`` with
+    ``rcounts[d, s]`` keys."""
+    recv = _exchange(mesh, bflat, cap, schedule, hier)
+    rcounts = ex.exchange_hier(mesh, counts, 1) if hier else \
+        mesh.all_to_all(counts)
+    return recv, rcounts
+
+
+def _count_owned(merged_r: list, merged_s: list, totals_r: torch.Tensor,
+                 totals_s: torch.Tensor) -> int:
+    """K3 per shard over the merged columns of its owned key range, the
+    live lengths read once for every shard; the host sum over shards
+    (disjoint key ranges) is the count, in int64."""
+    tr, ts = torch.stack([totals_r, totals_s]).tolist()
+    counts = torch.stack([mergejoin.merge_join_count_fused(
+        merged_r[me], merged_s[me], tr[me], ts[me])
+        for me in range(len(tr))])
+    return sum(counts.tolist())
+
+
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
           block: int, fanin: int, use_kernels: bool, schedule,
           pre_sharded: bool, overlap_ok: bool, remote_pull, pull_rate: int):
@@ -280,11 +410,8 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
     each phase timed on the host clock after a device sync."""
     n = mesh.n
     hier = host_shape(mesh) if is_2d(mesh) else None
-    shard_r, shard_s = -(-n_r // n), -(-n_s // n)
-    cap_r = ex.bucket_cap(shard_r, n, slack, TILE_ELEMS)
-    cap_s = ex.bucket_cap(shard_s, n, slack, TILE_ELEMS)
-    nv_r = ex.valid_counts(n_r, shard_r, n)
-    nv_s = ex.valid_counts(n_s, shard_s, n)
+    shard_r, cap_r, nv_r = _shape(n_r, n, slack)
+    shard_s, cap_s, nv_s = _shape(n_s, n, slack)
     rk = _stage(rkeys, n_r, shard_r, mesh, pre_sharded)
     sk = _stage(skeys, n_s, shard_s, mesh, pre_sharded)
     device_sync(sk)
@@ -303,13 +430,8 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
     merged, totals, overflow, viols = {}, {}, [], []
     for side, ks, nv, cap in (("r", r_sorted, nv_r, cap_r),
                               ("s", s_sorted, nv_s, cap_s)):
-        cut = [_slice_buckets(ks[me], int(nv[me]), bounds, n, cap)
-               for me in range(n)]
-        del ks[:]  # free each phase's buffers before the next
-        bflat = torch.stack([c[0] for c in cut])
-        counts = torch.stack([c[1] for c in cut])
-        overflow += [c[2] for c in cut]
-        del cut
+        bflat, _, counts, ov = _cut_all(ks, nv, bounds, cap)
+        overflow.append(ov)
         if overlap_ok:
             merged[side] = _overlap_receive(mesh, bflat, counts, cap, fanin)
             totals[side] = counts.sum(0)
@@ -324,9 +446,7 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
             merged[side] = list(out)
             viols.append(viol.sum())
             continue
-        recv = _exchange(mesh, bflat, cap, schedule, hier)
-        rcounts = ex.exchange_hier(mesh, counts, 1) if hier else \
-            mesh.all_to_all(counts)
+        recv, rcounts = _receive(mesh, bflat, counts, cap, schedule, hier)
         del bflat
         totals[side] = rcounts.sum(1)
         if remote_pull == "emulate":
@@ -343,11 +463,7 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
     phases["merge1"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    tr, ts = torch.stack([totals["r"], totals["s"]]).tolist()
-    counts = torch.stack([mergejoin.merge_join_count_fused(
-        merged["r"][me], merged["s"][me], tr[me], ts[me])
-        for me in range(n)])
-    count = sum(counts.tolist())
+    count = _count_owned(merged["r"], merged["s"], totals["r"], totals["s"])
     phases["mergejoin"] = time.perf_counter() - t0
     phases["total"] = phases["sort"] + phases["merge1"] + phases["mergejoin"]
     if viols and int(torch.stack(viols).sum()):

@@ -172,10 +172,25 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    ceil(len / 81,920), no flag); at 16M with ``-z 1.0`` against the
    torch.sort baseline; at 16M with SMJ_REMOTE_WINDOW 4, 8, 32 and every
    push in flight.
+22. The distributed m-pass, mpsm and materializing joins over 8 shards,
+   each with the launch counts set to 0 just before it and read just
+   after: ``-n 8 -a m-pass``, ``-n 8 -a mpsm`` and ``-n 8 --materialize``
+   at 128M x 128M through the CLI (``Results = |S|``; launches exactly
+   m-pass K1 16, K2 48, K4 48, K3 8; mpsm K1 16, K2 48, K3 512, its S ring
+   timed; materialize K1 8, K2 32, K5 8, K6 32); at 16M
+   ``dist_mpass_join_count`` with ``overlap=True`` (K4 96) and on a 2 x 4
+   mesh, ``dist_join_materialize`` on the 2 x 4 mesh (rows equal S's), and
+   ``-n 8 -a mpsm -z 1.0`` through the CLI; ``dist_join_materialize`` at
+   128M x 128M, its rows equal to the one-device materializing join's as a
+   multiset (``torch.sort`` of the packed pairs on the card); and ``-n 8
+   --materialize --persist`` at 1M, its streamed Out.tbl equal to the
+   one-device join of the same relations as a multiset.  Then each
+   8-shard join (m-way too) at 128M once more under torch.profiler: its
+   device time by kernel, the device's busy share of the run's span.
 
 Each phase's wall time is printed as a ``[phase]`` line.  The line before
 the last is one JSON object with each kernel's launches
-over the runs of phases 6, 7, 9, 13-15, 18 and 21, its largest error in
+over the runs of phases 6, 7, 9, 13-15, 18, 21 and 22, its largest error in
 phases 3-5, 8, 11-12, 17 and 20, its times, its bound and its library
 yardstick's time; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -244,6 +259,17 @@ PATHS = {  # join path -> (CLI flags, kernels it must launch)
     "materialize": (["-a", "m-way", "--materialize"],
                     ("K1", "K2", "K5", "K6")),
     "key8b": (["--key8b"], ("K5", "K6", "K7")),
+}
+DIST_PATHS = {  # -n 8 path -> (CLI flags, kernels it must launch, phase
+    # times it prints, its launches at 128M where they are fixed)
+    "m-way": (["-a", "m-way"], ("K1", "K2", "K3"),
+              ("sort", "merge1", "mergejoin"), None),
+    "m-pass": (["-a", "m-pass"], ("K1", "K2", "K3", "K4"), ("total",),
+               {"K1": 16, "K2": 48, "K4": 48, "K3": 8}),
+    "mpsm": (["-a", "mpsm"], ("K1", "K2", "K3"), ("total",),
+             {"K1": 16, "K2": 48, "K3": 512, "K4": 0}),
+    "materialize": (["--materialize"], ("K1", "K2", "K5", "K6"), ("total",),
+                    {"K1": 8, "K2": 32, "K5": 8, "K6": 32, "K3": 0}),
 }
 KEY8B_SCALAR_N = 16_000_000
 PERSIST_N = 1_000_000
@@ -2040,27 +2066,49 @@ def phase_dist_kernels(dev: torch.device, times: Timings) -> None:
     return buckets, cap
 
 
-def phase_dist_cli(flags: list[str], n: int) -> dict[str, int]:
-    """``-a m-way -n 8`` through the CLI: ``Results = |S|`` (unique R,
-    foreign-key or Zipf S), K1 K2 K3 launched, the three phase times
-    printed."""
-    argv = ["-a", "m-way", "-n", str(DIST_SHARDS), *flags, "-r", str(n),
+def phase_dist_cli(path: str, flags: list[str], n: int) -> dict[str, int]:
+    """A ``-n 8`` path of ``DIST_PATHS`` through the CLI: ``Results = |S|``
+    (unique R, foreign-key or Zipf S), its kernels launched (at 128M
+    exactly as often as ``DIST_PATHS`` says), its phase times printed."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mpsm
+
+    path_flags, need, phases, at_main = DIST_PATHS[path]
+    argv = [*path_flags, "-n", str(DIST_SHARDS), *flags, "-r", str(n),
             "-s", str(n)]
+    ring, real = [], dist_mpsm._ring_count
+
+    def spy(*args):  # times mpsm's S ring: its rounds of K3 launches
+        t0 = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize()
+        ring.append(time.perf_counter() - t0)
+        return out
+
+    dist_mpsm._ring_count = spy
     reset_launches()
     t0 = time.perf_counter()
-    rc, stdout, stderr = run_cli_full(argv)
-    torch.cuda.synchronize()
+    try:
+        rc, stdout, stderr = run_cli_full(argv)
+        torch.cuda.synchronize()
+    finally:
+        dist_mpsm._ring_count = real
     counts = launches()
     log(f"[dist] cli.main({argv}) -> rc {rc} in "
         f"{time.perf_counter() - t0:.3f} s (data generation included); "
-        f"launches {counts}")
+        f"launches {counts}" + (f"; the S ring (its {counts['K3']} K3 "
+                                f"launches) {ring[0] * 1e3:.3f} ms on the "
+                                "host clock" if ring else ""))
     if rc != 0 or results_of(stdout) != n:
         raise AssertionError(f"dist {argv}: rc {rc}, {stdout!r}")
-    for ph in ("sort", "merge1", "mergejoin"):
+    for ph in phases:
         m = re.search(rf"^\[STATS\] {ph}\s+([\d.]+) usecs", stderr, re.M)
         if m is None or float(m.group(1)) <= 0:
             raise AssertionError(f"dist {argv}: no {ph} phase time")
-    check_launched(f"dist {argv}", counts, ("K1", "K2", "K3"))
+    check_launched(f"dist {argv}", counts, need)
+    if n == MAIN_N and at_main and any(counts[k] != v
+                                       for k, v in at_main.items()):
+        raise AssertionError(f"dist {argv}: launches {counts}, want "
+                             f"{at_main}")
     return counts
 
 
@@ -2619,6 +2667,199 @@ def phase_dist_small(dev: torch.device) -> dict[str, int]:
     return total
 
 
+def packed_sorted(keys: torch.Tensor, pays: torch.Tensor) -> torch.Tensor:
+    """Rows as a multiset: their packed (key, payload) pairs sorted."""
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    return torch.sort(sort_ops.pack_pairs(keys, pays)).values
+
+
+def phase_dist_small_joins(dev: torch.device) -> dict[str, int]:
+    """At 16M x 16M (unique R, foreign-key S): ``dist_mpass_join_count``
+    with ``overlap=True`` on 8 shards and on a 2 x 4 mesh, and
+    ``dist_join_materialize`` on the 2 x 4 mesh, whose rows must be S's
+    (every S tuple matches once), each with its launches counted."""
+    from avx_sort_merge_joins_tpu_torch.parallel import (dist_materialize,
+                                                         dist_mpass)
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import (make_mesh,
+                                                              make_mesh2d)
+
+    n = DIST_SMALL_N
+    R, S = dist_relations(n, dev)
+    want = packed_sorted(S.keys, S.payloads)
+    total = {}
+    for name, need in (("m-pass overlap", ("K1", "K2", "K3", "K4")),
+                       ("m-pass 2x4", ("K1", "K2", "K3", "K4")),
+                       ("materialize 2x4", ("K1", "K2", "K5", "K6"))):
+        mesh = make_mesh2d(2, 4, dev) if "2x4" in name else \
+            make_mesh(DIST_SHARDS, dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        if name.startswith("m-pass"):
+            got = dist_mpass.dist_mpass_join_count(
+                R.keys, S.keys, n, n, mesh, overlap=name.endswith("overlap"))
+        else:
+            k, p, *got = dist_materialize.dist_join_materialize(
+                R.keys, R.payloads, S.keys, S.payloads, n, n, mesh)
+            got = tuple(got)
+        torch.cuda.synchronize()
+        counts = launches()
+        log(f"[dist] {name} {n} x {n}: {got} in "
+            f"{time.perf_counter() - t0:.3f} s, launches {counts}")
+        if got != (n, 0):
+            raise AssertionError(f"dist {name}: {got}")
+        if name.startswith("materialize") and \
+                not torch.equal(packed_sorted(k, p), want):
+            raise AssertionError(f"dist {name}: rows != S's")
+        check_launched(f"dist {name}", counts, need)
+        if name.endswith("overlap") and counts["K4"] != 96:
+            raise AssertionError(f"dist {name}: K4 {counts['K4']} != 96 "
+                                 "(8 shards x 2 relations x (4 pair "
+                                 "merges + 2 halving passes))")
+        for k_, v in counts.items():
+            total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def phase_dist_materialize(dev: torch.device) -> dict[str, int]:
+    """128M x 128M: ``dist_join_materialize`` over 8 shards against the
+    one-device materializing join of the same relations; the rows must be
+    equal as a multiset (a ``torch.sort`` of the packed pairs on the
+    card).  Returns the distributed join's launches."""
+    from avx_sort_merge_joins_tpu_torch.models.mway import \
+        sortmergejoin_multiway
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_materialize
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+    from avx_sort_merge_joins_tpu_torch.types import JoinConfig
+
+    R, S = dist_relations(MAIN_N, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    k, p, count, ov = dist_materialize.dist_join_materialize(
+        R.keys, R.payloads, S.keys, S.payloads, MAIN_N, MAIN_N,
+        make_mesh(DIST_SHARDS, dev))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    one = sortmergejoin_multiway(R, S, JoinConfig(materialize=True)) \
+        .resultlist[0].results
+    del R, S
+    got = packed_sorted(k, p)
+    del k, p
+    same = torch.equal(got, packed_sorted(one.keys, one.payloads))
+    log(f"[dist] dist_join_materialize {MAIN_N} x {MAIN_N} over "
+        f"{DIST_SHARDS} shards: count {count}, overflow {ov}, {secs:.3f} s on "
+        f"the host clock (staging included), launches {counts}; rows equal "
+        f"the one-device join's ({one.num_tuples}) as a multiset: {same}")
+    if (count, ov) != (MAIN_N, 0) or one.num_tuples != MAIN_N or not same:
+        raise AssertionError(f"dist materialize: {count}, {ov}, {same}")
+    check_launched("dist materialize", counts, DIST_PATHS["materialize"][1])
+    return counts
+
+
+def phase_dist_persist(dev: torch.device) -> dict[str, int]:
+    """``-n 8 --materialize --persist`` at 1M x 1M: R.tbl, S.tbl and the
+    streamed Out.tbl, which must equal the one-device materializing join
+    of the same relations as a multiset (the payloads of ``-n 8``'s
+    relations are numbered per shard, so ``-n 1``'s file holds other
+    rows)."""
+    from avx_sort_merge_joins_tpu_torch import cli, datagen
+    from avx_sort_merge_joins_tpu_torch.models.mway import \
+        sortmergejoin_multiway
+    from avx_sort_merge_joins_tpu_torch.types import JoinConfig
+
+    argv = ["-n", str(DIST_SHARDS), "--materialize", "-r", str(PERSIST_N),
+            "-s", str(PERSIST_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, stdout = run_cli([*argv, "--persist", tmp])
+        secs = time.perf_counter() - t0
+        counts = launches()
+        if rc != 0 or results_of(stdout) != PERSIST_N:
+            raise AssertionError(f"dist persist: rc {rc}, {stdout!r}")
+        sizes = {name: os.path.getsize(os.path.join(tmp, name))
+                 for name in ("R.tbl", "S.tbl", "Out.tbl")}
+        back = datagen.read_relation(os.path.join(tmp, "Out.tbl"),
+                                     device=dev)
+        back_s = datagen.read_relation(os.path.join(tmp, "S.tbl"),
+                                       device=dev)
+    R, S = cli.make_relations(cli.build_parser().parse_args(argv), dev)
+    one = sortmergejoin_multiway(R, S, JoinConfig(materialize=True)) \
+        .resultlist[0].results
+    same = back.num_tuples == one.num_tuples == PERSIST_N and torch.equal(
+        packed_sorted(back.keys, back.payloads),
+        packed_sorted(one.keys, one.payloads))
+    log(f"[dist persist] {PERSIST_N} x {PERSIST_N} in {secs:.3f} s "
+        f"(generation, join and writes), bytes {sizes}, launches {counts}; "
+        f"Out.tbl ({back.num_tuples} rows) equals the one-device join's "
+        f"rows as a multiset: {same}")
+    if not same or not torch.equal(back_s.keys, S.keys):
+        raise AssertionError("dist persist: Out.tbl != the one-device rows")
+    check_launched("dist persist", counts, DIST_PATHS["materialize"][1])
+    return counts
+
+
+def profile_breakdown(label: str, fn) -> None:
+    """One run of ``fn`` under torch.profiler: the device time of each
+    kernel name (the eight largest), the device's busy time over the span
+    from its first kernel's start to its last's end, and the host wall
+    time, the profiler's own cost included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError(f"{label}: the profiler saw no device time")
+    busy = sum(e.device_time_total for e in events) / 1e3
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    by_name = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = re.split(r"[<(]", name.removeprefix("void "), maxsplit=1)[0]
+        by_name[name] = by_name.get(name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] {label}: device busy {busy:.3f} ms of a {span:.3f} ms "
+        f"span ({100 * busy / span:.1f}%), {len(events)} device events, "
+        f"wall {wall * 1e3:.3f} ms under the profiler; by kernel (ms): "
+        + ", ".join(f"{k.strip()} {v:.3f}" for k, v in top))
+
+
+def phase_dist_profiles(dev: torch.device) -> None:
+    """Each 8-shard join at 128M x 128M once more under torch.profiler
+    (:func:`profile_breakdown`), its count exact: where its device time
+    goes and how busy the card is."""
+    from avx_sort_merge_joins_tpu_torch.parallel import (dist_materialize,
+                                                         dist_mpass,
+                                                         dist_mpsm,
+                                                         dist_mway)
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    R, S = dist_relations(MAIN_N, dev)
+    mesh = make_mesh(DIST_SHARDS, dev)
+    args = (R.keys, S.keys, MAIN_N, MAIN_N, mesh)
+    for name, run in (
+            ("m-way", lambda: dist_mway.dist_mway_join_count(*args)),
+            ("m-pass", lambda: dist_mpass.dist_mpass_join_count(*args)),
+            ("mpsm", lambda: dist_mpsm.dist_mpsm_join_count(*args)),
+            ("materialize", lambda: dist_materialize.dist_join_materialize(
+                R.keys, R.payloads, S.keys, S.payloads, MAIN_N, MAIN_N,
+                mesh)[2:])):
+        got = []
+        profile_breakdown(f"-n 8 {name} {MAIN_N} x {MAIN_N}",
+                          lambda: got.append(run()))
+        if tuple(got[0]) != (MAIN_N, 0):
+            raise AssertionError(f"profiled {name}: {got[0]}")
+
+
 def timed(name: str, fn, *args):
     """fn(*args), its wall time printed as a [phase] line."""
     t0 = time.perf_counter()
@@ -2655,16 +2896,26 @@ def main() -> int:
             ("count2 route", phase_count2_route, dev),
             ("partitioning", phase_partitioning),
             ("benches", phase_benches),
-            ("-n 8", phase_dist_cli, [], MAIN_N),
-            ("-n 8 -S RING", phase_dist_cli, ["-S", "RING"], DIST_SMALL_N),
-            ("-n 8 -S RANDOM", phase_dist_cli, ["-S", "RANDOM"],
+            ("-n 8", phase_dist_cli, "m-way", [], MAIN_N),
+            ("-n 8 -S RING", phase_dist_cli, "m-way", ["-S", "RING"],
+             DIST_SMALL_N),
+            ("-n 8 -S RANDOM", phase_dist_cli, "m-way", ["-S", "RANDOM"],
              DIST_SMALL_N),
             ("dist emulate", phase_dist_emulate, dev),
             ("dist dma", phase_dist_dma, dev),
             ("dist small", phase_dist_small, dev),
-            ("-n 8 -z 1.0", phase_dist_cli, ["-z", "1.0"], DIST_SMALL_N)]:
+            ("-n 8 -z 1.0", phase_dist_cli, "m-way", ["-z", "1.0"],
+             DIST_SMALL_N),
+            *((f"-n 8 {p}", phase_dist_cli, p, [], MAIN_N)
+              for p in ("m-pass", "mpsm", "materialize")),
+            ("dist small joins", phase_dist_small_joins, dev),
+            ("-n 8 mpsm -z 1.0", phase_dist_cli, "mpsm", ["-z", "1.0"],
+             DIST_SMALL_N),
+            ("dist materialize", phase_dist_materialize, dev),
+            ("dist persist", phase_dist_persist, dev)]:
         for k, v in timed(name, fn, *args).items():
             total[k] += v
+    timed("dist profiles", phase_dist_profiles, dev)
     timed("persist", phase_persist, dev)
     timed("key8b scalarsort", phase_key8b_scalar)
     timed("non-unique", phase_nonunique, dev)

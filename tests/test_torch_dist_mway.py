@@ -140,6 +140,18 @@ def test_dist_mway_2d_mesh_equals_jax():
         want == (merge_join_count_numpy(rk, sk), 0)
 
 
+def test_dist_mway_empty_s():
+    """An empty S counts 0 on the kernel route and on the torch.sort
+    baseline route, whose empty shards keep one pad slot for their
+    splitter samples, as JAX's padded rows do."""
+    rk, sk = _workload("uniform", 1000, 0)
+    want = jdm.dist_mway_join_count(rk, sk, 1000, 0, use_pallas=False)
+    mesh = tmesh.make_mesh(8, "cpu")
+    assert _port_routes(rk, sk, 1000, 0, mesh) == want == (0, 0)
+    assert tdm.dist_mway_join_count(rk, sk, 1000, 0, mesh,
+                                    use_kernels=False) == want
+
+
 def test_dist_mway_tiny_relation_on_a_wide_mesh():
     """|R| = 5 over 8 shards (tests/test_dist.py's case; the JAX package's
     count of it is held on 6 shards above): exact."""

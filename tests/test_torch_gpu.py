@@ -1297,3 +1297,64 @@ def test_dist_mway_join_on_the_card(cuda, remote_pull):
     assert after[3] - before[3] == (16 if remote_pull == "emulate" else 0)
     assert after[4] - before[4] == (2 if remote_pull == "dma" else 0)
     assert after[1] > before[1]
+
+
+@pytest.mark.parametrize("route", ["m-pass", "m-pass overlap", "mpsm",
+                                   "materialize"])
+def test_dist_joins_on_the_card(cuda, route):
+    """The distributed m-pass (bulk and overlap), mpsm and materializing
+    joins on an 8-shard mesh of the card at a few million keys: each
+    equals its torch.sort baseline route (``use_kernels=False``) and the
+    torch.sort baseline count, and launches its kernels (m-pass K1 and
+    K4, three passes a shard and relation, six with overlap, and K3; mpsm
+    K1 and 8^3 K3; materialize K1, K2, K5 and K6)."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_materialize
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mpass, dist_mpsm
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(13)
+    nR, nS = 3_000_017, 2_000_003
+    rk = torch.from_numpy(rng.integers(0, 1_000_000, nR).astype(
+        np.int32)).to(cuda)
+    sk = torch.from_numpy(rng.integers(0, 1_000_000, nS).astype(
+        np.int32)).to(cuda)
+    base = int(tmj.merge_join_count_torch(torch.sort(rk).values,
+                                          torch.sort(sk).values, nR, nS))
+    mesh = make_mesh(8, cuda)
+
+    def counters():
+        return {"K1": tsort.LAUNCHES, "K2": tmw.LAUNCHES, "K3": tmj.LAUNCHES,
+                "K4": tsort.MERGE_PASS_LAUNCHES,
+                "K5": tsort.PAIR_SORT_LAUNCHES, "K6": tmw.PAIR_LAUNCHES}
+
+    before = counters()
+    if route == "materialize":
+        sp = torch.arange(nS, dtype=torch.int32, device=cuda)
+        k, p, count, ov = dist_materialize.dist_join_materialize(
+            rk, None, sk, sp, nR, nS, mesh)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in counters().items()}
+        k0, p0, count0, ov0 = dist_materialize.dist_join_materialize(
+            rk, None, sk, sp, nR, nS, mesh, use_kernels=False)
+        assert torch.equal(torch.sort(tsort.pack_pairs(k, p)).values,
+                           torch.sort(tsort.pack_pairs(k0, p0)).values)
+        assert ran["K1"] == ran["K5"] == 8 and ran["K2"] > 8 < ran["K6"]
+        assert ran["K3"] == ran["K4"] == 0
+    else:
+        if route == "mpsm":
+            join = dist_mpsm.dist_mpsm_join_count
+            kw = {}
+        else:
+            join = dist_mpass.dist_mpass_join_count
+            kw = {"overlap": route == "m-pass overlap"}
+        count, ov = join(rk, sk, nR, nS, mesh, **kw)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in counters().items()}
+        count0, ov0 = join(rk, sk, nR, nS, mesh, use_kernels=False)
+        assert ran["K1"] == 16 and ran["K2"] > 0
+        if route == "mpsm":
+            assert ran["K3"] == 512 and ran["K4"] == 0
+        else:
+            assert ran["K3"] == 8
+            assert ran["K4"] == (96 if kw["overlap"] else 48)
+    assert (count, ov) == (count0, ov0) == (base, 0)

@@ -169,13 +169,11 @@ def test_cli_zipf_count_equals_the_jax_cli(algo, capsys):
     assert got == want == "20000"
 
 
-@pytest.mark.parametrize("argv", [["-a", "m-pass", "-n", "2"],
-                                  ["-a", "mpsm", "-n", "2"],
-                                  ["-m", "1048576"], ["-o", "DIR"],
+@pytest.mark.parametrize("argv", [["-m", "1048576"], ["-o", "DIR"],
                                   ["--mapping-file", "F"],
                                   ["-a", "m-pass", "--materialize"],
                                   ["-a", "mpsm", "--materialize"],
-                                  ["--materialize", "-n", "2"], ["-f", "3"]])
+                                  ["-f", "3"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert tcli.main(["-r", "100", "-s", "100", *argv]) == 2
     assert "Results" not in capsys.readouterr().out
