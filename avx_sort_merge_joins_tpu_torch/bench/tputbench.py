@@ -9,8 +9,14 @@ Modes:
   mpsm -- sweep ``--nchunks`` over the mpsm join of unique R and uniform
           foreign-key S, the count asserted equal to |S|: each added S
           chunk is one more full scan of sorted R in the count.
-  numa -- the exchange bandwidth over a device mesh, which waits for the
-          port of the distributed joins: it exits 2.
+  numa -- the numabench analog (tputbench.c:665-1171) on a mesh of 8
+          shards of the one device, the JAX default mesh under its
+          8-device setting: the all-to-all of an ``(8, n)`` int32 stack
+          (``Mesh.all_to_all``), then the read-and-reduce aggregation, one
+          ``Mesh.ppermute`` round an offset of ``shuffle_order(-S, 8)``
+          reduced into a 128-lane accumulator, checked against numpy's sum
+          of the same rows.  On one card both are device-side copies, not
+          an interconnect.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from ..ops import mergejoin as mj, multiwaymerge as mw
 from ..types import device_name
 from . import common
 
-NOT_PORTED_EXIT = 2
+NUMA_SHARDS = 8  # the JAX numa mode's mesh under its 8-device setting
 
 
 def run_tput(n: int, fanin: int, reps: int, dev: torch.device) -> int:
@@ -47,6 +53,59 @@ def run_tput(n: int, fanin: int, reps: int, dev: torch.device) -> int:
               file=sys.stderr)
     print(f"{t_block*1e6:.0f} {max(t_full-t_block,0)*1e6:.0f} "
           f"{t_join*1e6:.0f} {n} {t_full*1e6:.0f} {n/t_full/1e6:.2f}")
+    return 0
+
+
+def run_numa(n_per_chip: int, strategy: str, reps: int,
+             dev: torch.device) -> int:
+    from ..parallel.mesh import make_mesh, shuffle_order
+
+    mesh = make_mesh(NUMA_SHARDS, dev)
+    ndev = mesh.n
+    if n_per_chip % ndev or n_per_chip < 128:
+        print(f"[ERROR] numa mode: -n {n_per_chip} must be a multiple of "
+              f"{ndev} and at least 128", file=sys.stderr)
+        return 2
+    order = shuffle_order(strategy, ndev)
+    print(f"[tputbench] numabench over {ndev} shards of one device "
+          f"({device_name(dev)}), strategy={strategy} "
+          f"order={order.tolist()}", file=sys.stderr)
+    # small seeded values: the int32 lane sums cannot wrap
+    host = np.random.default_rng(5).integers(
+        0, 100, (ndev, n_per_chip)).astype(np.int32)
+    x = torch.from_numpy(host).to(dev)
+
+    secs = common.time_steady(mesh.all_to_all, x, reps=reps)
+    gb = ndev * n_per_chip * 4 / 1e9
+    print(f"[tputbench] ALL-TO-ALL {secs*1e6:.0f} usecs "
+          f"{gb/secs:.1f} GB/s aggregate", file=sys.stderr)
+
+    # the read-only aggregation under the shuffle order, the second half of
+    # numabench: one permute round an offset, each arriving shard's rows
+    # reduced into a 128-lane accumulator (no gathered copy kept)
+    rows = n_per_chip // 128
+
+    def aggregate(v):
+        x2 = v[:, :rows * 128].reshape(ndev, rows, 128)
+        acc = torch.zeros((ndev, 128), dtype=torch.int32, device=v.device)
+        for off in order.tolist():
+            y = x2 if off == 0 else mesh.ppermute(
+                x2, [(s, (s - off) % ndev) for s in range(ndev)])
+            acc += y.sum(1, dtype=torch.int32)
+        return acc
+
+    secs_a = common.time_steady(aggregate, x, reps=reps)
+    # every shard receives every shard's rows once
+    want = host[:, :rows * 128].reshape(ndev, rows, 128).sum((0, 1))
+    if not np.array_equal(aggregate(x).cpu().numpy(),
+                          np.broadcast_to(want, (ndev, 128))):
+        raise AssertionError("numa aggregation != numpy's sum of the rows")
+    # remote reads only: the off == 0 round is a local reduce
+    gb_a = ndev * (ndev - 1) * rows * 128 * 4 / 1e9
+    print(f"[tputbench] AGGREGATION {secs_a*1e6:.0f} usecs "
+          f"{gb_a/secs_a:.1f} GB/s aggregate read, checked against numpy",
+          file=sys.stderr)
+    print(f"{secs*1e6:.0f} {gb/secs:.2f} {secs_a*1e6:.0f} {gb_a/secs_a:.2f}")
     return 0
 
 
@@ -86,22 +145,19 @@ def main(argv=None) -> int:
     p.add_argument("-f", "--fanin", type=int, default=16)
     p.add_argument("-S", "--strategy", default="NEXT",
                    choices=["NEXT", "RING", "RANDOM"],
-                   help="numa mode: the shuffle order (not yet ported)")
+                   help="numa mode: the shuffle order")
     p.add_argument("--nchunks", type=int, nargs="+", default=[1, 2, 4, 8],
                    help="mpsm mode: chunk counts to sweep")
     p.add_argument("--reps", type=int, default=3)
     common.add_device_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "numa":
-        print("[ERROR] not yet ported: --mode numa measures the exchange "
-              "over a device mesh and waits for the distributed joins",
-              file=sys.stderr)
-        return NOT_PORTED_EXIT
     dev = common.pick_device(args.device)
     if dev is None:
         return common.NO_DEVICE_EXIT
     if args.mode == "mpsm":
         return run_mpsm(args.ntuples, args.nchunks, args.reps, dev)
+    if args.mode == "numa":
+        return run_numa(args.ntuples, args.strategy, args.reps, dev)
     return run_tput(args.ntuples, args.fanin, args.reps, dev)
 
 

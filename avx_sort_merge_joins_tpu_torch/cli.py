@@ -1,8 +1,9 @@
 """Command-line entry point of the port (counterpart of
-``avx_sort_merge_joins_tpu/cli.py:19-114,209-341,373-466``; reference:
-src/main.c): the same flags, the same workload construction and the same
-output conventions -- ``Results = N`` on stdout, ``[STATS]``/``[RECORD]``
-on stderr so scripts can split the streams (joincommon.c:175-196).
+``avx_sort_merge_joins_tpu/cli.py:19-114,156-206,209-341,373-466``;
+reference: src/main.c): the same flags, the same workload construction and
+the same output conventions -- ``Results = N`` on stdout,
+``[STATS]``/``[RECORD]``/``[ROOFLINE]`` on stderr so scripts can split the
+streams (joincommon.c:175-196).
 
 Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
 -x -y -z -f --nchunks --scalarsort --scalarmerge --non-unique
@@ -14,16 +15,34 @@ distributed count joins ``-a m-way -n N -S NEXT|RING|RANDOM``, ``-a m-pass
 -n N`` and ``-a mpsm -n N``, and the distributed materializing join ``-n N
 --materialize [--persist DIR]`` (for any ``-a``, with a warning when it is
 not m-way, as in the JAX CLI; ``--persist`` streams Out.tbl a shard at a
-time).  ``-m``, ``-o`` and ``--mapping-file`` are parsed and refused with
-"not yet ported" and exit code 2.  Relations and kernels run on the card
-(``--device cuda``, the default; without a card the CLI exits 1).
-``--device cpu`` runs them on the CPU through the kernels' plain PyTorch
-versions.
+time).
+
+The workload-A scale tier (``parallel/scale.py``): with ``-n N > 1`` and
+``max(-r, -s) >= SMJ_SHARDED_GEN_MIN`` (default 500,000,000), sizes that
+divide by N and none of ``--non-unique``, ``--full-range``,
+``--materialize``, ``--key8b``, each shard's columns are made on the
+device and joined by the pre-sharded distributed m-way
+(``SMJ_SCALE_PHASED=1``, the default, through its phased entry point; 0
+through the fused one).  Asked for another ``-a``, ``--scalarsort``,
+``--scalarmerge`` or ``-S``, it warns and takes the standard path.  The
+port's mesh is N shards of one card, so unlike the JAX CLI there is no
+"chips requested > available" check.
+
+The single-device joins print ``[ROOFLINE]`` rows after ``[RECORD]``:
+each phase's bytes over its time, against the copy rate measured on the
+join's device (``SMJ_HBM_GBPS`` overrides it).  ``-o DIR`` writes a
+``torch.profiler`` trace of the run to ``DIR/trace.json``.  ``-m`` and
+``--mapping-file`` are parsed and refused with "not yet ported" and exit
+code 2.  Relations and kernels run on the card (``--device cuda``, the
+default; without a card the CLI exits 1).  ``--device cpu`` runs them on
+the CPU through the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -77,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="64-bit keys (the KEY_8B build): the count join over "
                         "(hi, lo) key planes; ignores -a")
     p.add_argument("-o", "--perfout", metavar="DIR", default=None,
-                   help="write a profiler trace (not yet ported)")
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json (the PCM perf-counter output "
+                        "analog, main.c:738)")
     p.add_argument("-p", "--perfconf", default=None,
                    help="accepted for flag parity (PCM event config)")
     p.add_argument("--mapping-file", default=None,
@@ -94,7 +115,6 @@ def _not_ported(args) -> list[str]:
     """The flags of this run that the port does not carry yet."""
     checks = [
         (args.mwaybufsize != 0, "-m"),
-        (args.perfout is not None, "-o"),
         (args.mapping_file is not None, "--mapping-file"),
     ]
     return [flag for bad, flag in checks if bad]
@@ -324,6 +344,152 @@ def _validate(args) -> str | None:
     return None
 
 
+SCALE_MIN_DEFAULT = 500_000_000  # SMJ_SHARDED_GEN_MIN's default
+
+
+def _scale_eligible(args) -> bool:
+    """Whether this run takes the workload-A scale tier (the JAX CLI's
+    routing, cli.py:400-425): a warning, and the standard path, where the
+    tier would fit but the flags ask for what it does not run."""
+    from .utils.log import warn
+
+    scale_min = int(os.environ.get("SMJ_SHARDED_GEN_MIN", SCALE_MIN_DEFAULT))
+    eligible = (
+        args.nthreads > 1 and max(args.r_size, args.s_size) >= scale_min
+        and not (args.non_unique or args.full_range or args.materialize
+                 or args.key8b)
+        and args.r_size % args.nthreads == 0
+        and args.s_size % args.nthreads == 0)
+    if eligible and (args.algo != "m-way" or args.scalarsort
+                     or args.scalarmerge or args.numastrategy != "NEXT"):
+        # the tier runs the m-way pipeline with the default exchange only:
+        # never report its numbers for another algorithm or variant
+        warn(f"scale tier (>= {scale_min} tuples) supports -a m-way with "
+             "default sort/merge/schedule only; running the standard "
+             f"{args.algo} path (relations built whole -- may exhaust "
+             "memory at this size)")
+        return False
+    return eligible
+
+
+def _run_scale_tier(args, device, dname: str) -> int:
+    """Workload A: each shard's columns made on the device, then the
+    pre-sharded distributed m-way count join (``parallel/scale.py``; the
+    1.6B ⋈ 1.6B configuration, tput-scalability.sh:15-16).  Generation is
+    set-up, timed apart; the slack is 4.0 under ``-z`` and 2.0 otherwise
+    (cli.py:187), and the one the run ended at is printed."""
+    import torch
+
+    from .models.common import device_sync
+    from .parallel import dist_mway, scale
+    from .parallel.mesh import make_mesh
+    from .utils import profiling
+    from .utils.log import error, info
+
+    mesh = make_mesh(args.nthreads, device)
+    info(f"scale tier: sharded on-device generation of "
+         f"{args.r_size}⋈{args.s_size} over {args.nthreads} shards of "
+         f"one device ({dname})")
+    t0 = time.perf_counter()
+    rk, sk = scale.make_workload_a_sharded(
+        args.r_size, args.s_size, mesh, seed=args.r_seed, skew=args.skew,
+        s_seed=args.s_seed)
+    device_sync(sk)
+    info(f"relations ready in {time.perf_counter() - t0:.3f} s")
+    # the phased entry point gives the [RECORD] row SORT / MERGE1 / MJOIN
+    # columns at the cost of two more device syncs; SMJ_SCALE_PHASED=0
+    # runs the fused one, whose row has the total only
+    phased = os.environ.get("SMJ_SCALE_PHASED", "1") == "1"
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("join"):
+        out = scale.join_sharded(rk, sk, args.r_size, args.s_size, mesh,
+                                 fanin=args.partfanout,
+                                 slack=4.0 if args.skew > 0 else 2.0,
+                                 phased=phased)
+    dt = time.perf_counter() - t0
+    cnt, overflow = out[:2]
+    phases = out[2] if phased else {"total": dt}
+    peak = ""
+    if device.type == "cuda":  # since the process began or its last reset
+        gb = torch.cuda.max_memory_allocated(device) / 1e9
+        peak = f", peak device memory {gb:.3f} GB"
+    info(f"scale tier: slack {dist_mway.LAST_SLACK}, overflow {overflow}"
+         + peak)
+    if overflow:
+        error(f"exchange bucket overflow ({overflow})")
+        return OVERFLOW_EXIT
+    nt = args.r_size + args.s_size
+    print(f"[STATS] NUMTUPLES {nt}, TOTAL-TIME-USECS {dt*1e6:.1f}, "
+          f"TUPLES-PER-SECOND {nt/dt:.0f}, DEVICE {dname}", file=sys.stderr)
+    print(profiling.record_line(args.algo, args.nthreads, args.r_size,
+                                args.s_size, 0, phases, dname),
+          file=sys.stderr)
+    print(f"Results = {cnt}")
+    return 0
+
+
+def _run(args, device, dname: str) -> int:
+    """Build the relations and run the join the flags name; print the
+    statistics and the result."""
+    import torch
+
+    from .models.common import device_sync
+    from .utils import profiling
+    from .utils.log import error, info
+
+    if _scale_eligible(args):
+        return _run_scale_tier(args, device, dname)
+    t0 = time.perf_counter()
+    R, S = make_relations(args, device)
+    # data generation is set-up, not a join phase
+    device_sync((R.keys, S.keys))
+    info(f"relations ready in {time.perf_counter() - t0:.3f} s")
+    ntotal = R.num_tuples + S.num_tuples
+    if args.key8b:
+        result = _run_key8b(args, R, S)
+        print(f"[STATS] NUMTUPLES {ntotal}, TUPLES-PER-SECOND "
+              f"{result.throughput:.0f}, DEVICE {dname}", file=sys.stderr)
+        print(f"Results = {result.totalresults}")
+        return 0
+    try:
+        with torch.profiler.record_function("join"):
+            result = run_join(args, R, S)
+    except BucketOverflow as e:
+        error(str(e))
+        return OVERFLOW_EXIT
+    # statistics to stderr, results to stdout (joincommon.c:175-196 split)
+    for name, secs in result.phases.items():
+        print(f"[STATS] {name:12s} {secs * 1e6:12.1f} usecs", file=sys.stderr)
+    total = result.phases.get("total", 0.0) or 1e-12
+    print(f"[STATS] NUMTUPLES {ntotal}, TOTAL-TIME-USECS {total*1e6:.1f}, "
+          f"TUPLES-PER-SECOND {result.throughput:.0f}, DEVICE {dname}",
+          file=sys.stderr)
+    print(profiling.record_line(args.algo, args.nthreads, R.num_tuples,
+                                S.num_tuples, 0, result.phases, dname),
+          file=sys.stderr)
+    if result.bytes_moved:
+        # %-of-roofline a phase (cli.py:451-455), against this device's
+        # own copy rate
+        gbps, origin = profiling.hbm_gbps(device)
+        report = profiling.BytesMoved(dict(result.bytes_moved)) \
+            .roofline_report(result.phases, gbps)
+        if report:
+            print(f"[ROOFLINE] denominator {gbps:.1f} GB/s: {origin} "
+                  f"({dname})", file=sys.stderr)
+            print(report, file=sys.stderr)
+    print(f"Results = {result.totalresults}")
+    if args.persist:
+        from .datagen import write_relation
+
+        os.makedirs(args.persist, exist_ok=True)
+        write_relation(R, os.path.join(args.persist, "R.tbl"))
+        write_relation(S, os.path.join(args.persist, "S.tbl"))
+        if args.materialize and result.resultlist:
+            write_relation(result.resultlist[0].results,
+                           os.path.join(args.persist, "Out.tbl"))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from .utils.log import error, info
@@ -339,7 +505,6 @@ def main(argv=None) -> int:
 
     import torch
 
-    from .models.common import device_sync
     from .types import default_device, device_name
     from .utils import profiling
 
@@ -354,46 +519,16 @@ def main(argv=None) -> int:
     dname = device_name(device)
     info(f"device: {dname}" if device.type == "cuda"
          else "device: cpu (plain PyTorch versions)")
-    t0 = time.perf_counter()
-    R, S = make_relations(args, device)
-    # data generation is set-up, not a join phase
-    device_sync((R.keys, S.keys))
-    info(f"relations ready in {time.perf_counter() - t0:.3f} s")
-    ntotal = R.num_tuples + S.num_tuples
-    if args.key8b:
-        result = _run_key8b(args, R, S)
-        print(f"[STATS] NUMTUPLES {ntotal}, TUPLES-PER-SECOND "
-              f"{result.throughput:.0f}, DEVICE {dname}", file=sys.stderr)
-        print(f"Results = {result.totalresults}")
-        return 0
-    try:
-        result = run_join(args, R, S)
-    except BucketOverflow as e:
-        error(str(e))
-        return OVERFLOW_EXIT
-    # statistics to stderr, results to stdout (joincommon.c:175-196 split)
-    for name, secs in result.phases.items():
-        print(f"[STATS] {name:12s} {secs * 1e6:12.1f} usecs", file=sys.stderr)
-    total = result.phases.get("total", 0.0) or 1e-12
-    print(f"[STATS] NUMTUPLES {ntotal}, TOTAL-TIME-USECS {total*1e6:.1f}, "
-          f"TUPLES-PER-SECOND {result.throughput:.0f}, DEVICE {dname}",
-          file=sys.stderr)
-    print(profiling.record_line(args.algo, args.nthreads, R.num_tuples,
-                                S.num_tuples, 0, result.phases, dname),
-          file=sys.stderr)
-    print(f"Results = {result.totalresults}")
-    if args.persist:
-        import os
-
-        from .datagen import write_relation
-
-        os.makedirs(args.persist, exist_ok=True)
-        write_relation(R, os.path.join(args.persist, "R.tbl"))
-        write_relation(S, os.path.join(args.persist, "S.tbl"))
-        if args.materialize and result.resultlist:
-            write_relation(result.resultlist[0].results,
-                           os.path.join(args.persist, "Out.tbl"))
-    return 0
+    # -o: the whole run, generation included, under the profiler
+    # (cli.py:395-399, :421-437)
+    traced = (profiling.trace(args.perfout, device) if args.perfout
+              else contextlib.nullcontext())
+    with traced:
+        rc = _run(args, device, dname)
+    if args.perfout:
+        info(f"trace written to "
+             f"{os.path.join(args.perfout, profiling.TRACE_FILE)}")
+    return rc
 
 
 if __name__ == "__main__":

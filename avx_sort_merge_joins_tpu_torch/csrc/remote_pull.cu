@@ -1,6 +1,6 @@
 // K11: the remote-pull push and chunk-gated merge, for every shard of a
 // mesh on one card in one launch.  Shard me holds n buckets of `cap` slots
-// (bucket d at bflat[me][d * cap], the _slice_buckets layout); it pushes
+// (bucket d at bflat[me][d * cap], the dist_mway._cut_all layout); it pushes
 // them chunk by chunk into its peers' landing strips (strip me of shard d
 // at landing[d][me * cap]), and each shard merges its n strips into one
 // ascending column while they arrive, each merge tile waiting for the

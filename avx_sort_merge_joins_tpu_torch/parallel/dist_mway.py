@@ -10,9 +10,11 @@ collectives (``parallel/mesh.py``):
   sort       -- the shard's keys sorted by the multiway sort (K1 + K2);
   exchange   -- equi-depth splitters from 16 quantiles per relation per
                 shard (an all-gather); each shard cuts its sorted run into
-                one contiguous bucket per destination and the buckets move
-                by all-to-all, by NEXT/RING/RANDOM permute rounds, or in two
-                stages on a 2-D mesh;
+                one contiguous bucket per destination (slice copies into
+                one preallocated stack) and the buckets move by
+                all-to-all (one landing at a time: each is merged and cut
+                to its live keys before the next), by NEXT/RING/RANDOM
+                permute rounds, or in two stages on a 2-D mesh;
   merge      -- the received runs k-way merged: the varlen K2 with run
                 lengths in a device vector, or the chunk-gated receiver
                 merge K9 (``remote_pull="emulate"``), or, with
@@ -34,6 +36,13 @@ a hot key with cntR * cntS >= 2^29 on one shard counts exactly), and the
 jit caches of the shard programs.  The bucket alignment stays the JAX
 package's 16,384 keys (its ``tile_rows * 128``), so capacities, overflow
 and the slack-doubling retry match its own.
+
+Footprint: every shard lives on the one device, so the 1.6B ⋈ 1.6B
+workload (``parallel/scale.py``) would not fit as a sum of per-device
+buffers.  The buckets are cut straight into one stack (no per-shard
+copies, gather index or ``torch.stack``), the bulk exchange delivers and
+merges one landing at a time, and each merged column keeps only its live
+keys.
 """
 
 from __future__ import annotations
@@ -59,6 +68,9 @@ FANIN_DEFAULT = 16
 # so that they, and with them overflow and the retry, equal its own.
 TILE_ELEMS = 128 * 128
 NQ = 16  # splitter samples per relation per shard
+# the slack the most recent dist_mway_join_count / _phased call ended at
+# (its start, doubled once per bucket-overflow retry)
+LAST_SLACK: Optional[float] = None
 BOUND_MIN = -(2**31) + 1  # bounds[0]: below every live key
 
 
@@ -96,56 +108,18 @@ def _local_sorted_pair(keys: torch.Tensor, payloads: torch.Tensor,
         _at_least_one_slot(keys), _at_least_one_slot(payloads))).values)
 
 
-def _bucket_ranks(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
-                  n_chips: int, cap: int):
+def _bucket_starts(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
+                   n_chips: int) -> torch.Tensor:
     """Where the per-destination buckets of one shard's sorted column lie:
-    bucket d holds the live keys in [bounds[d], bounds[d+1]), a contiguous
-    slice found by a rank search.  Returns ``(at, keep, counts,
-    overflow)``: ``at`` the ``(n_chips, cap)`` source slots of the bucket
-    slots, ``keep`` which of them are live, int32 counts."""
+    bucket d holds the live keys in [bounds[d], bounds[d+1]), the slice
+    ``[starts[d], starts[d+1])`` found by a rank search.  Returns the
+    ``(n_chips + 1,)`` int64 starts on the column's device."""
     dev = ks.device
     inner = torch.searchsorted(ks[:n_valid], bounds[1:]) if n_chips > 1 \
         else torch.zeros(0, dtype=torch.int64, device=dev)
-    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), inner,
-                        torch.full((1,), n_valid, dtype=torch.int64,
-                                   device=dev)])
-    ln = starts[1:] - starts[:-1]
-    lane = torch.arange(cap, dtype=torch.int64, device=dev)
-    overflow = torch.clamp(ln - cap, min=0).sum()
-    return (starts[:-1, None] + lane[None, :], lane[None, :] < ln[:, None],
-            torch.clamp(ln, max=cap).to(torch.int32), overflow)
-
-
-def _cut(col: torch.Tensor, n_valid: int, at: torch.Tensor,
-         keep: torch.Tensor, fill: int) -> torch.Tensor:
-    """The bucket slots ``at`` of ``col[:n_valid]``, ``fill`` where not
-    ``keep``.  Everything past ``n_valid`` is masked first: a k-way merge
-    leaves garbage past its live prefix."""
-    cv = torch.full((n_valid + at.shape[1],), fill, dtype=torch.int32,
-                    device=col.device)
-    cv[:n_valid] = col[:n_valid]
-    return torch.where(keep, cv[at], fill).reshape(-1)
-
-
-def _slice_buckets(ks: torch.Tensor, n_valid: int, bounds: torch.Tensor,
-                   n_chips: int, cap: int):
-    """Cut one shard's sorted column into per-destination buckets
-    (:func:`_bucket_ranks`).  Returns ``((n_chips*cap,) keys, int32
-    counts, overflow)``, +inf past each bucket's keys."""
-    at, keep, counts, overflow = _bucket_ranks(ks, n_valid, bounds, n_chips,
-                                               cap)
-    return _cut(ks, n_valid, at, keep, KEY_POS_INF), counts, overflow
-
-
-def _slice_buckets_pair(ks: torch.Tensor, ps: torch.Tensor, n_valid: int,
-                        bounds: torch.Tensor, n_chips: int, cap: int):
-    """:func:`_slice_buckets` cutting both columns of one shard's sorted
-    pairs at the same ranks.  Returns ``(keys, payloads, counts,
-    overflow)``; the payload pads are 0."""
-    at, keep, counts, overflow = _bucket_ranks(ks, n_valid, bounds, n_chips,
-                                               cap)
-    return (_cut(ks, n_valid, at, keep, KEY_POS_INF),
-            _cut(ps, n_valid, at, keep, 0), counts, overflow)
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), inner,
+                      torch.full((1,), n_valid, dtype=torch.int64,
+                                 device=dev)])
 
 
 def _equidepth_bounds(mesh: Mesh, r_sorted, s_sorted, nvr, nvs):
@@ -362,22 +336,40 @@ def _shape(n_keys: int, n: int, slack: float):
 
 
 def _cut_all(ks: list, nv, bounds: torch.Tensor, cap: int, ps=None):
-    """Every shard's buckets, stacked: :func:`_slice_buckets` of each
-    sorted column of ``ks``, with ``ps`` :func:`_slice_buckets_pair`.
-    Empties the lists, freeing the sorted columns before the next phase.
-    Returns ``(keys (n, n*cap), payloads or None, counts (n, n),
-    overflow)``."""
+    """Every shard's buckets (:func:`_bucket_starts`), cut straight into
+    one preallocated ``(n, n*cap)`` stack a column (+inf key pads, 0
+    payload pads): one slice copy a bucket of at most ``cap`` keys, no
+    gather index, per-shard copy or ``torch.stack``.  The bucket starts of
+    every shard come to the host in one read.  Frees each sorted column of
+    ``ks`` (and ``ps``) once it is cut.  Returns ``(keys (n, n*cap),
+    payloads or None, int32 counts (n, n), overflow)``: the keys each
+    bucket kept, and those that did not fit."""
     n = len(ks)
-    cut = [_slice_buckets(ks[me], int(nv[me]), bounds, n, cap)
-           if ps is None else
-           _slice_buckets_pair(ks[me], ps[me], int(nv[me]), bounds, n, cap)
-           for me in range(n)]
+    dev = ks[0].device
+    starts = torch.stack([_bucket_starts(ks[me], int(nv[me]), bounds, n)
+                          for me in range(n)]).tolist()
+    bk = torch.full((n, n * cap), KEY_POS_INF, dtype=torch.int32, device=dev)
+    bp = None if ps is None else torch.zeros_like(bk)
+    counts, overflow = [], 0
+    for me in range(n):
+        cols = [(bk[me], ks[me])] + ([] if ps is None else [(bp[me], ps[me])])
+        row_counts = []
+        for d in range(n):
+            a, ln = starts[me][d], starts[me][d + 1] - starts[me][d]
+            keep = min(ln, cap)
+            overflow += ln - keep
+            row_counts.append(keep)
+            for row, col in cols:
+                row[d * cap:d * cap + keep] = col[a:a + keep]
+        counts.append(row_counts)
+        ks[me] = None
+        if ps is not None:
+            ps[me] = None
     del ks[:]
     if ps is not None:
         del ps[:]
-    *cols, counts, overflow = (torch.stack(c) for c in zip(*cut))
-    return (cols[0], cols[1] if ps is not None else None, counts,
-            overflow.sum())
+    return (bk, bp, torch.tensor(counts, dtype=torch.int32, device=dev),
+            torch.tensor(overflow, device=dev))
 
 
 def _receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor, cap: int,
@@ -389,6 +381,15 @@ def _receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor, cap: int,
     rcounts = ex.exchange_hier(mesh, counts, 1) if hier else \
         mesh.all_to_all(counts)
     return recv, rcounts
+
+
+def _live_prefixes(cols, totals: torch.Tensor) -> list:
+    """Each shard's merged column cut to its live keys (at least one slot):
+    a copy of ``col[:total]``, taken as ``cols`` yields each column, so
+    that a full merged landing is freed before the next is made.  K3 reads
+    no slot past its length."""
+    live = totals.tolist()
+    return [col[:max(t, 1)].clone() for col, t in zip(cols, live)]
 
 
 def _count_owned(merged_r: list, merged_s: list, totals_r: torch.Tensor,
@@ -433,8 +434,10 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
         bflat, _, counts, ov = _cut_all(ks, nv, bounds, cap)
         overflow.append(ov)
         if overlap_ok:
-            merged[side] = _overlap_receive(mesh, bflat, counts, cap, fanin)
             totals[side] = counts.sum(0)
+            merged[side] = _live_prefixes(
+                _overlap_receive(mesh, bflat, counts, cap, fanin),
+                totals[side])
             continue
         if remote_pull == "dma":
             rcounts = mesh.all_to_all(counts)
@@ -443,8 +446,20 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
             out, _waited, viol, _landing = rf.remote_pull_exchange_merge(
                 mesh, bflat, rcounts, cap, chunk)
             del bflat, _landing
-            merged[side] = list(out)
+            merged[side] = _live_prefixes(out, totals[side])
             viols.append(viol.sum())
+            continue
+        if schedule is None and hier is None and remote_pull is None:
+            # the bulk all-to-all a landing at a time, each merged and cut
+            # to its live keys before the next: one landing on the device,
+            # not the (n, n*cap) receive stack beside the bucket stack
+            rcounts = mesh.all_to_all(counts)
+            totals[side] = rcounts.sum(1)
+            merged[side] = _live_prefixes(
+                (_merge_received(mesh.all_to_all_row(bflat, me), rcounts[me],
+                                 n, cap, fanin, use_kernels)
+                 for me in range(n)), totals[side])
+            del bflat
             continue
         recv, rcounts = _receive(mesh, bflat, counts, cap, schedule, hier)
         del bflat
@@ -452,12 +467,13 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
         if remote_pull == "emulate":
             out = [_merge_received_gated(recv[me], rcounts[me], n, cap,
                                          pull_rate) for me in range(n)]
-            merged[side] = [o[0] for o in out]
             viols += [o[1] for o in out]
+            merged[side] = _live_prefixes((o[0] for o in out), totals[side])
         else:
-            merged[side] = [_merge_received(recv[me], rcounts[me], n, cap,
-                                            fanin, use_kernels)
-                            for me in range(n)]
+            merged[side] = _live_prefixes(
+                (_merge_received(recv[me], rcounts[me], n, cap, fanin,
+                                 use_kernels) for me in range(n)),
+                totals[side])
         del recv
     device_sync(merged["s"])
     phases["merge1"] = time.perf_counter() - t0
@@ -565,8 +581,10 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
             and numa_strategy != NumaStrategy.NEXT):
         warn(f"overlap=True ignores numa_strategy={numa_strategy} "
              "(the permute rounds are sequential by construction)")
+    global LAST_SLACK
     schedule = _schedule(mesh, numa_strategy, next_as_rounds=True)
     while True:
+        LAST_SLACK = slack
         count, ov, _ = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
                              fanin, use_kernels, schedule, pre_sharded,
                              overlap_ok, remote_pull, pull_rate)
@@ -590,9 +608,11 @@ def dist_mway_join_phased(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
     record columns, joincommon.c:175-196).  NEXT exchanges by one
     all-to-all here, as in the JAX package.  The times of the run that
     returns, after any slack retry."""
+    global LAST_SLACK
     _check_fanin(fanin)
     schedule = _schedule(mesh, numa_strategy, next_as_rounds=False)
     while True:
+        LAST_SLACK = slack
         count, ov, phases = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
                                   fanin, use_kernels, schedule, pre_sharded,
                                   False, None, 1)

@@ -10,7 +10,8 @@ counterpart on one card: N shards whose tensors all live on one
 tensor, and the collectives are device-side copies of those stacks:
 
 * ``all_to_all``: ``(n, n * k)`` -> ``(n, n, k)`` -> swap the first two
-  axes, so that piece d of shard s lands as piece s of shard d;
+  axes, so that piece d of shard s lands as piece s of shard d
+  (``all_to_all_row``: one member's share alone);
 * ``all_gather``: every shard's row, concatenated in rank order;
 * ``ppermute``: row ``src`` moves to row ``dst`` for each pair of a
   permutation, the rounds of the scheduled exchange.
@@ -88,6 +89,15 @@ class Mesh:
                 y = x.reshape(H, C, H, m // H).permute(2, 1, 0, 3)
         return y.contiguous().reshape(self.n, m)
 
+    def all_to_all_row(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """What member ``d`` receives from a tiled all-to-all of the stacked
+        ``(n, m)`` tensor over the whole mesh: ``all_to_all(x)[d]``, a new
+        contiguous column, built alone.  Taking the rows one at a time
+        keeps one receive buffer, not the whole stack, on the device."""
+        self._check_stack(x, "all_to_all_row")
+        m = x[0].numel()
+        return x.reshape(self.n, self.n, m // self.n)[:, d].reshape(m)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's row concatenated in flat rank order: what each
         shard of an all-gather over the whole mesh receives."""
@@ -113,6 +123,16 @@ class Mesh:
         return out
 
 
+def _mesh_device(device) -> torch.device:
+    """``device``, or the card by default, with its index: tensors made on
+    ``"cuda"`` land on ``cuda:<current>``, and the collectives compare the
+    two."""
+    device = torch.device(device) if device is not None else default_device()
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def make_mesh(n: int, device=None,
               chips_per_host: Optional[int] = None) -> Mesh:
     """Flat mesh of ``n`` shards on ``device`` (default: the card, see
@@ -125,8 +145,7 @@ def make_mesh(n: int, device=None,
         raise ValueError(f"make_mesh: {n} shards")
     if chips_per_host is not None:
         HOST_GRANULARITY = chips_per_host
-    device = torch.device(device) if device is not None else default_device()
-    return Mesh(int(n), device)
+    return Mesh(int(n), _mesh_device(device))
 
 
 def make_mesh2d(n_hosts: int, chips_per_host: int, device=None) -> Mesh:
@@ -135,8 +154,7 @@ def make_mesh2d(n_hosts: int, chips_per_host: int, device=None) -> Mesh:
     mesh's."""
     if n_hosts < 1 or chips_per_host < 1:
         raise ValueError(f"make_mesh2d: {n_hosts} x {chips_per_host}")
-    device = torch.device(device) if device is not None else default_device()
-    return Mesh(n_hosts * chips_per_host, device,
+    return Mesh(n_hosts * chips_per_host, _mesh_device(device),
                 (int(n_hosts), int(chips_per_host)))
 
 

@@ -374,7 +374,7 @@ def remote_pull_exchange_merge(mesh, bflat: torch.Tensor,
     they arrive.
 
     ``bflat``       -- ``(n, n*cap)`` int32, bucket d of shard me at
-                       ``[me, d*cap:(d+1)*cap]`` (the ``_slice_buckets``
+                       ``[me, d*cap:(d+1)*cap]`` (the ``dist_mway._cut_all``
                        layout), pads past each bucket's count.
     ``recv_counts`` -- ``(n, n)`` int32: shard d's strip r holds
                        ``recv_counts[d, r]`` live keys (the counts after

@@ -1,13 +1,27 @@
-"""The reference scripts' [RECORD] row (counterpart of
-``avx_sort_merge_joins_tpu/utils/profiling.py:record_line``).
+"""Observability: the [RECORD] row, bytes-moved rooflines and profiler
+traces (counterpart of ``avx_sort_merge_joins_tpu/utils/profiling.py``;
+reference: src/util/rdtsc.h cycle timers printed by joincommon.c:175-196,
+and the PCM wrapper src/util/perf_counters.c).
 
-The TPU package's roofline report is not ported yet: its denominator is a
-copy bandwidth measured on another device.
+* :func:`record_line` -- one grid row in the reference scripts' columns;
+* :class:`BytesMoved` -- per-phase read + write bytes turned into
+  ``[ROOFLINE]`` rows against a copy rate;
+* :func:`measure_copy_bandwidth` / :func:`hbm_gbps` -- that copy rate,
+  measured on the device the join ran on (``SMJ_HBM_GBPS`` overrides it);
+  never a constant taken from another device;
+* :func:`trace` -- a ``torch.profiler`` context writing a Chrome trace
+  (the PCM_start/stop analog, perf_counters.h:51-103).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import os
+import time
 from typing import Dict
+
+import torch
 
 # canonical phase order of the reference's record format
 # (scripts/tput-scalability.sh:28: PARTCYC SORTCYC MERGE1CYC MERGERESTCYC
@@ -33,3 +47,111 @@ def record_line(algo: str, nthreads: int, n_r: int, n_s: int, run_no: int,
     return (f"[RECORD] {algo} {nthreads} {n_r} {n_s} {run_no} {cols} "
             f"{ntuples} {total * 1e6:.0f} {tput:.0f} "
             f"{device.replace(' ', '_')}")
+
+
+@dataclasses.dataclass
+class BytesMoved:
+    """Per-phase device-memory traffic for roofline reports, the analog of
+    the reference's speed-of-light comparisons against memcpy
+    (multiwaymergebench.c:178-221)."""
+
+    phases: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def add(self, phase: str, nbytes: int) -> None:
+        self.phases[phase] = self.phases.get(phase, 0) + nbytes
+
+    @staticmethod
+    def sort_bytes(n: int, passes: int, keys_only: bool = False) -> int:
+        """Read + write bytes of a block sort and ``passes`` merge passes
+        over n tuples."""
+        width = 4 if keys_only else 8
+        return (passes + 1) * n * width * 2
+
+    def roofline_report(self, timings: Dict[str, float],
+                        bandwidth_gbps: float) -> str:
+        """One ``[ROOFLINE]`` row a phase that has bytes and a time: its
+        GB/s and its share of ``bandwidth_gbps``."""
+        lines = []
+        for phase, nbytes in self.phases.items():
+            secs = timings.get(phase)
+            if not secs:
+                continue
+            gbps = nbytes / secs / 1e9
+            lines.append(f"[ROOFLINE] {phase:14s} {gbps:8.1f} GB/s "
+                         f"({100 * gbps / bandwidth_gbps:5.1f}% of "
+                         f"{bandwidth_gbps:.0f} GB/s)")
+        return "\n".join(lines)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_copy_bandwidth(nbytes: int = 1 << 30, reps: int = 3,
+                           device="cuda") -> float:
+    """Achievable read + write rate of ``device``'s memory in GB/s: ten
+    chained ``+ 1`` passes over an ``nbytes`` int32 column, the best of
+    ``reps`` timed chains after one warm-up, synchronised on the card (the
+    memcpy speed-of-light baseline, partition.c:387-436)."""
+    device = torch.device(device)
+    x = torch.zeros(nbytes // 4, dtype=torch.int32, device=device)
+
+    def chain(a):
+        for _ in range(10):
+            a = a + 1
+        return a
+
+    chain(x)
+    _sync(device)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        chain(x)
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return 10 * 2 * (nbytes // 4 * 4) / best / 1e9
+
+
+_MEASURED: Dict[str, float] = {}
+
+
+def hbm_gbps(device) -> tuple[float, str]:
+    """The denominator of the ``[ROOFLINE]`` rows and where it came from:
+    ``SMJ_HBM_GBPS`` when it is set, else :func:`measure_copy_bandwidth`
+    on ``device``, measured once a process and device."""
+    env = os.environ.get("SMJ_HBM_GBPS")
+    if env:
+        return float(env), "SMJ_HBM_GBPS"
+    device = torch.device(device)
+    key = str(device)
+    if key not in _MEASURED:
+        # a smaller column on the CPU: its copy rate saturates far sooner
+        nbytes = 1 << 30 if device.type == "cuda" else 1 << 26
+        _MEASURED[key] = measure_copy_bandwidth(nbytes, device=device)
+    return _MEASURED[key], f"copy rate measured on {key}"
+
+
+TRACE_FILE = "trace.json"  # what trace() writes into its logdir
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device="cpu"):
+    """A ``torch.profiler`` trace of the block: CPU activity, and CUDA
+    activity when ``device`` is the card.  On exit it writes
+    ``logdir/TRACE_FILE`` (a Chrome trace: chrome://tracing or Perfetto)
+    and yields nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        try:
+            yield
+        finally:
+            _sync(device)
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+

@@ -187,12 +187,35 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    one-device join of the same relations as a multiset.  Then each
    8-shard join (m-way too) at 128M once more under torch.profiler: its
    device time by kernel, the device's busy share of the run's span.
+23. The CLI's other outputs and benches: phase 6's ``-a m-way``, ``-a
+   m-pass`` and ``-a mpsm`` runs print ``[ROOFLINE]`` rows against the
+   card's measured copy rate, each share at most 100%; ``scalebench`` at
+   134,217,728 keys on 1, 2, 4, 8 shards and a 2 x 4 mesh, and with
+   ``--algo m-pass`` and ``--algo mpsm`` at 16M (every count checked
+   against numpy); ``tputbench --mode numa`` at 2^25 keys a shard (the
+   aggregate checked against numpy); ``-a m-way -r 16000000 -s 16000000
+   -o DIR``: the trace names K1's, K2's and K3's kernels, and the card's
+   busy share of the join's span is printed.
+24. Kernel vs plain, exact, at the 1.6B scale tier's shapes: K1 and each
+   uniform K2 level of shard 0 of R and S (200,000,000 keys each, made by
+   ``parallel/scale.py``), the varlen K2 over shard 0's received landings
+   of the real exchange (8 runs of stride 50,003,968) and K3 of the two
+   merged landings.
+25. Workload A through the CLI: ``-a m-way -n 8 -r 1600000000 -s
+   1600000000`` after ``empty_cache`` and a reset of the peak memory
+   statistics, phased (``SMJ_SCALE_PHASED=1``), fused (``=0``) and with
+   ``-z 1.0`` (slack 4): ``Results = 1600000000``, overflow 0, the scale
+   tier's line, the ``[RECORD]`` row (phased: sort, merge1 and mergejoin
+   columns), launches exactly K1 16, K2 80, K3 8 (derived from the
+   schedules); the peak memory, the generation time (and the host's Zipf
+   table) and the slack printed.
 
 Each phase's wall time is printed as a ``[phase]`` line.  The line before
 the last is one JSON object with each kernel's launches
-over the runs of phases 6, 7, 9, 13-15, 18, 21 and 22, its largest error in
-phases 3-5, 8, 11-12, 17 and 20, its times, its bound and its library
-yardstick's time; the last line is ``{"ok": true, "device": {...}}``.
+over the runs of phases 6, 7, 9, 13-15, 18, 21-23 and 25, its largest
+error in phases 3-5, 8, 11-12, 17, 20 and 24, its times, its bound and
+its library yardstick's time; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -303,6 +326,14 @@ K4_SPANS = (1, K4_TILE - 1, K4_TILE, K4_TILE + 1, K4_CTA - 1, K4_CTA,
 K4_UNIFORM_SPAN = 1 << 21  # the uniform pass timed beside the varlen one
 K3_TILE = 1920  # merged elements a tile of K3 (csrc/merge_join_count.cu)
 K3_CTA = 8 * K3_TILE  # merged elements a CTA of K3
+SCALE_N = 1_600_000_000  # workload A: -r 1600000000 -s 1600000000, -n 8
+SCALE_ARGV = ["-a", "m-way", "-n", str(DIST_SHARDS), "-r", str(SCALE_N),
+              "-s", str(SCALE_N)]
+SCALEBENCH_N = 134_217_728  # scalebench's 1, 2, 4, 8 and 2 x 4 rows
+SCALEBENCH_SMALL_N = 16_000_000  # its m-pass and mpsm rows
+NUMA_N = 1 << 25  # tputbench --mode numa: keys a shard
+TRACE_N = 16_000_000  # -o DIR
+ROOFLINE_PATHS = ("m-way", "m-pass", "mpsm")  # CLI runs that print rows
 BENCHES = [  # (module, argv): each once at its JAX defaults
     ("sortbench", ["16", "multiway"]), ("sortbench", ["16", "keysonly"]),
     ("sortbench", ["16", "pairwise"]),
@@ -899,12 +930,30 @@ def check_launched(path: str, counts: dict, need) -> None:
         raise AssertionError(f"{path} never launched {idle}")
 
 
+def check_roofline(path: str, stderr: str) -> None:
+    """The ``[ROOFLINE]`` rows of a single-device CLI run: a denominator
+    line (the card's measured copy rate) and a row a timed phase, each
+    share at most 100% (above it the byte count would be wrong)."""
+    head = re.search(r"^\[ROOFLINE\] denominator ([\d.]+) GB/s: (.*)$",
+                     stderr, re.M)
+    rows = re.findall(r"^\[ROOFLINE\] (\S+)\s+([\d.]+) GB/s \(\s*([\d.]+)% of",
+                      stderr, re.M)
+    if head is None or not rows:
+        raise AssertionError(f"{path}: no [ROOFLINE] rows")
+    log(f"[roofline] {path}: copy rate {head.group(1)} GB/s "
+        f"({head.group(2)}); shares "
+        + ", ".join(f"{ph} {pct}%" for ph, _, pct in rows))
+    over = [(ph, pct) for ph, _, pct in rows if float(pct) > 100.0]
+    if over:
+        raise AssertionError(f"{path}: roofline shares above 100%: {over}")
+
+
 def phase_path(path: str) -> dict[str, int]:
     flags, need = PATHS[path]
     argv = [*flags, "-r", str(MAIN_N), "-s", str(MAIN_N)]
     reset_launches()
     t0 = time.perf_counter()
-    rc, stdout = run_cli(argv)
+    rc, stdout, stderr = run_cli_full(argv)
     torch.cuda.synchronize()
     counts = launches()
     log(f"[{path}] cli.main({argv}) -> rc {rc} in "
@@ -916,6 +965,8 @@ def phase_path(path: str) -> dict[str, int]:
     if got != MAIN_N:
         raise AssertionError(f"{path}: Results = {got} != {MAIN_N}")
     check_launched(path, counts, need)
+    if path in ROOFLINE_PATHS:
+        check_roofline(path, stderr)
     return counts
 
 
@@ -1883,14 +1934,12 @@ def dist_landings(dev: torch.device):
     bounds = dm._equidepth_bounds(mesh, *sorted_, nv, nv)
     out, buckets = [], []
     for ks in sorted_:
-        cut = [dm._slice_buckets(ks[me], shard, bounds, DIST_SHARDS, cap)
-               for me in range(DIST_SHARDS)]
-        bflat = torch.stack([c[0] for c in cut])
+        bflat, _, counts, _ = dm._cut_all(ks, nv, bounds, cap)
         recv = mesh.all_to_all(bflat)
-        counts = mesh.all_to_all(torch.stack([c[1] for c in cut]))
+        counts = mesh.all_to_all(counts)
         out.append((recv[0].clone(), counts[0].clone()))
         buckets.append((bflat, counts))
-        del cut, recv
+        del recv
     return out, cap, first_shard, buckets
 
 
@@ -2800,6 +2849,213 @@ def phase_dist_persist(dev: torch.device) -> dict[str, int]:
     return counts
 
 
+def scale_launches() -> dict[str, int]:
+    """The launches of one workload-A run (8 shards of 200,000,000 keys a
+    relation), from the schedules the join runs: K1 once a shard and
+    relation, K2 once a uniform level of each local sort and once a
+    varlen level of each shard's received runs, K3 once a shard."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+
+    n, shard = DIST_SHARDS, SCALE_N // DIST_SHARDS
+    uniform = len(mw.merge_levels(shard, BLOCK, dm.FANIN_DEFAULT))
+    varlen, nruns = 0, dm._pow2_runs(n)
+    while nruns > 1:  # dm._merge_levels_varlen's levels
+        nruns = -(-nruns // min(dm.FANIN_DEFAULT, nruns))
+        varlen += 1
+    return {"K1": 2 * n, "K2": 2 * n * (uniform + varlen), "K3": n}
+
+
+def phase_scale_kernels(dev: torch.device) -> None:
+    """K1, each uniform K2 level, the varlen K2 and K3 at the 1.6B tier's
+    shapes, exact against their plain versions: shard 0 of R and S (200M
+    keys each, made by the tier's generator) through the local sort, then
+    shard 0's received landings of the real exchange (8 runs at the
+    bucket stride of slack 2, 50,003,968) through the varlen K2, and K3
+    of the two merged landings.  These launches are comparisons and are
+    not counted."""
+    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import exchange as ex
+    from avx_sort_merge_joins_tpu_torch.parallel import scale
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    n, shard = DIST_SHARDS, SCALE_N // DIST_SHARDS
+    mesh = make_mesh(n, dev)
+    stacks = scale.make_workload_a_sharded(SCALE_N, SCALE_N, mesh)
+    for name, col in (("R", stacks[0][0]), ("S", stacks[1][0])):
+        runs = sort_ops.sort_blocks_plain(col, shard, BLOCK)
+        record("K1", f"scale shard 0 of {name}, n={shard}",
+               sort_ops.sort_blocks(col, shard, BLOCK), runs)
+        for level in mw.merge_levels(shard, BLOCK, dm.FANIN_DEFAULT):
+            _, span, nruns, w = level
+            lens = (nruns, shard, span)
+            want = mw.multiway_merge_plain(runs, w, lens)
+            record("K2", f"scale shard 0 of {name} level={level}",
+                   mw.multiway_merge(runs, w, lens)[0], want)
+            runs = want
+        del runs, want
+    nv = ex.valid_counts(SCALE_N, shard, n)
+    cap = ex.bucket_cap(shard, n, 2.0, dm.TILE_ELEMS)
+    sorted_ = [[dm._local_sorted(st[me], BLOCK, dm.FANIN_DEFAULT, True)
+                for me in range(n)] for st in stacks]
+    del stacks
+    bounds = dm._equidepth_bounds(mesh, *sorted_, nv, nv)
+    merged = []
+    for name, ks in zip("RS", sorted_):
+        bflat, _, counts, ov = dm._cut_all(ks, nv, bounds, cap)
+        recv, rcounts = mesh.all_to_all(bflat), mesh.all_to_all(counts)
+        del bflat
+        land, lens = recv[0].clone(), rcounts[0].clone()
+        del recv
+        total = int(lens.sum())
+        log(f"[scale kernels] shard 0's landing of {name}: {n} runs of "
+            f"stride {cap}, {total} live keys, lens {lens.tolist()}, "
+            f"overflow {int(ov)}")
+        want, wlens = mw.multiway_merge_varlen_plain(land, n, lens, cap)
+        got, glens = mw.multiway_merge(land, n, lens=lens, stride=cap)
+        record("K2", f"scale varlen landing of {name} ({n} x {cap})", got,
+               want)
+        if not torch.equal(glens, wlens):
+            raise AssertionError("scale varlen K2: group lengths differ")
+        merged.append((want, total))
+        del land, got
+    (mr, nr), (ms, ns) = merged
+    record("K3", f"scale shard 0 {nr} x {ns}",
+           mergejoin.merge_join_count_fused(mr, ms, nr, ns),
+           mergejoin.merge_join_count_fused_plain(mr, ms, nr, ns))
+    log_k3_time("a 1.6B-tier shard", mr, ms, nr, ns)
+
+
+def phase_scale(env: dict, flags: list[str]) -> dict[str, int]:
+    """Workload A through the CLI at 1.6B x 1.6B on 8 shards of the card,
+    with ``env`` set: after ``empty_cache`` and a reset of the peak memory
+    statistics, ``Results = 1600000000``, overflow 0, the scale tier's
+    line, a ``[RECORD] m-way 8 1600000000 1600000000`` row (phased: with
+    sort, merge1 and mergejoin columns) and exactly the launches of
+    :func:`scale_launches`.  Prints the peak memory, the generation time
+    and the slack the run ended at."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = [*SCALE_ARGV, *flags]
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc, stdout, stderr = run_cli_full(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    gen = re.search(r"relations ready in ([\d.]+) s", stderr)
+    lut = re.search(r"Zipf quantile table of \d+ keys, z=[\d.]+: ([\d.]+) s",
+                    stderr)
+    tier = re.search(r"scale tier: slack ([\d.]+), overflow (\d+)", stderr)
+    log(f"[scale] cli.main({argv}) {env} -> rc {rc} in "
+        f"{time.perf_counter() - t0:.3f} s; generation "
+        f"{gen.group(1) if gen else '?'} s"
+        + (f" (the host's Zipf table {lut.group(1)} s)" if lut else "")
+        + f"; peak device memory {peak:.3f} GB of {total:.3f}; slack "
+        f"{tier.group(1) if tier else '?'}; launches {counts}")
+    if rc != 0 or results_of(stdout) != SCALE_N:
+        raise AssertionError(f"scale {argv} {env}: rc {rc}, {stdout!r}")
+    if "[INFO ] scale tier: sharded on-device generation" not in stderr \
+            or tier is None or tier.group(2) != "0":
+        raise AssertionError(f"scale {argv}: not the scale tier, or overflow")
+    rec = re.search(rf"^\[RECORD\] m-way {DIST_SHARDS} {SCALE_N} {SCALE_N} "
+                    r"(.*)$", stderr, re.M)
+    if rec is None:
+        raise AssertionError(f"scale {argv}: no [RECORD] row")
+    cols = [float(c) for c in rec.group(1).split()[:-1]]  # less the device
+    # run part sort merge1 mergerest mergejoin ntuples total tput
+    phased = env.get("SMJ_SCALE_PHASED", "1") == "1"
+    if cols[7] <= 0 or (phased and min(cols[2], cols[3], cols[5]) <= 0):
+        raise AssertionError(f"scale {argv}: [RECORD] columns {cols}")
+    want = scale_launches()
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"scale {argv}: launches {counts}, want {want}")
+    return counts
+
+
+def phase_scalebench() -> dict[str, int]:
+    """``scalebench`` at 134,217,728 keys on 1, 2, 4, 8 shards and a 2 x 4
+    mesh, and with ``--algo m-pass`` and ``--algo mpsm`` at 16M (mpsm
+    skips its 2 x 4 row); every count is checked inside against numpy."""
+    reset_launches()
+    t0 = time.perf_counter()
+    for n, extra in ((SCALEBENCH_N, []),
+                     (SCALEBENCH_SMALL_N, ["--algo", "m-pass"]),
+                     (SCALEBENCH_SMALL_N, ["--algo", "mpsm"])):
+        rows = [r for r in run_module("scalebench", [
+            str(n), "--devices", "1,2,4,8,2x4", *extra]).splitlines()
+            if r.strip()]
+        if len(rows) != (4 if "mpsm" in extra else 5):
+            raise AssertionError(f"scalebench {n} {extra}: rows {rows}")
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[scalebench] in {time.perf_counter() - t0:.1f} s; launches "
+        f"{counts}")
+    check_launched("scalebench", counts, ("K1", "K2", "K3", "K4"))
+    return counts
+
+
+def phase_numa() -> dict[str, int]:
+    """``tputbench --mode numa`` at 2^25 keys a shard on 8 shards: the
+    all-to-all and the aggregation rows, the aggregate checked inside
+    against numpy."""
+    out = run_module("tputbench", ["--mode", "numa", "-n", str(NUMA_N)])
+    if len(out.split()) != 4:
+        raise AssertionError(f"tputbench numa: {out!r}")
+    return {}
+
+
+def phase_trace() -> dict[str, int]:
+    """``-a m-way -r 16000000 -s 16000000 -o DIR``: the trace file, K1's,
+    K2's and K3's kernels in it, and the device's busy share of the join's
+    span (the CLI's ``join`` annotation: kernel time inside it over its
+    length)."""
+    argv = ["-a", "m-way", "-r", str(TRACE_N), "-s", str(TRACE_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        rc, stdout = run_cli([*argv, "-o", tmp])
+        counts = launches()
+        path = os.path.join(tmp, "trace.json")
+        if rc != 0 or results_of(stdout) != TRACE_N \
+                or not os.path.isfile(path):
+            raise AssertionError(f"-o: rc {rc}, {stdout!r}")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {k: sum(1 for e in kernels if re.search(pat, e["name"]))
+             for k, pat in (("K1", r"block_sort_kernel"),
+                            ("K2", r"\bmerge_kernel|corank_kernel"),
+                            ("K3", r"merge_join_count_kernel"))}
+    join = [e for e in events if e.get("name") == "join"
+            and e.get("cat") == "user_annotation"]
+    if not join:
+        raise AssertionError("-o: no join span in the trace")
+    a, b = join[0]["ts"], join[0]["ts"] + join[0]["dur"]
+    busy = sum(e["dur"] for e in kernels if a <= e["ts"] and
+               e["ts"] + e["dur"] <= b)
+    log(f"[trace] cli.main({argv} -o DIR): {size} bytes, {len(kernels)} "
+        f"kernel events, by kernel {names}; the join's span "
+        f"{(b - a) / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / (b - a):.1f}%); launches {counts}")
+    if min(names.values()) == 0:
+        raise AssertionError(f"-o: the trace lacks a kernel: {names}")
+    return counts
+
+
 def profile_breakdown(label: str, fn) -> None:
     """One run of ``fn`` under torch.profiler: the device time of each
     kernel name (the eight largest), the device's busy time over the span
@@ -2912,8 +3168,19 @@ def main() -> int:
             ("-n 8 mpsm -z 1.0", phase_dist_cli, "mpsm", ["-z", "1.0"],
              DIST_SMALL_N),
             ("dist materialize", phase_dist_materialize, dev),
-            ("dist persist", phase_dist_persist, dev)]:
+            ("dist persist", phase_dist_persist, dev),
+            ("scalebench", phase_scalebench),
+            ("tputbench numa", phase_numa),
+            ("-o trace", phase_trace)]:
         for k, v in timed(name, fn, *args).items():
+            total[k] += v
+    torch.cuda.empty_cache()
+    timed("scale kernels", phase_scale_kernels, dev)
+    for name, env, flags in (
+            ("scale", {"SMJ_SCALE_PHASED": "1"}, []),
+            ("scale fused", {"SMJ_SCALE_PHASED": "0"}, []),
+            ("scale -z 1.0", {"SMJ_SCALE_PHASED": "1"}, ["-z", "1.0"])):
+        for k, v in timed(name, phase_scale, env, flags).items():
             total[k] += v
     timed("dist profiles", phase_dist_profiles, dev)
     timed("persist", phase_persist, dev)

@@ -78,10 +78,23 @@ def test_tputbench_mpsm(capsys):
     assert all(len(r) == 6 and r[3] == "16384" for r in rows)
 
 
-def test_tputbench_numa_waits_for_the_distributed_joins(capsys):
-    assert tputbench.main(["--mode", "numa", "-n", "8192"]) == 2
+@pytest.mark.parametrize("strategy", ["NEXT", "RANDOM"])
+def test_tputbench_numa(strategy, capsys):
+    """The numabench analog on 8 shards of the CPU: the all-to-all and the
+    aggregation rows, the aggregate checked against numpy inside."""
+    assert tputbench.main(["--mode", "numa", "-n", "8192", "-S", strategy,
+                           *CPU]) == 0
     cap = capsys.readouterr()
-    assert "not yet ported" in cap.err and cap.out == ""
+    assert "numabench over 8 shards of one device (cpu)" in cap.err
+    assert "ALL-TO-ALL" in cap.err
+    assert "AGGREGATION" in cap.err and "checked against numpy" in cap.err
+    rows = _rows(cap.out)
+    assert len(rows) == 1 and len(rows[0]) == 4
+
+
+def test_tputbench_numa_refuses_a_ragged_stack(capsys):
+    assert tputbench.main(["--mode", "numa", "-n", "8193", *CPU]) == 2
+    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("main,argv", [

@@ -1358,3 +1358,66 @@ def test_dist_joins_on_the_card(cuda, route):
             assert ran["K3"] == 8
             assert ran["K4"] == (96 if kw["overlap"] else 48)
     assert (count, ov) == (count0, ov0) == (base, 0)
+
+
+@pytest.mark.parametrize("slack", [2.0, 4.0])
+def test_scale_tier_shard_kernels(cuda, slack):
+    """One shard of the workload-A scale tier at a shard of 2,000,000 keys
+    (the 1.6B tier's 200,000,000 over 100): K1 and every uniform K2 level
+    of R's and S's local sort, the varlen K2 (fan-in 8) over a landing of
+    8 runs of the tier's bucket stride, and K3 of the two merged landings,
+    each equal to its plain version."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as tdm
+    from avx_sort_merge_joins_tpu_torch.parallel import exchange as tex
+    from avx_sort_merge_joins_tpu_torch.parallel import scale as tscale
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    shard, block = 2_000_000, 16384
+    rk, sk = tscale.make_workload_a_sharded(8 * shard, 8 * shard,
+                                            make_mesh(8, cuda))
+    for col in (rk[0], sk[0]):
+        runs = tsort.sort_blocks_plain(col, shard, block)
+        assert torch.equal(tsort.sort_blocks(col, shard, block), runs)
+        for level in tmw.merge_levels(shard, block, 16):
+            _, span, nruns, w = level
+            want = tmw.multiway_merge_plain(runs, w, (nruns, shard, span))
+            got, _ = tmw.multiway_merge(runs, w, (nruns, shard, span))
+            assert torch.equal(got, want)
+            runs = want
+        assert int(runs[shard - 1]) <= int(runs[shard]) == INF32
+    cap = tex.bucket_cap(shard, 8, slack, tdm.TILE_ELEMS)
+    rng = np.random.default_rng(int(slack))
+    merged = []
+    for _ in range(2):  # R's landing, then S's
+        lens = rng.integers(shard // 8 - 5000, shard // 8 + 5000, 8)
+        land = _varlen_runs(lens.tolist(), cap, torch.from_numpy(
+            rng.integers(1, shard, 8 * cap).astype(np.int32)).to(cuda), None)[0]
+        tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got, glens = tmw.multiway_merge(land, 8, lens=tlens, stride=cap)
+        want, _ = tmw.multiway_merge_varlen_plain(land, 8, tlens, cap)
+        assert torch.equal(got, want) and int(glens) == int(lens.sum())
+        merged.append((want, int(lens.sum())))
+    (mr, nr), (ms, ns) = merged
+    assert int(tmj.merge_join_count_fused(mr, ms, nr, ns)) == \
+        int(tmj.merge_join_count_fused_plain(mr, ms, nr, ns))
+
+
+def test_workload_a_on_the_card(cuda):
+    """The scale tier on the card at 2^22 keys a relation: R as on the CPU,
+    S in range, the count |S| through the kernels, uniform and skewed."""
+    from avx_sort_merge_joins_tpu_torch.parallel import scale as tscale
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(8, cuda)
+    assert make_mesh(8).device == mesh.device  # "cuda" takes its index
+    n = 1 << 22
+    rk, sk = tscale.make_workload_a_sharded(n, n, mesh)
+    cpu_r, _ = tscale.make_workload_a_sharded(
+        n, n, make_mesh(8, torch.device("cpu")))
+    assert torch.equal(rk.cpu(), cpu_r)
+    assert int(sk.min()) >= 1 and int(sk.max()) <= n
+    before = (tsort.LAUNCHES, tmj.LAUNCHES)
+    for skew, slack in ((0.0, 2.0), (1.0, 4.0)):
+        assert tscale.workload_a_join_count(n, n, mesh, skew=skew,
+                                            slack=slack) == (n, 0)
+    assert (tsort.LAUNCHES - before[0], tmj.LAUNCHES - before[1]) == (32, 16)

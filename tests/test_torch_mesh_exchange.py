@@ -185,6 +185,20 @@ def test_exchanges_equal_jax():
         flat.all_gather(tb[:, :3]).numpy(), b[:, :3].reshape(-1))
 
 
+def test_all_to_all_row_is_one_members_share_of_jax():
+    """``all_to_all_row(x, d)``, the bulk exchange one landing at a time,
+    is row d of JAX's flat all_to_all layout, contiguous."""
+    cap = 5
+    b = np.random.default_rng(4).integers(0, 10**6, (8, 8 * cap)) \
+        .astype(np.int32)
+    want, _ = _jax_exchanges(b)
+    flat = tmesh.make_mesh(8, CPU)
+    for d in range(8):
+        got = flat.all_to_all_row(torch.from_numpy(b), d)
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want[d])
+
+
 def test_all_to_all_returns_a_contiguous_stack():
     """One element a piece (the bucket counts): the exchanged stack is a
     fresh contiguous tensor, whose rows a kernel can read as flat

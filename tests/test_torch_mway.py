@@ -169,7 +169,7 @@ def test_cli_zipf_count_equals_the_jax_cli(algo, capsys):
     assert got == want == "20000"
 
 
-@pytest.mark.parametrize("argv", [["-m", "1048576"], ["-o", "DIR"],
+@pytest.mark.parametrize("argv", [["-m", "1048576"],
                                   ["--mapping-file", "F"],
                                   ["-a", "m-pass", "--materialize"],
                                   ["-a", "mpsm", "--materialize"],
@@ -179,6 +179,21 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert "Results" not in capsys.readouterr().out
 
 
+def test_cli_writes_a_trace(tmp_path, capsys):
+    """``-o DIR`` runs the join under torch.profiler and writes a Chrome
+    trace with the join's span (the refusal it replaces predates the
+    port's ``utils/profiling.trace``)."""
+    import json
+
+    out = tmp_path / "trace"
+    assert tcli.main(["-r", "5000", "-s", "5000", "-o", str(out),
+                      "--device", "cpu"]) == 0
+    cap = capsys.readouterr()
+    assert "Results = 5000" in cap.out and "trace written to" in cap.err
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "join" for e in events)
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -186,6 +201,8 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "for m in ('parallel.scale', 'bench.scalebench', 'utils.profiling'):\n"
+        "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'avx_sort_merge_joins_tpu.'))\n"
         "             or m == 'avx_sort_merge_joins_tpu')\n"
