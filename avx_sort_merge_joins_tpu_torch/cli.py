@@ -31,9 +31,17 @@ port's mesh is N shards of one card, so unlike the JAX CLI there is no
 The single-device joins print ``[ROOFLINE]`` rows after ``[RECORD]``:
 each phase's bytes over its time, against the copy rate measured on the
 join's device (``SMJ_HBM_GBPS`` overrides it).  ``-o DIR`` writes a
-``torch.profiler`` trace of the run to ``DIR/trace.json``.  ``-m`` and
-``--mapping-file`` are parsed and refused with "not yet ported" and exit
-code 2.  Relations and kernels run on the card (``--device cuda``, the
+``torch.profiler`` trace of the run to ``DIR/trace.json``.  ``-m BYTES``
+sizes the K2 merge tile of the single-device m-way join
+(``multiwaymerge.merge_tile_for``: 2,048, 4,096 or 8,192 outputs; the
+count does not change); with ``-n N > 1`` it warns and is ignored, as in
+the JAX CLI.  ``--mapping-file`` is parsed and refused with "not yet
+ported" and exit code 2: it waits for a mesh of cards.  Sizes a path does
+not take are refused up front with exit code 1 (``_size_refusal``: |R|
+past 2^31 - 2, whose keys would reach the pad; a relation past 2^31 - 1
+tuples anywhere but the one-device m-way count join's kernels); a run
+past the device's memory exits 1 with the error.  Relations and
+kernels run on the card (``--device cuda``, the
 default; without a card the CLI exits 1).  ``--device cpu`` runs them on
 the CPU through the kernels' plain PyTorch versions.
 """
@@ -49,6 +57,16 @@ import time
 NOT_PORTED_EXIT = 2
 NO_DEVICE_EXIT = 1
 OVERFLOW_EXIT = 1  # the distributed exchange overflowed (cli.py:278-281)
+TOO_LARGE_EXIT = 1  # a size past what the run's path takes
+OUT_OF_MEMORY_EXIT = 1  # the device ran out of memory
+# R's keys are drawn from 1..|R| (0..|R| - 1 with --non-unique): they
+# must stay below the INT32_MAX pad.
+MAX_R = 2**31 - 2
+# Past INT_MAX = 2^31 - 1 tuples a relation runs only where that was
+# checked exact on the card: the one-device m-way count join's kernel
+# route (cardinality.sh's last row at its default NR asks for |S| = 2^31;
+# torch.sort, which the scalar routes and others take, stops at INT_MAX).
+INT_MAX = 2**31 - 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,8 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["NEXT", "RING", "RANDOM"],
                    help="exchange schedule of the multi-shard shuffle")
     p.add_argument("-m", "--mwaybufsize", type=int, default=0,
-                   help="multiway merge buffer size in bytes "
-                        "(not yet ported)")
+                   help="multiway merge buffer size in bytes: sizes the "
+                        "m-way's K2 merge tile (0: derived)")
     p.add_argument("--nchunks", type=int, default=1,
                    help="mpsm: number of local S runs")
     p.add_argument("--materialize", action="store_true",
@@ -102,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--perfconf", default=None,
                    help="accepted for flag parity (PCM event config)")
     p.add_argument("--mapping-file", default=None,
-                   help="device mapping file (not yet ported)")
+                   help="device mapping file (not yet ported: it waits "
+                        "for a mesh of cards)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where relations and kernels run: the card, or "
                         "the CPU through the kernels' plain PyTorch "
@@ -112,10 +131,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> list[str]:
-    """The flags of this run that the port does not carry yet."""
+    """The flags of this run that the port does not carry yet: a mapping
+    file places shards on a mesh of cards, and the port's mesh is N
+    shards of one card."""
     checks = [
-        (args.mwaybufsize != 0, "-m"),
-        (args.mapping_file is not None, "--mapping-file"),
+        (args.mapping_file is not None,
+         "--mapping-file (it waits for a mesh of cards)"),
     ]
     return [flag for bad, flag in checks if bad]
 
@@ -286,6 +307,7 @@ def run_join(args, R, S):
         nthreads=args.nthreads,
         scalar_sort=args.scalarsort,
         scalar_merge=args.scalarmerge,
+        mwaybufsize_bytes=args.mwaybufsize,
         materialize=args.materialize,
     )
     if args.algo == "m-pass":
@@ -295,6 +317,13 @@ def run_join(args, R, S):
         from .models.mpsm import sortmergejoin_mpsm
         return sortmergejoin_mpsm(R, S, config, nchunks=args.nchunks)
     from .models.mway import sortmergejoin_multiway
+    if args.mwaybufsize:
+        from .ops.multiwaymerge import merge_tile_for
+        from .utils.log import info
+
+        info(f"-m {args.mwaybufsize}: K2 merge tile "
+             f"{merge_tile_for(args.mwaybufsize, args.partfanout)} outputs "
+             f"at fan-in {args.partfanout}")
     return sortmergejoin_multiway(R, S, config, fanin=args.partfanout)
 
 
@@ -341,10 +370,34 @@ def _validate(args) -> str | None:
                 f"(its {args.algo} join ignores the flag)")
     if args.nchunks != 1 and (args.algo != "mpsm" or args.nthreads > 1):
         warn("--nchunks applies to single-device mpsm only")
+    if args.mwaybufsize and args.nthreads > 1:
+        # the JAX CLI's warning (cli.py:231-234): the flag is ignored
+        warn("-m merge-buffer size has no effect on the distributed path "
+             "(its merge tiles are fixed)")
     return None
 
 
 SCALE_MIN_DEFAULT = 500_000_000  # SMJ_SHARDED_GEN_MIN's default
+
+
+def _size_refusal(args, scale_tier: bool) -> str | None:
+    """Why this run's sizes do not fit its path, if they do not: R's keys
+    must stay below the pad (``MAX_R``), and on the standard path a
+    relation past ``INT_MAX`` tuples takes only the one-device m-way count
+    join's kernel route."""
+    if args.r_size > MAX_R:
+        return (f"-r {args.r_size}: R's keys 1..|R| must stay below the "
+                f"INT32_MAX pad: |R| <= {MAX_R}")
+    big = max(args.r_size, args.s_size) > INT_MAX
+    mway_kernels = (args.algo == "m-way" and args.nthreads == 1
+                    and not (args.scalarsort or args.scalarmerge
+                             or args.materialize or args.key8b))
+    if big and not (scale_tier or mway_kernels):
+        return (f"-s {args.s_size}: past {INT_MAX} tuples a relation runs "
+                "on one device only through the m-way count join's "
+                "kernels (-a m-way -n 1, no --scalarsort, --scalarmerge, "
+                "--materialize or --key8b)")
+    return None
 
 
 def _scale_eligible(args) -> bool:
@@ -410,7 +463,7 @@ def _run_scale_tier(args, device, dname: str) -> int:
     cnt, overflow = out[:2]
     phases = out[2] if phased else {"total": dt}
     peak = ""
-    if device.type == "cuda":  # since the process began or its last reset
+    if device.type == "cuda":  # since _run began
         gb = torch.cuda.max_memory_allocated(device) / 1e9
         peak = f", peak device memory {gb:.3f} GB"
     info(f"scale tier: slack {dist_mway.LAST_SLACK}, overflow {overflow}"
@@ -437,7 +490,14 @@ def _run(args, device, dname: str) -> int:
     from .utils import profiling
     from .utils.log import error, info
 
-    if _scale_eligible(args):
+    scale_tier = _scale_eligible(args)
+    too_large = _size_refusal(args, scale_tier)
+    if too_large:
+        error(too_large)
+        return TOO_LARGE_EXIT
+    if device.type == "cuda":  # the peak printed below is this run's
+        torch.cuda.reset_peak_memory_stats(device)
+    if scale_tier:
         return _run_scale_tier(args, device, dname)
     t0 = time.perf_counter()
     R, S = make_relations(args, device)
@@ -467,6 +527,9 @@ def _run(args, device, dname: str) -> int:
     print(profiling.record_line(args.algo, args.nthreads, R.num_tuples,
                                 S.num_tuples, 0, result.phases, dname),
           file=sys.stderr)
+    if device.type == "cuda":  # since _run began
+        info(f"peak device memory "
+             f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB")
     if result.bytes_moved:
         # %-of-roofline a phase (cli.py:451-455), against this device's
         # own copy rate
@@ -524,7 +587,15 @@ def main(argv=None) -> int:
     traced = (profiling.trace(args.perfout, device) if args.perfout
               else contextlib.nullcontext())
     with traced:
-        rc = _run(args, device, dname)
+        try:
+            rc = _run(args, device, dname)
+        except torch.OutOfMemoryError as e:
+            # past the card's memory (scalesize.sh's 60 x 32 Mi row on an
+            # 80 GB card): no result, exit 1
+            error(f"out of device memory at -r {args.r_size} -s "
+                  f"{args.s_size} -n {args.nthreads}: "
+                  f"{str(e).splitlines()[0]}")
+            return OUT_OF_MEMORY_EXIT
     if args.perfout:
         info(f"trace written to "
              f"{os.path.join(args.perfout, profiling.TRACE_FILE)}")

@@ -45,7 +45,7 @@ SMJ_API int smj_multiway_merge_varlen(const int* in_k, const int* in_p,
                                       long long* scratch,
                                       long long scratch_elems, long long cap,
                                       const int* lens, long long nruns,
-                                      long long stride, int fanin,
+                                      long long stride, int fanin, int tile,
                                       int parts, void* stream);
 
 namespace {
@@ -158,7 +158,7 @@ SMJ_API int smj_chunk_gated_merge_tile(void) { return kTile; }
 // landing: W strips of `stride` slots (landing holds >= W * stride);
 // lens: int32[W] on the card; arrive: int32[W][max_chunks], rows
 // non-decreasing; out: int32[cap]; corank: int64 scratch of corank_elems
-// >= smj_multiway_merge_scratch(1, stride, W); stats: int32[W + 1],
+// >= smj_multiway_merge_scratch(1, stride, W, kTile); stats: int32[W + 1],
 // waited then the violation flag.  W a power of two in [2, kMaxW];
 // stride / chunk <= max_chunks.  parts is 15; a mask of 1 (coarse
 // co-ranks), 2 (fine co-ranks), 8 (the gate) and 4 (the tile merge) runs
@@ -175,7 +175,7 @@ SMJ_API int smj_chunk_gated_merge(const int* landing, const int* lens,
   if ((parts & 3) != 0) {
     const int err = smj_multiway_merge_varlen(
         landing, nullptr, out, nullptr, corank, corank_elems, cap, lens, W,
-        stride, W, parts & 3, stream);
+        stride, W, kTile, parts & 3, stream);
     if (err != (int)cudaSuccess) return err;
   }
   if ((parts & 8) != 0)
@@ -183,7 +183,7 @@ SMJ_API int smj_chunk_gated_merge(const int* landing, const int* lens,
         lens, arrive, corank, stats, stride, chunk, W, max_chunks);
   if ((parts & 4) != 0)
     return smj_multiway_merge_varlen(landing, nullptr, out, nullptr, corank,
-                                     corank_elems, cap, lens, W, stride, W, 4,
-                                     stream);
+                                     corank_elems, cap, lens, W, stride, W,
+                                     kTile, 4, stream);
   return (int)cudaGetLastError();
 }

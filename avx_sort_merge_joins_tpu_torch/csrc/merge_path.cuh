@@ -401,19 +401,20 @@ __device__ const E* merge_rounds(const int* offs, int W, E* buf0, E* buf1) {
 
 // The whole CTA of kThreads threads (all of them call it): merges the tile
 // whose segment r is [src[r], src[r] + offs[r + 1] - offs[r]) of the
-// columns, offs[W] <= kTile outputs, W a power of two: load_tile,
-// stage_tile into buf0, merge_rounds.  src and offs lie in shared memory;
-// buf0 and buf1 are buffers of buf_elems<E>() elements.  Returns the
+// columns, offs[W] <= kTileN outputs (kTile unless the caller names
+// another), W a power of two: load_tile, stage_tile into buf0,
+// merge_rounds.  src and offs lie in shared memory; buf0 and buf1 are
+// buffers of buf_elems<E, kTileN>() elements.  Returns the
 // buffer that holds the merged tile, position p at sw<E>(p); the caller
 // writes it out.
-template <typename E, int kThreads, class C>
+template <typename E, int kThreads, int kTileN = kTile, class C>
 __device__ const E* merge_tile(const C& cols, const long long* src,
                                const int* offs, int W, E* buf0, E* buf1) {
-  E v[kTile / kThreads];
-  load_tile<E, kThreads>(cols, src, offs, W, v);
-  stage_tile<E, kThreads>(v, offs[W], buf0);
+  E v[kTileN / kThreads];
+  load_tile<E, kThreads, kTileN>(cols, src, offs, W, v);
+  stage_tile<E, kThreads, kTileN>(v, offs[W], buf0);
   __syncthreads();
-  return merge_rounds<E, kThreads>(offs, W, buf0, buf1);
+  return merge_rounds<E, kThreads, kTileN>(offs, W, buf0, buf1);
 }
 
 }  // namespace smj_mp

@@ -26,7 +26,10 @@
 // Design: merge-path tiles of kTile outputs, three launches; the co-rank
 // search and the tile merge are merge_path.cuh's, shared with K11.  K9
 // (chunk_gated_merge.cu) runs the varlen mode's launches, its gate
-// between the co-ranks and the tile merge.
+// between the co-ranks and the tile merge.  The keys-only launches also
+// come at tiles of 2,048 and 8,192 outputs (the entries' `tile`: the -m
+// merge-buffer size picks one); pairs and every other caller take kTile
+// = 4,096.
 //   1. corank_kernel, coarse: one warp per coarse boundary b = min(t *
 //      kTile, live) of a group, t a multiple of kCoarse, finds each run's
 //      consumed prefix c[t][r] (ties go to the lower run), its windows
@@ -45,16 +48,20 @@
 namespace {
 
 using smj_mp::kTile;  // outputs a merge tile
-// Threads of a merge tile: 256 for keys, at least 6 CTAs an SM; 512 for
-// pairs, whose two 34 KB buffers allow 3 CTAs an SM (registers capped to
-// fit: 44 allowed only 2).  Each thread merges kTile / threads outputs a round.
-template <typename E>
-constexpr int kMergeThreads = sizeof(E) == 8 ? 512 : 256;
-template <typename E>
-constexpr int kMergeMinBlocks = sizeof(E) == 8 ? 3 : 6;
+// Threads of a merge tile of kTileN outputs: kTileN / 16 for keys (256 at
+// kTile), 6 * kTile / kTileN CTAs an SM at least, so that the registers
+// and the shared buffers an SM holds are the same at every tile; 512 for
+// pairs (only at kTile), whose two 34 KB buffers allow 3 CTAs an SM
+// (registers capped to fit: 44 allowed only 2).  Each thread merges
+// kTileN / threads outputs a round.
+template <typename E, int kTileN>
+constexpr int kMergeThreads = sizeof(E) == 8 ? 512 : kTileN / 16;
+template <typename E, int kTileN>
+constexpr int kMergeMinBlocks = sizeof(E) == 8 ? 3 : 6 * kTile / kTileN;
 constexpr int kCorankThreads = 256;
 constexpr int kCoarse = 32;  // tiles between two coarse boundaries
-constexpr int kMaxFanin = 1024;
+constexpr int kMaxFanin = 2048;      // keys
+constexpr int kMaxPairFanin = 1024;  // pairs
 // shared memory of a co-rank CTA, at most: its warps' windows
 constexpr long long kCorankSmem = 48 * 1024;
 
@@ -101,10 +108,11 @@ int corank_warps(int W) {
 }
 
 // c[g][t][r] for the boundaries t of every group (tpg + 1 of them a group:
-// t = 0 .. tpg); coarse: t a multiple of kCoarse, and tpg; fine: every
-// other t.  One warp a boundary, its starting windows in dynamic shared
-// memory (kRegs, fan-in <= 32: the search then keeps them in registers).
-template <typename E, bool kRegs>
+// t = 0 .. tpg, tiles of kTileN outputs); coarse: t a multiple of
+// kCoarse, and tpg; fine: every other t.  One warp a boundary, its
+// starting windows in dynamic shared memory (kRegs, fan-in <= 32: the
+// search then keeps them in registers).
+template <typename E, bool kRegs, int kTileN>
 __global__ void __launch_bounds__(kCorankThreads)
 corank_kernel(Runs runs, long long* __restrict__ c, long long ngroups,
               long long tpg, int W, bool coarse) {
@@ -128,7 +136,7 @@ corank_kernel(Runs runs, long long* __restrict__ c, long long ngroups,
   long long live = 0;
   for (int r = lane; r < W; r += 32) live += runs.len(run0 + r);
   live = smj_mp::group_sum(live, 32);
-  const long long b = t * kTile < live ? t * kTile : live;
+  const long long b = t * kTileN < live ? t * kTileN : live;
   long long* row = c + (g * (tpg + 1) + t) * W;
   if (coarse) {
     for (int r = lane; r < W; r += 32) {
@@ -150,27 +158,29 @@ corank_kernel(Runs runs, long long* __restrict__ c, long long ngroups,
                            b, ws, row, lane);
 }
 
-// Dynamic shared memory of a merge tile: two buffers, then W segment
-// starts (int64) and W + 1 segment offsets (int).
-template <typename E>
+// Dynamic shared memory of a merge tile of kTileN outputs: two buffers,
+// then W segment starts (int64) and W + 1 segment offsets (int).  The
+// wrapper's merge_smem_bytes is this sum for keys.
+template <typename E, int kTileN>
 constexpr size_t merge_smem(int W) {
-  return 2 * smj_mp::buf_elems<E>() * sizeof(E) + (size_t)W * 8 +
+  return 2 * smj_mp::buf_elems<E, kTileN>() * sizeof(E) + (size_t)W * 8 +
          (size_t)(W + 1) * 4;
 }
 
 // One CTA a tile: tiles [0, ngroups * tpg) merge tile t of group g, the
 // rest write the pads past the last group's region.
-template <typename E>
-__global__ void __launch_bounds__(kMergeThreads<E>, kMergeMinBlocks<E>)
+template <typename E, int kTileN>
+__global__ void __launch_bounds__(kMergeThreads<E, kTileN>,
+                                  kMergeMinBlocks<E, kTileN>)
 merge_kernel(Runs runs, const long long* __restrict__ c,
              int* __restrict__ out_k, int* __restrict__ out_p, long long cap,
              long long ngroups, long long tpg, int W) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kThreads = kMergeThreads<E>;
+  constexpr int kThreads = kMergeThreads<E, kTileN>;
   E* buf0 = reinterpret_cast<E*>(smem);
-  E* buf1 = buf0 + smj_mp::buf_elems<E>();
+  E* buf1 = buf0 + smj_mp::buf_elems<E, kTileN>();
   long long* src =
-      reinterpret_cast<long long*>(buf1 + smj_mp::buf_elems<E>());
+      reinterpret_cast<long long*>(buf1 + smj_mp::buf_elems<E, kTileN>());
   int* offs = reinterpret_cast<int*>(src + W);
   const int tid = threadIdx.x;
   const long long region = (long long)W * runs.stride;
@@ -180,9 +190,9 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
   if (tile < ngroups * tpg) {
     const long long g = tile / tpg;
     const long long t = tile - g * tpg;
-    const long long d0 = t * kTile;
+    const long long d0 = t * kTileN;
     out0 = g * region + d0;
-    end = out0 + (region - d0 < kTile ? region - d0 : kTile);
+    end = out0 + (region - d0 < kTileN ? region - d0 : kTileN);
     const long long* row0 = c + (g * (tpg + 1) + t) * W;
     const long long* row1 = row0 + W;
     for (int r = tid; r < W; r += blockDim.x) {
@@ -198,13 +208,13 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
     __syncthreads();
     n = offs[W];
   } else {
-    out0 = ngroups * region + (tile - ngroups * tpg) * kTile;
-    end = out0 + kTile;
+    out0 = ngroups * region + (tile - ngroups * tpg) * kTileN;
+    end = out0 + kTileN;
   }
   if (end > cap) end = cap;
   if (n > 0) {  // the same branch for the whole CTA
-    const E* merged = smj_mp::merge_tile<E, kThreads>(runs.cols(), src, offs,
-                                                      W, buf0, buf1);
+    const E* merged = smj_mp::merge_tile<E, kThreads, kTileN>(
+        runs.cols(), src, offs, W, buf0, buf1);
     for (int p = tid; p < n; p += kThreads)
       store_elem<E>(out_k, out_p, out0 + p, merged[smj_mp::sw<E>(p)]);
   }
@@ -216,109 +226,143 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-template <typename E>
-void launch_coranks(const Runs& runs, long long* c, long long ngroups,
-                    long long tpg, int W, int parts, cudaStream_t s) {
+template <typename E, int kTileN>
+int launch_coranks(const Runs& runs, long long* c, long long ngroups,
+                   long long tpg, int W, int parts, cudaStream_t s) {
   const long long warps[2] = {ngroups * (cdiv(tpg, kCoarse) + 1),
                               ngroups * (tpg + 1)};
   const int cta_warps = corank_warps(W);
   const size_t smem = (size_t)cta_warps * smj_mp::corank_words(W) * 8;
+  if (W > 32 && smem > 48 * 1024) {  // fan-in 2,048: one warp's 64 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        corank_kernel<E, false, kTileN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   for (int pass = 0; pass < 2; ++pass) {
     if ((parts & (1 << pass)) == 0) continue;
     const long long blocks = cdiv(warps[pass], cta_warps);
     if (W <= 32) {  // one run a lane: the windows in registers
-      corank_kernel<E, true><<<(unsigned)blocks, cta_warps * 32, smem, s>>>(
-          runs, c, ngroups, tpg, W, pass == 0);
+      corank_kernel<E, true, kTileN>
+          <<<(unsigned)blocks, cta_warps * 32, smem, s>>>(
+              runs, c, ngroups, tpg, W, pass == 0);
     } else {
-      corank_kernel<E, false><<<(unsigned)blocks, cta_warps * 32, smem,
-                                s>>>(runs, c, ngroups, tpg, W, pass == 0);
+      corank_kernel<E, false, kTileN>
+          <<<(unsigned)blocks, cta_warps * 32, smem, s>>>(
+              runs, c, ngroups, tpg, W, pass == 0);
     }
   }
+  return (int)cudaSuccess;
 }
 
-// The three launches of one merge; c holds at least ngroups * (tpg + 1) *
-// W int64s.  parts is a mask of the launches to make: 1 the coarse
-// co-ranks, 2 the fine ones, 4 the tile merge (on the co-ranks c holds).
-template <typename E>
+// The three launches of one merge at tiles of kTileN outputs; c holds at
+// least ngroups * (tpg + 1) * W int64s.  parts is a mask of the launches
+// to make: 1 the coarse co-ranks, 2 the fine ones, 4 the tile merge (on
+// the co-ranks c holds).
+template <typename E, int kTileN>
 int launch(const Runs& runs, int* out_k, int* out_p, long long* c,
            long long c_elems, long long cap, long long ngroups, int W,
            int parts, cudaStream_t s) {
   if (W < 2 || W > kMaxFanin || (W & (W - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const long long region = (long long)W * runs.stride;
-  const long long tpg = cdiv(region, kTile);
+  const long long tpg = cdiv(region, kTileN);
   if (c_elems < ngroups * (tpg + 1) * W) return (int)cudaErrorInvalidValue;
   const long long done = ngroups * region;
   const long long tiles = ngroups * tpg + (cap > done ? cdiv(cap - done,
-                                                           kTile) : 0);
+                                                           kTileN) : 0);
   if (tiles > INT_MAX || ngroups * (tpg + 1) > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  launch_coranks<E>(runs, c, ngroups, tpg, W, parts, s);
+  const int err0 = launch_coranks<E, kTileN>(runs, c, ngroups, tpg, W, parts,
+                                             s);
+  if (err0 != (int)cudaSuccess) return err0;
   if ((parts & 4) == 0) return (int)cudaGetLastError();
-  const size_t smem = merge_smem<E>(W);
+  const size_t smem = merge_smem<E, kTileN>(W);
   cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      merge_kernel<E, kTileN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (tiles > 0) {
-    merge_kernel<E><<<(unsigned)tiles, kMergeThreads<E>, smem, s>>>(
-        runs, c, out_k, out_p, cap, ngroups, tpg, W);
+    merge_kernel<E, kTileN>
+        <<<(unsigned)tiles, kMergeThreads<E, kTileN>, smem, s>>>(
+            runs, c, out_k, out_p, cap, ngroups, tpg, W);
   }
   return (int)cudaGetLastError();
 }
 
+// tile: outputs a merge tile, kTile for pairs; 2,048, 4,096 or 8,192 for
+// keys.  Pairs merge at fan-in kMaxPairFanin at most.
 int launch_any(const Runs& runs, int* out_k, int* out_p, long long* c,
                long long c_elems, long long cap, long long ngroups,
-               int fanin, int parts, void* stream) {
+               int fanin, int tile, int parts, void* stream) {
   if (cap == 0) return (int)cudaSuccess;
   if (parts < 1 || parts > 7) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return runs.p == nullptr
-             ? launch<int>(runs, out_k, out_p, c, c_elems, cap, ngroups,
-                           fanin, parts, s)
-             : launch<long long>(runs, out_k, out_p, c, c_elems, cap,
-                                 ngroups, fanin, parts, s);
+  if (runs.p != nullptr) {
+    if (tile != kTile || fanin > kMaxPairFanin)
+      return (int)cudaErrorInvalidValue;
+    return launch<long long, kTile>(runs, out_k, out_p, c, c_elems, cap,
+                                    ngroups, fanin, parts, s);
+  }
+  switch (tile) {
+    case kTile / 2:
+      return launch<int, kTile / 2>(runs, out_k, out_p, c, c_elems, cap,
+                                    ngroups, fanin, parts, s);
+    case kTile:
+      return launch<int, kTile>(runs, out_k, out_p, c, c_elems, cap, ngroups,
+                                fanin, parts, s);
+    case kTile * 2:
+      return launch<int, kTile * 2>(runs, out_k, out_p, c, c_elems, cap,
+                                    ngroups, fanin, parts, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Elements (int64) of the co-rank scratch a merge of ngroups groups of
-// `fanin` runs of `stride` slots needs.
+// `fanin` runs of `stride` slots needs at tiles of `tile` outputs
+// (tile >= 1).
 SMJ_API long long smj_multiway_merge_scratch(long long ngroups,
-                                             long long stride, int fanin) {
-  return ngroups * (cdiv((long long)fanin * stride, kTile) + 1) * fanin;
+                                             long long stride, int fanin,
+                                             int tile) {
+  if (tile < 1) return -1;
+  return ngroups * (cdiv((long long)fanin * stride, tile) + 1) * fanin;
 }
 
 // Merges in_k (and in_p, or NULL for keys only) [0, total), runs of
 // `span`, group by group into out_k (out_p) [0, cap); cap >= total.
-// scratch: scratch_elems int64s on the card.  parts is 7; a mask of 1
-// (coarse co-ranks), 2 (fine co-ranks) and 4 (tile merge) runs only those
-// launches, for timing each.  The wrapper makes the tensors' card current.
+// tile: outputs a merge tile, kTile with pairs; 2,048, 4,096 or 8,192
+// for keys.  scratch: scratch_elems >= smj_multiway_merge_scratch(...,
+// tile) int64s on the card.  parts is 7; a mask of 1 (coarse co-ranks),
+// 2 (fine co-ranks) and 4 (tile merge) runs only those launches, for
+// timing each.  The wrapper makes the tensors' card current.
 SMJ_API int smj_multiway_merge(const int* in_k, const int* in_p, int* out_k,
                                int* out_p, long long* scratch,
                                long long scratch_elems, long long cap,
                                long long total, long long span, int fanin,
-                               int parts, void* stream) {
+                               int tile, int parts, void* stream) {
   if (span < 1 || fanin < 2) return (int)cudaErrorInvalidValue;
   const long long nruns = total > 0 ? cdiv(total, span) : 1;
   const Runs runs{in_k, in_p, nullptr, total, span};
   return launch_any(runs, out_k, out_p, scratch, scratch_elems, cap,
-                    cdiv(nruns, fanin), fanin, parts, stream);
+                    cdiv(nruns, fanin), fanin, tile, parts, stream);
 }
 
 // The varlen mode: run r at r * stride holds lens[r] elements (lens an
 // int32 device vector of nruns entries, nruns a multiple of fanin);
-// cap >= nruns * stride.
+// cap >= nruns * stride.  tile as for smj_multiway_merge.
 SMJ_API int smj_multiway_merge_varlen(const int* in_k, const int* in_p,
                                       int* out_k, int* out_p,
                                       long long* scratch,
                                       long long scratch_elems, long long cap,
                                       const int* lens, long long nruns,
-                                      long long stride, int fanin,
+                                      long long stride, int fanin, int tile,
                                       int parts, void* stream) {
   if (stride < 1 || fanin < 2 || nruns % fanin != 0)
     return (int)cudaErrorInvalidValue;
   const Runs runs{in_k, in_p, lens, 0, stride};
   return launch_any(runs, out_k, out_p, scratch, scratch_elems, cap,
-                    nruns / fanin, fanin, parts, stream);
+                    nruns / fanin, fanin, tile, parts, stream);
 }

@@ -106,15 +106,24 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return ((x + 2**31) & 0xFFFFFFFF) - 2**31
 
 
-def _hash_draws(num_tuples: int, seed: int, device) -> torch.Tensor:
+def _hash_draws(num_tuples: int, seed: int, device,
+                start: int = 0) -> torch.Tensor:
     """The JAX device path's int32 shuffle draws (generator.py:112-115):
     a splitmix-style hash of ``i + seed`` with wrapping int32 multiplies and
-    arithmetic shifts, computed exactly in int64."""
-    x = _wrap_i32(torch.arange(num_tuples, dtype=torch.int64, device=device)
-                  + seed)
+    arithmetic shifts, computed exactly in int64; draws ``start`` to
+    ``start + num_tuples``."""
+    x = _wrap_i32(torch.arange(start, start + num_tuples, dtype=torch.int64,
+                               device=device) + seed)
     x = _wrap_i32((x ^ (x >> 16)) * 0x7FEB352D)
     x = _wrap_i32((x ^ (x >> 15)) * (0x846CA68B - 2**32))
     return (x ^ (x >> 16)).to(torch.int32)
+
+
+GEN_STEP = 1 << 26  # elements a step of the device generation's passes
+
+
+def _steps(n: int):
+    return ((lo, min(n, lo + GEN_STEP)) for lo in range(0, n, GEN_STEP))
 
 
 def _device_gen(num_tuples: int, maxid: int, nthreads: int, seed: int,
@@ -122,16 +131,37 @@ def _device_gen(num_tuples: int, maxid: int, nthreads: int, seed: int,
     """Keys and payloads of ``parallel_create_relation`` built on
     ``device``: the multiset {1..maxid} tiled to n, ordered by a stable
     sort of the hash draws (the JAX package's ``jax.lax.sort`` of the same
-    draws, generator.py:99-122)."""
-    base = (torch.arange(num_tuples, dtype=torch.int32, device=device)
-            % maxid) + 1
-    order = torch.sort(_hash_draws(num_tuples, seed, device),
-                       stable=True).indices
-    keys = base[order]
-    per = num_tuples // nthreads
-    idx = torch.arange(num_tuples, dtype=torch.int64, device=device)
-    chunk_start = torch.clamp(idx // max(per, 1), max=nthreads - 1) * per
-    return keys, (5 + (idx - chunk_start)).to(torch.int32)
+    draws, generator.py:99-122).
+
+    The stable sort runs in four parts, the draws of each quarter of the
+    int32 range in signed order, each sorted with its positions ascending:
+    together the one stable sort, in about 20 bytes of device memory a
+    tuple at the peak, and no ``torch.sort`` past a quarter of the draws
+    (it takes at most 2^31 - 1 elements).  The element-wise passes go
+    ``GEN_STEP`` elements at a time."""
+    n = num_tuples
+    draws = torch.empty(n, dtype=torch.int32, device=device)
+    for lo, hi in _steps(n):
+        draws[lo:hi] = _hash_draws(hi - lo, seed, device, start=lo)
+    keys = torch.empty(n, dtype=torch.int32, device=device)
+    done = 0
+    for quarter in (-2, -1, 0, 1):  # draw >> 30, in signed order
+        pos = [torch.nonzero((draws[lo:hi] >> 30) == quarter).squeeze(1)
+               + lo for lo, hi in _steps(n)]
+        pos = torch.cat(pos) if pos else draws.new_empty(0, dtype=torch.long)
+        order = pos[torch.sort(draws[pos], stable=True).indices]
+        del pos
+        keys[done:done + order.numel()] = (order % maxid + 1).to(torch.int32)
+        done += order.numel()
+        del order
+    del draws
+    per = max(n // nthreads, 1)
+    payloads = torch.empty(n, dtype=torch.int32, device=device)
+    for lo, hi in _steps(n):
+        idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        start = torch.clamp(idx // per, max=nthreads - 1) * (n // nthreads)
+        payloads[lo:hi] = (5 + (idx - start)).to(torch.int32)
+    return keys, payloads
 
 
 def parallel_create_relation(

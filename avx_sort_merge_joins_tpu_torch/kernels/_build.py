@@ -40,10 +40,11 @@ _SIGNATURES = {
     "smj_block_sort_occupancy": (_I, _IP),
     "smj_block_sort_pairs": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "smj_block_sort_pairs_occupancy": (_I, _IP),
-    "smj_multiway_merge": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P),
+    "smj_multiway_merge": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
+                           _P),
     "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
-                                  _I, _P),
-    "smj_multiway_merge_scratch": (_L, _L, _I),
+                                  _I, _I, _P),
+    "smj_multiway_merge_scratch": (_L, _L, _I, _I),
     "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _L, _P, _L, _L, _L, _I,
                               _I, _I, _P),
     "smj_chunk_gated_merge_tile": (),

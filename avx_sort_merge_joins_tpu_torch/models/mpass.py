@@ -37,6 +37,30 @@ def merge_level(keys, n: int, level):
     return sort_ops.merge_pass(keys, None, (nruns, n, span))[0]
 
 
+def merge_levels(keys, n: int, levels):
+    """The K4 passes of ``levels`` one after another."""
+    for level in levels:
+        keys = merge_level(keys, n, level)
+    return keys
+
+
+def _mpass_count_device(rk, sk, nR: int, nS: int, block: int = BLOCK_MPASS,
+                        scalar_sort: bool = False,
+                        scalar_merge: bool = False):
+    """Count-only m-pass join in one go, the phased join's pipeline
+    without its syncs: K1 blocks, every K4 pass, the K3 count (an int64
+    0-d tensor).  ``scalar_sort``/``scalar_merge`` take m-way's
+    ``torch.sort`` baselines, as the phased join does."""
+    if scalar_merge or scalar_sort:
+        return mway._mway_count_device(rk, sk, nR, nS, mway.FANIN_DEFAULT,
+                                       block, scalar_sort, scalar_merge)
+    rks = merge_levels(sort_ops.sort_blocks(rk, nR, block), nR,
+                       sort_ops.pair_levels(nR, block))
+    sks = merge_levels(sort_ops.sort_blocks(sk, nS, block), nS,
+                       sort_ops.pair_levels(nS, block))
+    return mergejoin.merge_join_count_fused(rks, sks, nR, nS)
+
+
 def sortmergejoin_multipass(R: Relation, S: Relation,
                             config: JoinConfig | None = None,
                             block: int = BLOCK_MPASS) -> JoinResult:
@@ -48,10 +72,9 @@ def sortmergejoin_multipass(R: Relation, S: Relation,
 
     if config.scalar_merge or config.scalar_sort:
         def pipeline(_):
-            return mway._mway_count_device(R.keys, S.keys, nR, nS,
-                                           mway.FANIN_DEFAULT, block,
-                                           config.scalar_sort,
-                                           config.scalar_merge)
+            return _mpass_count_device(R.keys, S.keys, nR, nS, block,
+                                       config.scalar_sort,
+                                       config.scalar_merge)
 
         stats, timings = common.run_phases({"sortmerge": pipeline})
         return common.make_result(mergejoin.finish_count_fused(stats),
@@ -74,11 +97,8 @@ def sortmergejoin_multipass(R: Relation, S: Relation,
 
     def mergerest_phase(pair):
         rks, sks = pair
-        for level in levels_r[1:]:
-            rks = merge_level(rks, nR, level)
-        for level in levels_s[1:]:
-            sks = merge_level(sks, nS, level)
-        return rks, sks
+        return (merge_levels(rks, nR, levels_r[1:]),
+                merge_levels(sks, nS, levels_s[1:]))
 
     def join_phase(pair):
         return mergejoin.merge_join_count_fused(*pair, nR, nS)

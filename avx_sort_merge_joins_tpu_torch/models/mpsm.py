@@ -45,6 +45,41 @@ def _chunks(nS: int, nchunks: int):
     return out
 
 
+def _sort_chunks(rk, sk, nR: int, chunks, fanin: int, block: int,
+                 scalar: bool):
+    """R sorted once and each S chunk of ``chunks`` on its own: K1 + K2,
+    or ``torch.sort`` when ``scalar``."""
+    if scalar:
+        return (torch.sort(rk[:nR]).values,
+                [torch.sort(sk[lo:lo + ln]).values for lo, ln in chunks])
+    return (mw.multiway_sort(rk, nR, block, fanin),
+            [mw.multiway_sort(sk[lo:lo + ln], ln, block, fanin)
+             for lo, ln in chunks])
+
+
+def _count_chunks(sorted_, nR: int, chunks, scalar_merge: bool):
+    """One count of all of sorted R against each sorted S chunk (K3, or
+    the ``torch.sort`` count baseline): a list of int64 0-d tensors."""
+    rks, schunks = sorted_
+    count = (mergejoin.merge_join_count_torch if scalar_merge
+             else mergejoin.merge_join_count_fused)
+    return [count(rks, sks, nR, ln) for sks, (_, ln) in zip(schunks, chunks)]
+
+
+def _mpsm_count_device(rk, sk, nR: int, nS: int,
+                       nchunks: int = NCHUNKS_DEFAULT,
+                       fanin: int = FANIN_DEFAULT, block: int = BLOCK_MPSM,
+                       scalar_sort: bool = False,
+                       scalar_merge: bool = False):
+    """Count-only mpsm join in one go, the phased join's pipeline without
+    its syncs: a list of per-chunk int64 0-d tensors, summed by the
+    caller."""
+    chunks = _chunks(nS, nchunks)
+    return _count_chunks(
+        _sort_chunks(rk, sk, nR, chunks, fanin, block,
+                     scalar_sort or scalar_merge), nR, chunks, scalar_merge)
+
+
 def sortmergejoin_mpsm(R: Relation, S: Relation,
                        config: JoinConfig | None = None,
                        nchunks: int = NCHUNKS_DEFAULT,
@@ -61,20 +96,10 @@ def sortmergejoin_mpsm(R: Relation, S: Relation,
     scalar = config.scalar_sort or config.scalar_merge
 
     def sort_phase(_):
-        if scalar:
-            return (torch.sort(R.keys[:nR]).values,
-                    [torch.sort(S.keys[lo:lo + ln]).values
-                     for lo, ln in chunks])
-        return (mw.multiway_sort(R.keys, nR, block, fanin),
-                [mw.multiway_sort(S.keys[lo:lo + ln], ln, block, fanin)
-                 for lo, ln in chunks])
+        return _sort_chunks(R.keys, S.keys, nR, chunks, fanin, block, scalar)
 
     def join_phase(sorted_):
-        rks, schunks = sorted_
-        count = (mergejoin.merge_join_count_torch if config.scalar_merge
-                 else mergejoin.merge_join_count_fused)
-        return [count(rks, sks, nR, ln)
-                for sks, (_, ln) in zip(schunks, chunks)]
+        return _count_chunks(sorted_, nR, chunks, config.scalar_merge)
 
     counts, timings = common.run_phases({"sort": sort_phase,
                                          "mergejoin": join_phase})

@@ -23,6 +23,11 @@ With ``JoinConfig.materialize`` the join runs as one "sortmerge" phase: R
 keys through K1 + K2, S tuples through K5 + K6 (the payload-carrying
 multiway sort), then the matched S tuples ``<S-key, S-RID>``, replicated
 per match pair when some R key repeats (``ops/materialize.py``).
+
+``JoinConfig.mwaybufsize_bytes`` (``-m``; 0, the default, derives it) sizes
+the K2 merge tile of the count's and the materializing join's keys-only
+sorts (``multiwaymerge.merge_tile_for``), as the JAX m-way sizes its FIFO
+tile from it; K6 keeps its tile.  The result is the same at every size.
 """
 
 from __future__ import annotations
@@ -83,10 +88,11 @@ def _mway_count_device(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
 
 def _mway_materialize_device(rk: torch.Tensor, sk: torch.Tensor,
                              sp: torch.Tensor, nR: int, nS: int, fanin: int,
-                             block: int):
-    """Materializing m-way join: sort R keys, sort S tuples, emit matched
-    S tuples (<S-key, S-RID>, joincommon.c:272-284)."""
-    rks = mw.multiway_sort(rk, nR, block, fanin)
+                             block: int, tile: int = mw.MERGE_TILE):
+    """Materializing m-way join: sort R keys (K2 at merge tiles of
+    ``tile``), sort S tuples, emit matched S tuples (<S-key, S-RID>,
+    joincommon.c:272-284)."""
+    rks = mw.multiway_sort(rk, nR, block, fanin, tile=tile)
     sks, sps = mw.multiway_sort(sk, nS, block, fanin, payloads=sp)
     return materialize.materialize_matches(rks, nR, sks, sps, nS)
 
@@ -96,14 +102,13 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
                            fanin: int = FANIN_DEFAULT,
                            block: int = BLOCK_MWAY) -> JoinResult:
     config = config or JoinConfig()
-    if config.mwaybufsize_bytes:
-        raise NotImplementedError("not yet ported: the -m merge-buffer size")
     nR, nS = R.num_tuples, S.num_tuples
+    tile = mw.merge_tile_for(config.mwaybufsize_bytes, fanin)
 
     if config.materialize:
         def pipeline(_):
             return _mway_materialize_device(R.keys, S.keys, S.payloads, nR,
-                                            nS, fanin, block)
+                                            nS, fanin, block, tile)
 
         (ok, op, om, nm), timings = common.run_phases({"sortmerge": pipeline})
         matches = int(om.sum(dtype=torch.int64))
@@ -140,17 +145,17 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
     def merge1_phase(pair):
         rks, sks = pair
         if levels_r:
-            rks = mw.merge_level(rks, nR, levels_r[0])
+            rks = mw.merge_level(rks, nR, levels_r[0], tile=tile)
         if levels_s:
-            sks = mw.merge_level(sks, nS, levels_s[0])
+            sks = mw.merge_level(sks, nS, levels_s[0], tile=tile)
         return rks, sks
 
     def mergerest_phase(pair):
         rks, sks = pair
         for level in levels_r[1:]:
-            rks = mw.merge_level(rks, nR, level)
+            rks = mw.merge_level(rks, nR, level, tile=tile)
         for level in levels_s[1:]:
-            sks = mw.merge_level(sks, nS, level)
+            sks = mw.merge_level(sks, nS, level, tile=tile)
         return rks, sks
 
     def join_phase(pair):

@@ -17,6 +17,12 @@ lengths at a fixed stride, keys only or with payloads (the varlen K2 and
 K6, plain version ``multiway_merge_varlen_plain``): the distributed
 joins' merge of the runs each shard receives.
 
+The kernel merges in tiles of ``MERGE_TILE`` outputs.  Keys only, uniform
+or varlen, it also takes ``tile=`` 2,048 or 8,192 (``MERGE_TILES``): the
+``-m`` merge-buffer size picks one through :func:`merge_tile_for`.  The
+tile changes only how the kernel splits the work: every tile gives the
+same columns.
+
 Every function takes the payload column as ``payloads=``; without it the
 result is one key column, with it a ``(keys, payloads)`` tuple of columns.
 
@@ -35,7 +41,46 @@ from . import sort as sort_ops
 
 LAUNCHES = 0  # K2 wrapper calls that launched the kernel since the last reset
 PAIR_LAUNCHES = 0  # K6
-MAX_FANIN = 1024  # the kernels' largest fan-in (kMaxFanin)
+MAX_FANIN = 2048  # the keys' largest fan-in (kMaxFanin)
+MAX_PAIR_FANIN = 1024  # the pairs' (kMaxPairFanin)
+MERGE_TILE = 4096  # outputs a merge tile (smj_mp::kTile): K6 and the default
+MERGE_TILES = (2048, 4096, 8192)  # the tiles of the keys-only K2
+# K2 launches a tile since the last reset (a part of LAUNCHES)
+TILE_LAUNCHES = {t: 0 for t in MERGE_TILES}
+
+
+def merge_smem_bytes(tile: int, fanin: int) -> int:
+    """Shared memory of one keys-only K2 merge CTA at ``tile`` outputs and
+    fan-in ``fanin`` (``merge_smem<int, tile>`` of csrc/multiway_merge.cu):
+    two int32 buffers of ``tile + tile / 32`` slots (one spare slot every
+    32 against bank conflicts), an int64 segment start and an int32
+    segment offset a run, and one more offset."""
+    return 2 * 4 * (tile + tile // 32) + 8 * fanin + 4 * (fanin + 1)
+
+
+def merge_tile_for(mwaybufsize_bytes: int, fanin: int) -> int:
+    """The K2 merge tile that a ``-m`` budget of ``mwaybufsize_bytes``
+    names at fan-in ``fanin``: the largest tile of ``MERGE_TILES`` whose
+    footprint, :func:`merge_smem_bytes` (one merge CTA's shared memory),
+    fits the budget; the smallest when none fits; ``MERGE_TILE`` for 0
+    (the flag's default: derived).  This is the map the JAX m-way makes
+    from the same budget to its FIFO tile (models/mway.py:206-216: the
+    largest tile whose ring buffers fit, the smallest otherwise); only
+    the tile changes, never the result."""
+    if not mwaybufsize_bytes:
+        return MERGE_TILE
+    fits = [t for t in MERGE_TILES
+            if merge_smem_bytes(t, fanin) <= mwaybufsize_bytes]
+    return fits[-1] if fits else MERGE_TILES[0]
+
+
+def _check_tile(tile: int, payloads) -> None:
+    if tile not in MERGE_TILES:
+        raise ValueError(f"multiway_merge: tile {tile} is not one of "
+                         f"{MERGE_TILES}")
+    if payloads is not None and tile != MERGE_TILE:
+        raise ValueError(f"multiway_merge: pairs merge at tiles of "
+                         f"{MERGE_TILE} only, got {tile}")
 
 
 def _check_uniform(keys: torch.Tensor, payloads, fanin: int,
@@ -78,30 +123,34 @@ def multiway_merge_varlen_plain(keys: torch.Tensor, fanin: int,
 
 
 def corank_scratch(keys: torch.Tensor, ngroups: int, stride: int,
-                   fanin: int) -> torch.Tensor:
-    """The co-rank scratch of one K2 or K6 call on the keys' card."""
+                   fanin: int, tile: int = MERGE_TILE) -> torch.Tensor:
+    """The co-rank scratch of one K2 or K6 call on the keys' card, at tiles
+    of ``tile`` outputs."""
     from ..kernels import _build
 
-    size = _build.library().smj_multiway_merge_scratch(ngroups, stride, fanin)
+    size = _build.library().smj_multiway_merge_scratch(ngroups, stride,
+                                                       fanin, tile)
     return torch.empty(size, dtype=torch.int64, device=keys.device)
 
 
 def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
             stride: int, fanin: int, *layout, parts: int = 7,
-            scratch: torch.Tensor | None = None):
+            scratch: torch.Tensor | None = None, tile: int = MERGE_TILE):
     """One K2 (payloads None) or K6 call of ``entry`` into fresh columns;
     ``layout`` are the entry point's arguments between the output size and
     the fan-in.  ``parts``, a mask of 1 (coarse co-ranks), 2 (fine
     co-ranks) and 4 (the tile merge, on the co-ranks ``scratch`` holds),
-    picks the launches, for timing each."""
+    picks the launches, for timing each; ``tile`` the outputs a merge
+    tile."""
     from ..kernels import _build
 
     global LAUNCHES, PAIR_LAUNCHES
-    if fanin > MAX_FANIN:
+    most = MAX_FANIN if payloads is None else MAX_PAIR_FANIN
+    if fanin > most:
         raise ValueError(f"multiway_merge: the kernel takes a fanin of at "
-                         f"most {MAX_FANIN}, got {fanin}")
+                         f"most {most}, got {fanin}")
     if scratch is None:
-        scratch = corank_scratch(keys, ngroups, stride, fanin)
+        scratch = corank_scratch(keys, ngroups, stride, fanin, tile)
     out_k = torch.empty_like(keys)
     out_p = None if payloads is None else torch.empty_like(payloads)
     with _build.launching_on(keys) as stream:
@@ -109,24 +158,27 @@ def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
             keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
             out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
             scratch.data_ptr(), scratch.numel(), keys.numel(), *layout, fanin,
-            parts, stream)
+            tile, parts, stream)
     _build.check(entry, code)
     if payloads is None:
         LAUNCHES += 1
+        TILE_LAUNCHES[tile] += 1
         return out_k
     PAIR_LAUNCHES += 1
     return out_k, out_p
 
 
 def _multiway_merge_varlen(keys: torch.Tensor, fanin: int,
-                           lens: torch.Tensor, stride: int, payloads):
+                           lens: torch.Tensor, stride: int, payloads,
+                           tile: int):
     _check_varlen(keys, fanin, lens, stride, payloads)
+    _check_tile(tile, payloads)
     if keys.device.type == "cpu":
         return multiway_merge_varlen_plain(keys, fanin, lens, stride,
                                            payloads)
     merged = _launch("smj_multiway_merge_varlen", keys, payloads,
                      lens.numel() // fanin, stride, fanin, lens.data_ptr(),
-                     lens.numel(), stride)
+                     lens.numel(), stride, tile=tile)
     return merged, lens.view(-1, fanin).clamp(0, stride).sum(
         1, dtype=torch.int32)
 
@@ -134,7 +186,7 @@ def _multiway_merge_varlen(keys: torch.Tensor, fanin: int,
 def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens=None,
                    payloads: torch.Tensor | None = None, *,
                    lens: torch.Tensor | None = None,
-                   stride: int | None = None):
+                   stride: int | None = None, tile: int = MERGE_TILE):
     """Merge groups of ``fanin`` consecutive ascending runs.
 
     ``uniform_lens=(nruns, total, span)``: run r starts at ``r * span`` with
@@ -153,12 +205,17 @@ def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens=None,
     stride``; every slot past a group's live elements holds INT32_MAX, on
     both columns.  ``new_lens`` is then the group sums as an int32 tensor
     on the device: no host sync.
+
+    ``tile``: outputs a merge tile of the kernel, one of ``MERGE_TILES``
+    for keys, ``MERGE_TILE`` for pairs; the columns do not depend on it.
     """
     if lens is not None:
         if uniform_lens is not None:
             raise ValueError("multiway_merge: lens= takes no uniform_lens")
-        return _multiway_merge_varlen(keys, fanin, lens, stride, payloads)
+        return _multiway_merge_varlen(keys, fanin, lens, stride, payloads,
+                                      tile)
     _check_uniform(keys, payloads, fanin, uniform_lens)
+    _check_tile(tile, payloads)
     nruns, total, span = uniform_lens
     ngroups = sort_ops.cdiv(nruns, fanin)
     new_lens = [max(0, min(total - g * fanin * span, fanin * span))
@@ -167,7 +224,7 @@ def multiway_merge(keys: torch.Tensor, fanin: int, uniform_lens=None,
         return multiway_merge_plain(keys, fanin, uniform_lens,
                                     payloads), new_lens
     return _launch("smj_multiway_merge", keys, payloads, ngroups, span,
-                   fanin, total, span), new_lens
+                   fanin, total, span, tile=tile), new_lens
 
 
 def sort_blocks_phase(keys: torch.Tensor, n: int,
@@ -223,26 +280,30 @@ def merge_levels_2runs(n: int, block: int, fanin: int):
 
 
 def merge_level(keys: torch.Tensor, n: int, level,
-                payloads: torch.Tensor | None = None):
+                payloads: torch.Tensor | None = None,
+                tile: int = MERGE_TILE):
     """One k-way merge level over the uniform-lens layout."""
     _, span, nruns, w = level
-    merged, _ = multiway_merge(keys, w, (nruns, n, span), payloads)
+    merged, _ = multiway_merge(keys, w, (nruns, n, span), payloads,
+                               tile=tile)
     return merged
 
 
 def multiway_sort(keys: torch.Tensor, n: int | None = None,
                   block: int = BLOCKSIZE_DEFAULT, fanin: int = 16,
-                  payloads: torch.Tensor | None = None):
+                  payloads: torch.Tensor | None = None,
+                  tile: int = MERGE_TILE):
     """Full ascending sort of ``keys[:n]``, or of the first ``n`` (key,
     payload) pairs in lexicographic order: block sort, then
-    log_fanin(#blocks) k-way merge levels (avxsort_multiway.c:96-152).
-    Returns the flat padded column(s); the live prefix is ``[:n]``."""
+    log_fanin(#blocks) k-way merge levels (avxsort_multiway.c:96-152), keys
+    only at merge tiles of ``tile`` outputs.  Returns the flat padded
+    column(s); the live prefix is ``[:n]``."""
     if n is None:
         n = int(keys.numel())
     if payloads is None:
         ks = sort_blocks_phase(keys, n, block)
         for level in merge_levels(n, block, fanin):
-            ks = merge_level(ks, n, level)
+            ks = merge_level(ks, n, level, tile=tile)
         return ks
     ks, ps = sort_blocks_phase(keys, n, block, payloads)
     for level in merge_levels(n, block, fanin):

@@ -106,7 +106,7 @@ class JoinConfig:
     nthreads: int = 1  # shards of the mesh (parallel/dist_mway.py past 1)
     scalar_sort: bool = False  # torch.sort instead of K1 + K2
     scalar_merge: bool = False  # torch.sort + tagged-cumsum count instead
-    mwaybufsize_bytes: int = 0  # not yet ported: must stay 0
+    mwaybufsize_bytes: int = 0  # -m: the m-way's K2 merge tile; 0: derived
     materialize: bool = False  # produce output tuples (m-way only)
 
 

@@ -209,13 +209,36 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    columns), launches exactly K1 16, K2 80, K3 8 (derived from the
    schedules); the peak memory, the generation time (and the host's Zipf
    table) and the slack printed.
+26. The driver's entry points (``graft_entry.py``): ``entry()``'s forward
+   on the card counts 65,536 with K1 2, K2 2, K3 1 launches;
+   ``dryrun_multichip(n)`` for n = 2, 4, 8, every leg exact, each leg's
+   launches printed and its kernels launched (``LEG_KERNELS``: a leg on
+   a plain route fails).
+27. The ``-m`` merge tiles: the keys-only K2 at tiles of 2,048 and 8,192
+   outputs against its plain version, exact, at group totals T - 1, T,
+   T + 1, 3T + 7 for fan-in 2, 4, 8, 16, uniform and varlen, at the
+   domain's ends and on a hot key over many tiles; fan-in 2,048 at every
+   tile; the four K2 levels of a 128M sort timed at each tile; then ``-a
+   m-way -m BYTES`` through the CLI at 128M for a budget naming each tile
+   (``Results = 128000000``, every K2 launch at that tile, the join's
+   time printed).
+28. The results grid (``scripts/run_results_grid.py`` of the port) at its
+   full sizes into a temporary ``SMJ_GRID_OUT``: 25 rows, every one
+   exact, each printed, the 838,860,800-key ``scale`` row's peak device
+   memory printed; then rendered by ``scripts/make_results_md.py``.
+29. The twins of the experiment scripts with small knobs, side by side
+   (``sort-bench.sh`` SIZES="1 64", ``multiwaymerge-bench.sh`` FANINS="4
+   2048", ``partitioning-bench.sh`` BITS="2 16", ``cardinality.sh``
+   NR=16000000 REPS=1, ``scalesize.sh`` SIZES="1", ``tput-scalability.sh``
+   NR=16000000 CHIPS="1 8" REPS=1), then ``workload-a.sh`` at full size:
+   every exit code 0, every output line there and exact.
 
 Each phase's wall time is printed as a ``[phase]`` line.  The line before
 the last is one JSON object with each kernel's launches
-over the runs of phases 6, 7, 9, 13-15, 18, 21-23 and 25, its largest
-error in phases 3-5, 8, 11-12, 17, 20 and 24, its times, its bound and
-its library yardstick's time; the last line is ``{"ok": true, "device":
-{...}}``.
+over the runs of phases 6, 7, 9, 13-15, 18, 21-23, 25-26 and 27-28, its
+largest error in phases 3-5, 8, 11-12, 17, 20, 24 and 27, its times, its
+bound and its library yardstick's time; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -312,6 +335,13 @@ VARLEN_STRIDE = 1_000_003  # varlen K2 checks: an odd stride
 MERGE_TILE = 4096  # outputs a merge tile of K2 and K6
 EDGE_TOTALS = (MERGE_TILE - 1, MERGE_TILE, MERGE_TILE + 1,
                3 * MERGE_TILE + 7)  # group totals at the tile's edges
+NEW_MERGE_TILES = (2048, 8192)  # the keys-only K2's other tiles (-m)
+MWAY_M_BUDGETS = {2048: 1, 4096: 40_000, 8192: 1 << 20}  # -m bytes a tile
+GRID_ROWS = 25  # the results grid's cells (algo 13, key8b, zipf, card 2 each,
+# scale 6)
+GRID_SCALE_MAX = 25 * 32 * 1024 * 1024  # its largest row: 838,860,800 a side
+TWINS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "avx_sort_merge_joins_tpu_torch", "scripts")
 PULL_CAP = 131_072  # K11 checks: strips of 2 to 8 chunks of 64K to 16K
 PULL_CHUNKS = (PULL_CAP, 16_384, 32_768, 65_536)  # a strip, T, 2T, 4T
 PULL_WINDOWS = (1, 4, 8, 32)  # and every push in flight
@@ -909,19 +939,9 @@ def reset_launches() -> None:
 
 
 def launches() -> dict[str, int]:
-    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
-    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
-    from avx_sort_merge_joins_tpu_torch.ops import partition
-    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+    from avx_sort_merge_joins_tpu_torch.graft_entry import launch_counts
 
-    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo
-
-    return {"K1": sort_ops.LAUNCHES, "K2": mw.LAUNCHES,
-            "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
-            "K5": sort_ops.PAIR_SORT_LAUNCHES, "K6": mw.PAIR_LAUNCHES,
-            "K7": mergejoin.LAUNCHES64, "K8": partition.LAUNCHES,
-            "K9": remote_fifo.LAUNCHES, "K10": mergejoin.LAUNCHES2,
-            "K11": remote_fifo.PULL_LAUNCHES}
+    return launch_counts()
 
 
 def check_launched(path: str, counts: dict, need) -> None:
@@ -1219,19 +1239,23 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
 
 
 def merge_check(case: str, keys: torch.Tensor, pays, fanin: int,
-                uniform_lens=None, lens=None, stride=None) -> None:
-    """Hold one K2 (``pays`` None) or K6 call, uniform or varlen, against
-    its plain version: every slot of the merged columns and, varlen, the
-    group lengths."""
+                uniform_lens=None, lens=None, stride=None,
+                tile: int = MERGE_TILE) -> None:
+    """Hold one K2 (``pays`` None) or K6 call, uniform or varlen, at merge
+    tiles of ``tile`` outputs, against its plain version: every slot of
+    the merged columns and, varlen, the group lengths."""
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
 
     kid = "K2" if pays is None else "K6"
+    if tile != MERGE_TILE:
+        case = f"tile={tile} {case}"
     if lens is None:
-        got = mw.multiway_merge(keys, fanin, uniform_lens, pays)[0]
+        got = mw.multiway_merge(keys, fanin, uniform_lens, pays,
+                                tile=tile)[0]
         want = mw.multiway_merge_plain(keys, fanin, uniform_lens, pays)
     else:
         got, glens = mw.multiway_merge(keys, fanin, payloads=pays, lens=lens,
-                                       stride=stride)
+                                       stride=stride, tile=tile)
         want, wlens = mw.multiway_merge_varlen_plain(keys, fanin, lens,
                                                      stride, pays)
         got = (*(got if pays is not None else (got,)), glens)
@@ -1365,6 +1389,137 @@ def phase_merge_edges(dev: torch.device) -> None:
         del k, p, lk, lp
     log(f"[edges] K2 and K6 at the tile edges, on a hot key and varlen: "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_merge_tiles(dev: torch.device) -> None:
+    """The keys-only K2 at each tile ``-m`` can name besides the default
+    (NEW_MERGE_TILES), against its plain version, exact: group totals of
+    T - 1, T, T + 1 and 3T + 7 at fan-in 2, 4, 8 and 16, uniform and
+    varlen, keys uniform or at the domain's ends, and one hot key in every
+    run over many tiles; then fan-in 2,048 (MAX_FANIN) at every tile,
+    uniform and varlen.  Each tile's launches are counted apart; the four
+    K2 levels of a 128M sort are timed at every tile."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(43)
+    rng = np.random.default_rng(43)
+    before = dict(mw.TILE_LAUNCHES)
+    for tile in NEW_MERGE_TILES:
+        for case in ("uniform", "domain_ends"):
+            for fanin in (2, 4, 8, 16):
+                for per_group in (tile - 1, tile, tile + 1, 3 * tile + 7):
+                    k, _ = edge_columns(4 * fanin * per_group, case, gen,
+                                        dev)
+                    span = -(-per_group // fanin)
+                    n = fanin * span + per_group
+                    rk, _ = sorted_runs(k, None, n, span)
+                    merge_check(f"{case} fanin={fanin} span={span} n={n}",
+                                rk, None, fanin,
+                                uniform_lens=(-(-n // span), n, span),
+                                tile=tile)
+                    lens = []
+                    for _ in range(2):
+                        cut = np.sort(rng.integers(0, per_group + 1,
+                                                   fanin - 1))
+                        lens += np.diff([0, *cut, per_group]).tolist()
+                    lk, _, tl = strips(lens, per_group, k, None)
+                    merge_check(f"{case} varlen fanin={fanin} per group "
+                                f"{per_group}", lk, None, fanin, lens=tl,
+                                stride=per_group, tile=tile)
+        span = 8 * tile  # hot key: every boundary inside a tie
+        for fanin in (2, 16):
+            n = 2 * fanin * span
+            for mixed in (False, True):
+                kk = torch.full((n,), 5, dtype=torch.int32, device=dev)
+                if mixed:
+                    kk[::3] = torch.randint(-9, 9, (kk[::3].numel(),),
+                                            generator=gen, dtype=torch.int32,
+                                            device=dev)
+                rk, _ = sorted_runs(kk, None, n - 11, span)
+                merge_check(f"hot key mixed={mixed} fanin={fanin}", rk, None,
+                            fanin, uniform_lens=(2 * fanin, n - 11, span),
+                            tile=tile)
+    fanin = mw.MAX_FANIN
+    for tile in mw.MERGE_TILES:
+        span = 3
+        n = fanin * span - 2
+        k = torch.randint(-1000, 1000, (2 * n,), generator=gen,
+                          dtype=torch.int32, device=dev)
+        rk, _ = sorted_runs(k, None, n, span)
+        merge_check(f"fanin={fanin} span={span} n={n}", rk, None, fanin,
+                    uniform_lens=(-(-n // span), n, span), tile=tile)
+        stride = 2 * tile + 3
+        lens = rng.integers(0, stride + 1, fanin).tolist()
+        lens[0], lens[-1] = 0, stride
+        lk, _, tl = strips(lens, stride, torch.randint(
+            -10**6, 10**6, (fanin * stride,), generator=gen,
+            dtype=torch.int32, device=dev), None)
+        merge_check(f"varlen fanin={fanin} stride={stride}", lk, None, fanin,
+                    lens=tl, stride=stride, tile=tile)
+    torch.cuda.synchronize()
+    launched = {t: mw.TILE_LAUNCHES[t] - before[t] for t in mw.MERGE_TILES}
+    if min(launched.values()) <= 0:
+        raise AssertionError(f"K2 tiles launched {launched}")
+    # the four K2 levels of a 128M sort at each tile
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    keys = torch.randint(-DOMAIN_MAX, DOMAIN_MAX + 1, (MAIN_N,),
+                         generator=gen, dtype=torch.int32, device=dev)
+    blocks = sort_ops.sort_blocks(keys, MAIN_N, BLOCK)
+    levels = mw.merge_levels(MAIN_N, BLOCK, 16)
+    want = None
+    for tile in mw.MERGE_TILES:
+        def sort_levels(tile=tile):
+            ks = blocks
+            for level in levels:
+                ks = mw.merge_level(ks, MAIN_N, level, tile=tile)
+            return ks
+        got = sort_levels()
+        want = got if want is None else want
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 levels at tile {tile} differ")
+        log(f"[time] K2 tile={tile} the {len(levels)} levels of a "
+            f"{MAIN_N}-key sort: {time_ms(sort_levels):.3f} ms")
+    log(f"[tiles] K2 at tiles {list(mw.MERGE_TILES)} (launches {launched}), "
+        f"fan-in up to {fanin}: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cli_m() -> dict[str, int]:
+    """``-a m-way -m BYTES`` through the CLI at 128M for a budget that
+    names each tile (MWAY_M_BUDGETS): ``Results = 128000000``, the tile
+    line, and every K2 launch of the run at that tile."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+
+    total = {k: 0 for k in KERNELS}
+    for tile, budget in MWAY_M_BUDGETS.items():
+        if mw.merge_tile_for(budget, 16) != tile:
+            raise AssertionError(f"-m {budget}: not tile {tile}")
+        argv = ["-a", "m-way", "-m", str(budget), "-r", str(MAIN_N), "-s",
+                str(MAIN_N)]
+        reset_launches()
+        before = dict(mw.TILE_LAUNCHES)
+        t0 = time.perf_counter()
+        rc, stdout, stderr = run_cli_full(argv)
+        torch.cuda.synchronize()
+        counts = launches()
+        at = {t: mw.TILE_LAUNCHES[t] - before[t] for t in mw.MERGE_TILES}
+        rec = re.search(r"^\[STATS\] NUMTUPLES \d+, TOTAL-TIME-USECS "
+                        r"([\d.]+)", stderr, re.M)
+        log(f"[-m] cli.main({argv}) -> rc {rc} in "
+            f"{time.perf_counter() - t0:.3f} s; join "
+            f"{rec.group(1) if rec else '?'} us; K2 launches by tile {at}")
+        if rc != 0 or results_of(stdout) != MAIN_N:
+            raise AssertionError(f"-m {budget}: rc {rc}, {stdout!r}")
+        if f"K2 merge tile {tile} outputs" not in stderr:
+            raise AssertionError(f"-m {budget}: no tile line")
+        if at[tile] != counts["K2"] or counts["K2"] <= 0:
+            raise AssertionError(f"-m {budget}: K2 {counts['K2']}, by tile "
+                                 f"{at}")
+        check_launched(f"-m {budget}", counts, ("K1", "K2", "K3"))
+        for k, v in counts.items():
+            total[k] += v
+    return total
 
 
 def merge_pass_check(case: str, keys: torch.Tensor, pays,
@@ -2303,8 +2458,8 @@ def phase_merge_resources() -> None:
         if "multiway_merge_cu" in name
         and re.search(r"(corank|merge)_kernelI[ix]", name)]
     # co-ranks with the windows in registers (fan-in <= 32) or in shared
-    # memory, and the tile merge; keys and pairs
-    if len(found) != 6:
+    # memory, and the tile merge: keys at the three tiles, pairs at one
+    if len(found) != 12:
         raise AssertionError(f"cuobjdump: {len(found)} K2/K6 kernels")
     for name, line in found:
         res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
@@ -2313,8 +2468,9 @@ def phase_merge_resources() -> None:
         if kernel == "corank_kernel":
             kernel += (" (windows in registers)" if "Lb1E" in name
                        else " (windows in shared memory)")
-        log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel}: REG "
-            f"{res.get('REG')}, STACK {res.get('STACK')}, SHARED "
+        tile = re.search(r"Li(\d+)E", name).group(1)
+        log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel} tile {tile}: "
+            f"REG {res.get('REG')}, STACK {res.get('STACK')}, SHARED "
             f"{res.get('SHARED')}, LOCAL {res.get('LOCAL')}")
     k1 = {int(b): dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
           for b, line in re.findall(
@@ -3116,6 +3272,161 @@ def phase_dist_profiles(dev: torch.device) -> None:
             raise AssertionError(f"profiled {name}: {got[0]}")
 
 
+def phase_graft_entry(dev: torch.device) -> dict[str, int]:
+    """``graft_entry.entry()``'s forward on the card: count 65,536, K1 2,
+    K2 2, K3 1 launches."""
+    from avx_sort_merge_joins_tpu_torch import graft_entry
+
+    forward, inputs = graft_entry.entry(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    cnt = int(forward(*inputs))
+    counts = launches()
+    log(f"[entry] {graft_entry.ENTRY_N} x {graft_entry.ENTRY_N}: count "
+        f"{cnt} in {(time.perf_counter() - t0) * 1e3:.3f} ms; launches "
+        f"{counts}")
+    want = {"K1": 2, "K2": 2, "K3": 1}
+    if cnt != graft_entry.ENTRY_N or any(counts[k] != v
+                                         for k, v in want.items()):
+        raise AssertionError(f"entry: count {cnt}, launches {counts}")
+    return counts
+
+
+def phase_dryrun(dev: torch.device) -> dict[str, int]:
+    """``dryrun_multichip(n)`` for n = 2, 4, 8 on the card: every leg
+    exact and launching its kernels (checked inside); each leg's launches
+    printed."""
+    from avx_sort_merge_joins_tpu_torch import graft_entry
+
+    reset_launches()
+    for n in (2, 4, 8):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            legs = graft_entry.dryrun_multichip(n, dev)
+        log(out.getvalue().strip())
+        for name, leg in legs.items():
+            log(f"[dryrun] n={n} {name}: count {leg['count']}, launches "
+                f"{leg['launches']}")
+        if len(legs) != (8 if n == 2 else 9):
+            raise AssertionError(f"dryrun {n}: legs {list(legs)}")
+        log(f"[dryrun] n={n}: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    return launches()
+
+
+def phase_results_grid(dev: torch.device) -> dict[str, int]:
+    """The port's results grid at its full sizes into a temporary
+    ``SMJ_GRID_OUT``: 25 exact rows, then the renderer over them."""
+    from avx_sort_merge_joins_tpu_torch.scripts import make_results_md as mr
+    from avx_sort_merge_joins_tpu_torch.scripts import run_results_grid as rg
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "results_grid_torch.jsonl")
+        saved = os.environ.get("SMJ_GRID_OUT")
+        os.environ["SMJ_GRID_OUT"] = path
+        try:
+            if rg.main([]) != 0:
+                raise AssertionError("results grid: exit code not 0")
+        finally:
+            if saved is None:
+                os.environ.pop("SMJ_GRID_OUT")
+            else:
+                os.environ["SMJ_GRID_OUT"] = saved
+        torch.cuda.synchronize()
+        counts = launches()
+        with open(path) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        for r in rows:
+            log(f"[grid row] {json.dumps(r)}")
+        keys = {r["key"] for r in rows}
+        if len(rows) != GRID_ROWS or len(keys) != GRID_ROWS \
+                or not all(r["exact"] for r in rows):
+            raise AssertionError(f"results grid: {len(rows)} rows")
+        big = f"scale/m-way/{GRID_SCALE_MAX}/cuda"
+        if big not in keys:
+            raise AssertionError(f"results grid: no {big} row")
+        md = os.path.join(tmp, "RESULTS_TORCH.md")
+        if mr.main(["--src", path, "--out", md]) != 0:
+            raise AssertionError("make_results_md: exit code not 0")
+        with open(md) as f:
+            table = [line for line in f if line.startswith("| ")
+                     and not line.startswith(("| algo |", "| n/side",
+                                              "| z |", "| R |"))]
+        if len(table) != GRID_ROWS:
+            raise AssertionError(f"RESULTS_TORCH.md: {len(table)} rows")
+    log(f"[grid] {len(rows)} rows, every one exact; launches {counts}")
+    check_launched("results grid", counts,
+                   ("K1", "K2", "K3", "K4", "K5", "K6", "K7"))
+    return counts
+
+
+def run_twin(name: str, env: dict, args=(), cwd=None):
+    """Start the port's twin of a JAX experiment script (bash, this
+    interpreter first on PATH) in ``cwd`` with the knobs of ``env``."""
+    e = dict(os.environ)
+    e["PATH"] = os.path.dirname(sys.executable) + os.pathsep + e["PATH"]
+    e.update(env)
+    return subprocess.Popen(
+        ["bash", os.path.join(TWINS, name), *args], cwd=cwd, env=e,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_script_twins() -> None:
+    """Each twin once with small knobs, side by side (their own timings
+    are not kept), then ``workload-a.sh`` at full size alone: every exit
+    code 0 and every output checked."""
+    checks = {  # script -> (knobs, check of (its OUT text, its log text))
+        "sort-bench.sh": ({"SIZES": "1 64"}, lambda o, _: len(
+            o.splitlines()) == 16),
+        "multiwaymerge-bench.sh": ({"FANINS": "4 2048"}, lambda o, _: len(
+            o.splitlines()) == 18),
+        "partitioning-bench.sh": ({"BITS": "2 16"}, lambda o, _: len(
+            o.splitlines()) == 10),
+        "cardinality.sh": ({"NR": "16000000", "REPS": "1"}, lambda o, _:
+                           re.findall(r"^Results = (\d+)$", o, re.M) ==
+                           [str(16_000_000 * r) for r in (1, 2, 4, 8, 16)]),
+        "scalesize.sh": ({"SIZES": "1"}, lambda o, lg: o.strip() ==
+                         f"Results = {32 << 20}" and
+                         "peak device memory" in lg),
+        "tput-scalability.sh": ({"NR": "16000000", "CHIPS": "1 8",
+                                 "REPS": "1"}, lambda o, _: len(
+            re.findall(r"^\[RECORD\] ", o, re.M)) == 12),
+    }
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, (env, _) in checks.items():
+            os.makedirs(os.path.join(tmp, name))
+            procs[name] = run_twin(name, env, cwd=os.path.join(tmp, name))
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=900)
+            stem = os.path.join(tmp, name, name.replace(".sh", ""))
+            with open(stem + ".txt") as f:
+                out = f.read()
+            with open(stem + ".log") as f:
+                lg = f.read()
+            for line in (out + lg).splitlines():
+                log(f"[{name}] {line}")
+            if proc.returncode != 0 or not checks[name][1](out, lg) \
+                    or "Traceback" in lg + err:
+                raise AssertionError(f"{name}: exit {proc.returncode}; "
+                                     f"{err[-2000:]}")
+            log(f"[twins] {name}: exit 0 at {time.perf_counter() - t0:.1f} "
+                "s")
+        torch.cuda.empty_cache()
+        proc = run_twin("workload-a.sh", {}, cwd=tmp)
+        out, err = proc.communicate(timeout=900)
+    for line in (err + out).splitlines():
+        log(f"[workload-a.sh] {line}")
+    if proc.returncode != 0 or f"[workload-a] PASS: count == |S| == " \
+            f"{SCALE_N} over {DIST_SHARDS} shards" not in out:
+        raise AssertionError(f"workload-a.sh: exit {proc.returncode}")
+    log(f"[twins] 7 scripts in {time.perf_counter() - t0:.1f} s")
+
+
 def timed(name: str, fn, *args):
     """fn(*args), its wall time printed as a [phase] line."""
     t0 = time.perf_counter()
@@ -3187,6 +3498,16 @@ def main() -> int:
     timed("key8b scalarsort", phase_key8b_scalar)
     timed("non-unique", phase_nonunique, dev)
     timed("zipf", phase_zipf, dev)
+    for name, fn, *args in [("graft entry", phase_graft_entry, dev),
+                            ("dryrun", phase_dryrun, dev)]:
+        for k, v in timed(name, fn, *args).items():
+            total[k] += v
+    timed("merge tiles", phase_merge_tiles, dev)
+    for name, fn, *args in [("-m", phase_cli_m),
+                            ("results grid", phase_results_grid, dev)]:
+        for k, v in timed(name, fn, *args).items():
+            total[k] += v
+    timed("script twins", phase_script_twins)
     src = "avx_sort_merge_joins_tpu_torch/csrc/"
     ref = "avx_sort_merge_joins_tpu/"
     kernels = [{"name": name, "route": "cuda", "source": src + f,

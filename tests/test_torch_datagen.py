@@ -223,3 +223,17 @@ def test_zipf_streams_match_jax(n, alphabet, z):
 def test_zipf_relation_matches(n, maxid):
     _pair(lambda: jdg.create_relation_zipf(n, maxid, 0.9),
           lambda: tdg.create_relation_zipf(n, maxid, 0.9, device=CPU), 77)
+
+
+@pytest.mark.parametrize("step", [1000, 1 << 26])
+def test_device_path_in_steps_and_quarters_matches_jax(monkeypatch, step):
+    """The device generation sorts the draws in four quarters of their
+    range, its element-wise passes ``GEN_STEP`` at a time: at any step it
+    is the JAX package's one stable sort, near the seed's wrap too."""
+    monkeypatch.setattr(tgen, "GEN_STEP", step)
+    n = 70_001
+    for seed, maxid, nthreads in ((2**31 - 101, 333, 7), (5, n, 1)):
+        keys, payloads = tgen._device_gen(n, maxid, nthreads, seed, CPU)
+        jk, jp = jgen._device_gen(n, maxid, nthreads)(jnp.int32(seed))
+        np.testing.assert_array_equal(keys.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(payloads.numpy(), np.asarray(jp))

@@ -1421,3 +1421,157 @@ def test_workload_a_on_the_card(cuda):
         assert tscale.workload_a_join_count(n, n, mesh, skew=skew,
                                             slack=slack) == (n, 0)
     assert (tsort.LAUNCHES - before[0], tmj.LAUNCHES - before[1]) == (32, 16)
+
+
+NEW_TILES = (2048, 8192)  # the keys-only K2's tiles besides MERGE_TILE
+
+
+@pytest.mark.parametrize("tile", NEW_TILES)
+@pytest.mark.parametrize("fanin", [2, 4, 8, 16])
+@pytest.mark.parametrize("rel", [-1, 0, 1, "3T+7"])
+def test_multiway_merge_new_tile_edges(cuda, tile, fanin, rel):
+    """The keys-only K2 at the tiles ``-m`` names, a group total next to a
+    tile's edges, uniform and varlen: the plain version's columns, one
+    launch a call at that tile."""
+    per_group = 3 * tile + 7 if rel == "3T+7" else tile + rel
+    k, _ = (t.to(cuda) for t in _pairs(4 * fanin * per_group, per_group,
+                                       2**31 - 2, 5))
+    span = -(-per_group // fanin)
+    rk, _ = _sorted_runs_uniform(k, None, per_group, span)
+    ul = (-(-per_group // span), per_group, span)
+    before = tmw.TILE_LAUNCHES[tile]
+    got, _ = tmw.multiway_merge(rk, fanin, ul, tile=tile)
+    assert torch.equal(got, tmw.multiway_merge_plain(rk, fanin, ul))
+    rng = np.random.default_rng(per_group + fanin)
+    lens = []
+    for _ in range(2):
+        cut = np.sort(rng.integers(0, per_group + 1, fanin - 1))
+        lens += np.diff(np.concatenate([[0], cut, [per_group]])).tolist()
+    lk, _ = _varlen_runs(lens, per_group, k, None)
+    tl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got, glens = tmw.multiway_merge(lk, fanin, lens=tl, stride=per_group,
+                                    tile=tile)
+    want, wlens = tmw.multiway_merge_varlen_plain(lk, fanin, tl, per_group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(glens, wlens)
+    assert tmw.TILE_LAUNCHES[tile] == before + 2
+
+
+@pytest.mark.parametrize("tile", tmw.MERGE_TILES)
+def test_multiway_merge_fanin_2048_and_hot_key(cuda, tile):
+    """Fan-in 2,048, the kernel's largest, uniform and varlen, and one hot
+    key over many tiles, at every tile."""
+    fanin = tmw.MAX_FANIN
+    k = _keys(2 * fanin * 5, tile, -1000, 1000).to(cuda)
+    rk, _ = _sorted_runs_uniform(k, None, fanin * 5 - 3, 5)
+    ul = (fanin, fanin * 5 - 3, 5)
+    got, _ = tmw.multiway_merge(rk, fanin, ul, tile=tile)
+    assert torch.equal(got, tmw.multiway_merge_plain(rk, fanin, ul))
+    stride = 2 * tile + 1
+    lens = np.random.default_rng(tile).integers(0, stride + 1, fanin)
+    lk, _ = _varlen_runs(lens.tolist(), stride, _keys(
+        fanin * stride, tile + 1).to(cuda), None)
+    tl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got, glens = tmw.multiway_merge(lk, fanin, lens=tl, stride=stride,
+                                    tile=tile)
+    want, wlens = tmw.multiway_merge_varlen_plain(lk, fanin, tl, stride)
+    assert torch.equal(got, want) and torch.equal(glens, wlens)
+    span = 8 * tile
+    hot = torch.full((32 * span,), 5, dtype=torch.int32, device=cuda)
+    hot[::3] = 4
+    rk, _ = _sorted_runs_uniform(hot, None, 32 * span - 9, span)
+    ul = (32, 32 * span - 9, span)
+    got, _ = tmw.multiway_merge(rk, 16, ul, tile=tile)
+    assert torch.equal(got, tmw.multiway_merge_plain(rk, 16, ul))
+
+
+def test_pair_merge_keeps_its_fanin_and_tile(cuda):
+    """K6 keeps PR 14's limits while the keys-only K2 takes fan-in 2,048
+    and other tiles: pairs at fan-in 1,024 (MAX_PAIR_FANIN) equal the
+    plain version; fan-in 2,048 and a tile other than MERGE_TILE raise."""
+    fanin = tmw.MAX_PAIR_FANIN
+    k, p = (t.to(cuda) for t in _pairs(2 * fanin * 5, 11, 1000, 50))
+    rk, rp = _sorted_runs_uniform(k, p, fanin * 5 - 3, 5)
+    ul = (fanin, fanin * 5 - 3, 5)
+    got = tmw.multiway_merge(rk, fanin, ul, rp)[0]
+    want = tmw.multiway_merge_plain(rk, fanin, ul, rp)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="at most 1024"):
+        tmw.multiway_merge(rk, 2 * fanin, (fanin, fanin * 5 - 3, 5), rp)
+    with pytest.raises(ValueError, match="pairs merge at tiles"):
+        tmw.multiway_merge(rk, fanin, ul, rp, tile=8192)
+
+
+@pytest.mark.parametrize("budget", [1, 40_000, 1 << 20])
+def test_mway_m_budget_runs_its_tile(cuda, budget):
+    """``-m`` on the card: the count of the default configuration, every
+    K2 launch at the tile merge_tile_for names."""
+    n = 3_000_000
+    tgen.seed_generator(3)
+    R = tgen.parallel_create_relation(n, n, device=cuda)
+    S = tgen.parallel_create_relation(n, n, device=cuda)
+    tile = tmw.merge_tile_for(budget, mway.FANIN_DEFAULT)
+    before = dict(tmw.TILE_LAUNCHES), tmw.LAUNCHES
+    res = mway.sortmergejoin_multiway(R, S,
+                                      JoinConfig(mwaybufsize_bytes=budget))
+    torch.cuda.synchronize()
+    assert res.totalresults == n
+    k2 = tmw.LAUNCHES - before[1]
+    assert k2 > 0 and tmw.TILE_LAUNCHES[tile] - before[0][tile] == k2
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_dryrun_legs_launch_their_kernels(cuda, n):
+    from avx_sort_merge_joins_tpu_torch import graft_entry as tentry
+
+    legs = tentry.dryrun_multichip(n, cuda)
+    assert len(legs) == (8 if n == 2 else 9)
+    for name, leg in legs.items():
+        assert all(leg["launches"].get(k, 0) > 0
+                   for k in tentry.LEG_KERNELS[name]), (name, leg)
+    forward, inputs = tentry.entry(cuda)
+    before = tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES
+    assert int(forward(*inputs)) == 65536
+    assert (tsort.LAUNCHES - before[0], tmw.LAUNCHES - before[1],
+            tmj.LAUNCHES - before[2]) == (2, 2, 1)
+
+
+def test_results_grid_algo_cell_at_16m(cuda, tmp_path):
+    """The grid's 16M m-way cell on the card: exact, timed, with the
+    card's name in its row."""
+    from avx_sort_merge_joins_tpu_torch.scripts import run_results_grid as rg
+
+    g = rg.Grid(str(tmp_path / "rows.jsonl"), cuda, reps=1, burn=1)
+    R, S = rg.workload(16_000_000, cuda)
+    run, finish = rg._mway_thunks(R, S, 16_000_000, 16_000_000, False)
+    g.run_cell("algo/m-way/16000000/cuda", "algo", "m-way", 16_000_000,
+               16_000_000, "cuda", run, finish, 16_000_000)
+    import json
+    row = json.loads((tmp_path / "rows.jsonl").read_text())
+    assert row["exact"] and row["ms"] > 0
+    assert row["device"].startswith(torch.cuda.get_device_name(cuda))
+
+
+def test_cardinality_last_row_counts_exactly(cuda, capsys):
+    """``cardinality.sh``'s last row at its default NR: |R| = 2^27, |S| =
+    16 x 2^27 = 2^31 keys on one device, through the CLI: exactly |S|."""
+    from avx_sort_merge_joins_tpu_torch import cli as tcli
+
+    torch.cuda.empty_cache()
+    rc = tcli.main(["-a", "m-way", "-r", str(1 << 27), "-s", str(1 << 31)])
+    out, _ = capsys.readouterr()
+    torch.cuda.empty_cache()
+    assert rc == 0 and f"Results = {1 << 31}" in out
+
+
+def test_run_past_the_card_exits_1(cuda, capsys):
+    """A relation the card cannot hold (3 * 10^10 keys of S): exit 1 with
+    the out-of-memory error, no result."""
+    from avx_sort_merge_joins_tpu_torch import cli as tcli
+
+    rc = tcli.main(["-a", "m-way", "-r", "1000", "-s", "30000000000"])
+    out, err = capsys.readouterr()
+    torch.cuda.empty_cache()
+    assert rc == 1 and "Results" not in out
+    assert "[ERROR] out of device memory at -r 1000 -s 30000000000 -n 1:" \
+        in err

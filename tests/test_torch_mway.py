@@ -18,6 +18,7 @@ from avx_sort_merge_joins_tpu.types import JoinConfig as JConfig
 from avx_sort_merge_joins_tpu.types import Relation as JRelation
 from avx_sort_merge_joins_tpu_torch import cli as tcli
 from avx_sort_merge_joins_tpu_torch.models import mway as tmway
+from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as tmw
 from avx_sort_merge_joins_tpu_torch.types import (JoinConfig, Relation,
                                                   default_device)
 
@@ -87,9 +88,31 @@ def test_mway_count_past_2_31_at_the_default_block():
 @pytest.mark.parametrize("config", [JoinConfig(mwaybufsize_bytes=1),
                                     JoinConfig(mwaybufsize_bytes=1 << 20)])
 def test_mway_unported_options_raise(config):
-    rel = Relation.from_numpy(np.arange(10, dtype=np.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmway.sortmergejoin_multiway(rel, rel, config)
+    """The ``-m`` budget, once refused, now sizes the K2 merge tile (the
+    smallest tile at 1 byte, the largest at 1 MiB): the count and the
+    materialized rows are those of the default configuration and the JAX
+    join under the same budget.  What the budget does not reach is still
+    refused: the pair merge (K6) at the budget's tile."""
+    tile = tmw.merge_tile_for(config.mwaybufsize_bytes, 2)
+    assert tile != tmw.MERGE_TILE
+    keys = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="pairs merge at tiles"):
+        tmw.multiway_merge(keys, 2, (2, 8, 4), keys, tile=tile)
+    jR, jS, tR, tS, want = _relations("non_unique")
+    jres = jmway.sortmergejoin_multiway(
+        jR, jS, JConfig(mwaybufsize_bytes=config.mwaybufsize_bytes,
+                        scalar_merge=True), fanin=2, block_rows=ROWS,
+        tile_rows=ROWS)
+    got = tmway.sortmergejoin_multiway(tR, tS, config, fanin=2, block=BLOCK)
+    assert got.totalresults == jres.totalresults == want
+    mat = JoinConfig(mwaybufsize_bytes=config.mwaybufsize_bytes,
+                     materialize=True)
+    rows = tmway.sortmergejoin_multiway(tR, tS, mat, fanin=2, block=BLOCK)
+    base = tmway.sortmergejoin_multiway(tR, tS, JoinConfig(materialize=True),
+                                        fanin=2, block=BLOCK)
+    assert rows.totalresults == base.totalresults == want
+    assert torch.equal(rows.resultlist[0].results.keys,
+                       base.resultlist[0].results.keys)
 
 
 def test_cli_prints_the_pk_fk_count(capsys):
@@ -169,14 +192,24 @@ def test_cli_zipf_count_equals_the_jax_cli(algo, capsys):
     assert got == want == "20000"
 
 
-@pytest.mark.parametrize("argv", [["-m", "1048576"],
+@pytest.mark.parametrize("argv", [["-n", "0"],
                                   ["--mapping-file", "F"],
                                   ["-a", "m-pass", "--materialize"],
                                   ["-a", "mpsm", "--materialize"],
                                   ["-f", "3"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
+    """Refused flags and values exit 2 with no result.  (``-m`` is ported:
+    its case became ``-n 0``, a shard count the CLI refuses.)"""
     assert tcli.main(["-r", "100", "-s", "100", *argv]) == 2
     assert "Results" not in capsys.readouterr().out
+
+
+def test_cli_mapping_file_waits_for_a_mesh_of_cards(capsys):
+    assert tcli.main(["-r", "100", "-s", "100", "--mapping-file", "F",
+                      "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "not yet ported: --mapping-file" in err
+    assert "mesh of cards" in err
 
 
 def test_cli_writes_a_trace(tmp_path, capsys):
@@ -213,3 +246,66 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 15
+
+
+# one merge CTA's shared memory at fan-in 16: 17,092 B at 2,048 outputs,
+# 33,988 at 4,096 and 67,780 at 8,192; at fan-in 1,024: 79,876 at 8,192
+@pytest.mark.parametrize("budget,fanin,tile", [
+    (0, 16, 4096), (1, 16, 2048), (-5, 16, 2048), (17_091, 16, 2048),
+    (17_092, 16, 2048), (33_987, 16, 2048), (33_988, 16, 4096),
+    (67_779, 16, 4096), (67_780, 16, 8192), (1 << 20, 16, 8192),
+    (67_780, 1024, 4096), (79_876, 1024, 8192), (0, 1024, 4096)])
+def test_merge_tile_for_table(budget, fanin, tile):
+
+    assert tmw.merge_tile_for(budget, fanin) == tile
+    if budget > 0:
+        fit = [t for t in tmw.MERGE_TILES
+               if tmw.merge_smem_bytes(t, fanin) <= budget]
+        assert tile == (fit[-1] if fit else tmw.MERGE_TILES[0])
+
+
+def test_multiway_merge_tiles_on_the_cpu():
+    """On the CPU every tile gives the plain version's columns; a tile
+    outside MERGE_TILES, or another than 4,096 for pairs, raises."""
+
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(np.sort(rng.integers(-50, 50, (8, 300)), 1)
+                            .astype(np.int32).reshape(-1))
+    want = tmw.multiway_merge(keys, 4, (8, 2400, 300))[0]
+    for tile in tmw.MERGE_TILES:
+        got, lens = tmw.multiway_merge(keys, 4, (8, 2400, 300), tile=tile)
+        assert torch.equal(got, want) and lens == [1200, 1200]
+    with pytest.raises(ValueError, match="tile 1000"):
+        tmw.multiway_merge(keys, 4, (8, 2400, 300), tile=1000)
+    with pytest.raises(ValueError, match="pairs merge at tiles of 4096"):
+        tmw.multiway_merge(keys, 4, (8, 2400, 300), payloads=keys,
+                           tile=8192)
+
+
+@pytest.mark.parametrize("budget,tile", [(1, 2048), (40_000, 4096),
+                                         (1 << 20, 8192)])
+def test_cli_m_gives_the_jax_cli_count(budget, tile, capsys):
+    """``-m`` on one device: the count of the JAX CLI under the same flag
+    (its lax.sort route), tolerance 0, and the tile it names."""
+    argv = ["-r", "20000", "-s", "20000", "-x", "7", "-y", "8",
+            "--non-unique", "-m", str(budget)]
+    assert jcli.main(["-a", "m-way", *argv, "--scalarmerge"]) == 0
+    want = capsys.readouterr().out.split("Results = ")[1].split()[0]
+    assert tcli.main(["-a", "m-way", *argv, "--device", "cpu"]) == 0
+    out, err = capsys.readouterr()
+    assert out.split("Results = ")[1].split()[0] == want
+    assert f"-m {budget}: K2 merge tile {tile} outputs at fan-in 16" in err
+
+
+def test_cli_m_on_a_mesh_warns_and_is_ignored(capsys):
+    """``-n N -m B``: the JAX CLI's warning, and the count without -m."""
+    argv = ["-a", "m-way", "-n", "4", "-r", "20000", "-s", "20000",
+            "--device", "cpu"]
+    assert tcli.main([*argv, "-m", "65536"]) == 0
+    out, err = capsys.readouterr()
+    assert "[WARN ] -m merge-buffer size has no effect on the distributed " \
+           "path" in err
+    assert "K2 merge tile" not in err
+    assert tcli.main(argv) == 0
+    assert out.split("Results = ")[1].split()[0] == \
+        capsys.readouterr().out.split("Results = ")[1].split()[0] == "20000"
