@@ -29,6 +29,9 @@ and built there by the package's own builder:
   k11_shared_windows  K11's co-rank windows in shared memory at every
                    shard count (the committed K11 keeps them in registers
                    up to 32 shards, one strip a lane);
+  k11_gpu_scope    K11's flags released, polled and acquired at device
+                   scope (right on one card only; the committed K11 uses
+                   system scope, which a push to another card needs);
   k3_group_4, k3_group_16  K3 with 4 or 16 tiles a CTA (the committed
                    K3: 8 tiles of 1,920, 15 merged elements a thread, 128
                    threads, windows of 2,048);
@@ -136,6 +139,11 @@ VARIANTS = {
         ("remote_pull.cu",
          "      if (a.n <= 32)  // one strip a lane: the windows in "
          "registers", "      if (false)")]),
+    "k11_gpu_scope": (("k11",), [
+        ("remote_pull.cu", "ld.relaxed.sys.global", "ld.relaxed.gpu.global"),
+        ("remote_pull.cu", "ld.acquire.sys.global", "ld.acquire.gpu.global"),
+        ("remote_pull.cu", "st.release.sys.global", "st.release.gpu.global"),
+        ("remote_pull.cu", "__threadfence_system();", "__threadfence();")]),
     "k3_group_4": (("k3",), [
         ("merge_join_count.cu", "constexpr int kCountGroup = 8;",
          "constexpr int kCountGroup = 4;")]),
@@ -326,6 +334,25 @@ def k9_device_ms(rf, land, lens, cap: int, chunk: int, arrive,
             ms = e.device_time_total / calls / 1e3
             out[m.group(0)] = out.get(m.group(0), 0.0) + ms
     return {k: round(v, 4) for k, v in out.items()} or "no device time"
+
+
+def k11_device_ms(rf, mesh, bflat, rcounts, cap: int, chunk: int,
+                  calls: int = 20) -> str:
+    """Milliseconds of device time a K11 call spends in its kernel, from
+    torch.profiler's CUDA activity over ``calls`` calls: the call's CUDA
+    event time less this is the wrapper's share (its scratch, pointer
+    table and status read)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            rf.remote_pull_exchange_merge(mesh, bflat, rcounts, cap, chunk)
+        torch.cuda.synchronize()
+    ms = sum(e.device_time_total for e in prof.key_averages()
+             if "remote_pull_kernel" in e.key) / calls / 1e3
+    return f"{ms:.4f}" if ms > 0 else "no device time"
 
 
 def worker(name: str, kernels: list[str]) -> None:
@@ -548,7 +575,10 @@ def worker(name: str, kernels: list[str]) -> None:
         merge = cs.time_ms(lambda: rf._pull_launch(
             mesh, bflat, rcounts, cap, chunk, k, landing=full[3]), 10)
         print(f"[{name}] K11 R over {w} shards: {ms:.3f} ms, the merge "
-              f"alone {merge:.3f} ms", flush=True)
+              f"alone {merge:.3f} ms; the kernel's device time a call "
+              f"(torch.profiler) "
+              f"{k11_device_ms(rf, mesh, bflat, rcounts, cap, chunk)} ms",
+              flush=True)
 
 
 def main() -> int:

@@ -10,12 +10,17 @@ Ported: the single-device count joins ``-a m-way|m-pass|mpsm -n 1 -r -s
 --full-range``, the materializing m-way join (``--materialize``),
 ``--persist DIR``, the 64-bit-key count join (``--key8b``; with ``-n N``
 it runs on one device as the JAX CLI does, after the fan-out is raised to
-N), and on a mesh of N shards on one device (``parallel/``) the
-distributed count joins ``-a m-way -n N -S NEXT|RING|RANDOM``, ``-a m-pass
--n N`` and ``-a mpsm -n N``, and the distributed materializing join ``-n N
---materialize [--persist DIR]`` (for any ``-a``, with a warning when it is
-not m-way, as in the JAX CLI; ``--persist`` streams Out.tbl a shard at a
-time).
+N), and on a mesh of N shards (``parallel/``) the distributed count joins
+``-a m-way -n N -S NEXT|RING|RANDOM``, ``-a m-pass -n N`` and ``-a mpsm -n
+N``, and the distributed materializing join ``-n N --materialize
+[--persist DIR]`` (for any ``-a``, with a warning when it is not m-way, as
+in the JAX CLI; ``--persist`` streams Out.tbl a shard at a time).  The
+mesh is N shards of the relations' device, or, with ``--mapping-file F``
+(format ``NDEV id0 ... id{NDEV-1} [#HOSTS]``, the JAX CLI's), shard i on
+``cuda:<id i>`` (every id names the CPU under ``--device cpu``); the
+trailing host count sets the RING schedule's stride.  As in the JAX CLI
+the file shapes only the mesh of a ``-n N`` run.  A file with fewer ids
+than ``-n``, or an id past the card count, exits 2 with the reason.
 
 The workload-A scale tier (``parallel/scale.py``): with ``-n N > 1`` and
 ``max(-r, -s) >= SMJ_SHARDED_GEN_MIN`` (default 500,000,000), sizes that
@@ -24,9 +29,8 @@ divide by N and none of ``--non-unique``, ``--full-range``,
 device and joined by the pre-sharded distributed m-way
 (``SMJ_SCALE_PHASED=1``, the default, through its phased entry point; 0
 through the fused one).  Asked for another ``-a``, ``--scalarsort``,
-``--scalarmerge`` or ``-S``, it warns and takes the standard path.  The
-port's mesh is N shards of one card, so unlike the JAX CLI there is no
-"chips requested > available" check.
+``--scalarmerge`` or ``-S``, it warns and takes the standard path.  Its
+mesh is N shards of one card, or the mapping file's cards.
 
 The single-device joins print ``[ROOFLINE]`` rows after ``[RECORD]``:
 each phase's bytes over its time, against the copy rate measured on the
@@ -35,9 +39,7 @@ join's device (``SMJ_HBM_GBPS`` overrides it).  ``-o DIR`` writes a
 sizes the K2 merge tile of the single-device m-way join
 (``multiwaymerge.merge_tile_for``: 2,048, 4,096 or 8,192 outputs; the
 count does not change); with ``-n N > 1`` it warns and is ignored, as in
-the JAX CLI.  ``--mapping-file`` is parsed and refused with "not yet
-ported" and exit code 2: it waits for a mesh of cards.  Sizes a path does
-not take are refused up front with exit code 1 (``_size_refusal``: |R|
+the JAX CLI.  Sizes a path does not take are refused up front with exit code 1 (``_size_refusal``: |R|
 past 2^31 - 2, whose keys would reach the pad; a relation past 2^31 - 1
 tuples anywhere but the one-device m-way count join's kernels); a run
 past the device's memory exits 1 with the error.  Relations and
@@ -120,25 +122,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--perfconf", default=None,
                    help="accepted for flag parity (PCM event config)")
     p.add_argument("--mapping-file", default=None,
-                   help="device mapping file (not yet ported: it waits "
-                        "for a mesh of cards)")
+                   help="device mapping file (cpu-mapping.txt analog): "
+                        "'NDEV id0 .. id{NDEV-1} [#HOSTS]', shard i of a "
+                        "-n N mesh on cuda:<id i>")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where relations and kernels run: the card, or "
                         "the CPU through the kernels' plain PyTorch "
                         "versions")
     p.add_argument("--verbose", action="store_true")
     return p
-
-
-def _not_ported(args) -> list[str]:
-    """The flags of this run that the port does not carry yet: a mapping
-    file places shards on a mesh of cards, and the port's mesh is N
-    shards of one card."""
-    checks = [
-        (args.mapping_file is not None,
-         "--mapping-file (it waits for a mesh of cards)"),
-    ]
-    return [flag for bad, flag in checks if bad]
 
 
 def make_relations(args, device):
@@ -263,16 +255,16 @@ def _run_dist_materialize(args, R, S, mesh):
 
 def _run_dist(args, R, S):
     """``-n N``: a distributed join on a mesh of N shards on the relations'
-    device, routed as the JAX CLI routes it (cli.py:209-281): mpsm takes
+    device, or on the mapping file's devices, routed as the JAX CLI routes
+    it (cli.py:209-281): mpsm takes
     the ``-f`` fan-in and m-pass none; ``--scalarsort``/``--scalarmerge``
     select the baseline route of each count join, and the materializing
     join takes neither flag.  Each but m-way reports one ``total``
     phase."""
-    from .parallel.mesh import make_mesh
     from .types import JoinResult
     from .utils.log import warn
 
-    mesh = make_mesh(args.nthreads, R.keys.device)
+    mesh = _make_mesh(args, R.keys.device)
     if args.materialize:
         if args.algo != "m-way":
             warn("--materialize with -n>1 uses the distributed m-way "
@@ -374,7 +366,35 @@ def _validate(args) -> str | None:
         # the JAX CLI's warning (cli.py:231-234): the flag is ignored
         warn("-m merge-buffer size has no effect on the distributed path "
              "(its merge tiles are fixed)")
+    if args.mapping_file is not None:
+        return _mapping_refusal(args)
     return None
+
+
+def _mapping_refusal(args) -> str | None:
+    """Why the mapping file cannot shape this run's mesh, if it cannot: a
+    file that does not read as ``NDEV id0 ... [#HOSTS]``, or holds fewer
+    ids than ``-n``."""
+    from .parallel.mesh import read_mapping_file
+
+    try:
+        ids, _ = read_mapping_file(args.mapping_file)
+    except (OSError, ValueError) as e:
+        return (f"--mapping-file {args.mapping_file}: not 'NDEV id0 .. "
+                f"id{{NDEV-1}} [#HOSTS]' ({e})")
+    if len(ids) < args.nthreads:
+        return (f"--mapping-file {args.mapping_file}: {len(ids)} device ids "
+                f"for -n {args.nthreads} shards")
+    return None
+
+
+def _make_mesh(args, device):
+    """The ``-n N`` mesh: the installed mapping file's first N devices, or
+    N shards of ``device``."""
+    from .parallel import mesh as mesh_mod
+
+    return mesh_mod.make_mesh(
+        args.nthreads, None if mesh_mod.DEFAULT_MESH else device)
 
 
 SCALE_MIN_DEFAULT = 500_000_000  # SMJ_SHARDED_GEN_MIN's default
@@ -435,14 +455,15 @@ def _run_scale_tier(args, device, dname: str) -> int:
 
     from .models.common import device_sync
     from .parallel import dist_mway, scale
-    from .parallel.mesh import make_mesh
     from .utils import profiling
     from .utils.log import error, info
 
-    mesh = make_mesh(args.nthreads, device)
+    mesh = _make_mesh(args, device)
+    where = (f"one device ({dname})" if not mesh.per_shard else
+             f"{', '.join(str(d) for d in mesh.devices)}")
     info(f"scale tier: sharded on-device generation of "
          f"{args.r_size}⋈{args.s_size} over {args.nthreads} shards of "
-         f"one device ({dname})")
+         f"{where}")
     t0 = time.perf_counter()
     rk, sk = scale.make_workload_a_sharded(
         args.r_size, args.s_size, mesh, seed=args.r_seed, skew=args.skew,
@@ -557,10 +578,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from .utils.log import error, info
 
-    missing = _not_ported(args)
-    if missing:
-        error(f"not yet ported: {' '.join(missing)}")
-        return NOT_PORTED_EXIT
     bad = _validate(args)
     if bad:
         error(bad)
@@ -568,8 +585,8 @@ def main(argv=None) -> int:
 
     import torch
 
+    from .parallel import mesh as mesh_mod
     from .types import default_device, device_name
-    from .utils import profiling
 
     if args.device == "cpu":
         device = torch.device("cpu")
@@ -579,9 +596,34 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             error(str(e))
             return NO_DEVICE_EXIT
-    dname = device_name(device)
-    info(f"device: {dname}" if device.type == "cuda"
-         else "device: cpu (plain PyTorch versions)")
+    # --mapping-file: the file's mesh installed as the DEFAULT_MESH that the
+    # -n N routes build their mesh from, as the JAX CLI installs it
+    # (cli.py:390-394), and the module state restored after the run
+    saved = mesh_mod.DEFAULT_MESH, mesh_mod.HOST_GRANULARITY
+    try:
+        if args.mapping_file is not None:
+            try:
+                mesh_mod.DEFAULT_MESH = mesh_mod.mesh_from_mapping_file(
+                    args.mapping_file, device.type)
+            except ValueError as e:  # an id past the card count
+                error(str(e))
+                return NOT_PORTED_EXIT
+        dname = device_name(device)
+        info(f"device: {dname}" if device.type == "cuda"
+             else "device: cpu (plain PyTorch versions)")
+        return _run_traced(args, device, dname)
+    finally:
+        mesh_mod.DEFAULT_MESH, mesh_mod.HOST_GRANULARITY = saved
+
+
+def _run_traced(args, device, dname: str) -> int:
+    """:func:`_run`, under the profiler with ``-o DIR``; a run past the
+    device's memory exits 1."""
+    import torch
+
+    from .utils import profiling
+    from .utils.log import error, info
+
     # -o: the whole run, generation included, under the profiler
     # (cli.py:395-399, :421-437)
     traced = (profiling.trace(args.perfout, device) if args.perfout
@@ -603,4 +645,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .types import default_alloc_conf
+
+    default_alloc_conf()  # before the first CUDA call
     sys.exit(main())

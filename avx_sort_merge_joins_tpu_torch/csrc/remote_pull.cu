@@ -1,26 +1,32 @@
-// K11: the remote-pull push and chunk-gated merge, for every shard of a
-// mesh on one card in one launch.  Shard me holds n buckets of `cap` slots
-// (bucket d at bflat[me][d * cap], the dist_mway._cut_all layout); it pushes
-// them chunk by chunk into its peers' landing strips (strip me of shard d
-// at landing[d][me * cap]), and each shard merges its n strips into one
-// ascending column while they arrive, each merge tile waiting for the
-// (source, chunk) arrivals it reads.  Returns the landing (the all-to-all
-// of the buckets), the merged columns (INT32_MAX past each live total), the
-// chunks each shard's reader waited for per strip, and a flag per shard
-// that is set if a tile read past the chunks it had waited for.
+// K11: the remote-pull push and chunk-gated merge of a mesh of n shards,
+// one launch a card for the shards that card holds (all n on a mesh of one
+// card).  Shard me holds n buckets of `cap` slots (bucket d at bflat_me[d *
+// cap], the dist_mway._cut_all layout); it pushes them chunk by chunk into
+// its peers' landing strips (strip me of shard d at landing_d[me * cap]),
+// and each shard merges its n strips into one ascending column while they
+// arrive, each merge tile waiting for the (source, chunk) arrivals it
+// reads.  Returns the landing (the all-to-all of the buckets), the merged
+// columns (INT32_MAX past each live total), the chunks each shard's reader
+// waited for per strip, and a flag per shard that is set if a tile read
+// past the chunks it had waited for.
 //
 // Replaces the TPU kernel avx_sort_merge_joins_tpu/parallel/remote_fifo.py
 // `_remote_pull_kernel` (:272) + ops/multiwaymerge.py `_mwaymerge_kernel`
 // with gate="remote", via `remote_pull_exchange_merge` (pallas_call at
 // :388).  There each chip pushes with make_async_remote_copy and its merge
-// waits on one receive semaphore per (source, chunk).  On one card a push
-// is a device-side copy into the destination shard's landing strip and a
-// receive semaphore is a flag in global memory, one per (destination,
-// source, chunk).
+// waits on one receive semaphore per (source, chunk).  Here a push is a
+// copy into the destination shard's landing strip -- a peer write over
+// NVLink when the destination lies on another card (every pointer is a
+// unified virtual address, peer access enabled by the wrapper for every
+// ordered pair of cards) -- and a receive semaphore is a flag in the
+// receiver's memory, one per (destination, source, chunk).  Every shard's
+// pointers come in a table (kTableWords a shard), so each launch reaches
+// every shard on every card.
 //
-// Work items come from one atomic ticket counter, not from blockIdx:
-//   tickets [0, P)      pushes, P = n * n * chunks: ticket p is push
-//                       i = p / n of shard me = p % n (the shards
+// Work items come from one atomic ticket counter a card, not from
+// blockIdx; the card holds m of the n shards, local[0..m):
+//   tickets [0, P)      pushes, P = m * n * chunks: ticket p is push
+//                       i = p / m of shard me = local[p % m] (the shards
 //                       interleaved); push i sends chunk j = i / n of the
 //                       bucket for (me + i % n) % n -- the JAX walk,
 //                       chunk-major in NEXT order, full chunks.  Push i
@@ -28,8 +34,8 @@
 //                       i - K (the JAX send window, K = window).
 //   tickets [P, P + T)  merge groups of `span` tiles of kTile output
 //                       keys (span = 7 up to 64 shards, fewer above: see
-//                       group_span), group g of shard d at ticket P + g *
-//                       n + d.  A group whose last boundary is b_last =
+//                       group_span), group g of shard local[l] at ticket P
+//                       + g * m + l.  A group whose last boundary is b_last =
 //                       min(end * kTile, total) waits for chunks [0,
 //                       ceil(min(len_r, b_last) / chunk)) of every strip
 //                       r: its co-rank searches probe strip r only inside
@@ -50,32 +56,42 @@
 //                       one warp a boundary lets a CTA cover a group with
 //                       the latency of one search.
 // Why it cannot deadlock, whatever order the hardware schedules CTAs in: a
-// CTA takes a ticket only while it runs, and waits only on work of lower
-// tickets.  A lower ticket was taken by a CTA that is running or has
-// finished, so the lowest unfinished ticket never waits and the work
-// always moves on.  (A plain launch with the producers "first" would not
-// be safe: the order in which CTAs start is not guaranteed.)
+// CTA takes a ticket only while it runs, and waits only on pushes: a push
+// on its own card's earlier pushes, a merge on any card's.  On one card a
+// lower ticket was taken by a CTA that is running or has finished, so the
+// lowest unfinished ticket never waits on its card and the card's pushes
+// always move on; every card's pushes come before its merges, so every
+// merge's pushes finish.  (A plain launch with the producers "first" would
+// not be safe: the order in which CTAs start is not guaranteed.)  Across
+// cards the wrapper starts every card's launch before it waits on any, and
+// orders each launch after the work already queued on every card, so the
+// launches run together and no card's pushes wait behind another's.
 //
-// Memory order.  A push copies its chunk with the whole CTA, meets at a
-// barrier, and one thread fences and release-stores the flag.  A waiting
-// thread polls with relaxed loads (sleeping between polls) and, once the
-// flag is set, reads it once more with an acquire load; a barrier then
-// hands the ordering to the CTA.  The landing is written during the
-// launch, so no read of it may take the non-coherent read-only path: this
-// kernel has no `const __restrict__` pointer and no __ldg, and it reads
-// the landing through merge_path.cuh with SmjPlainLoad.  Flags, ticket
-// counter and status words are zeroed by the entry point before every
-// launch, on the launch's stream.  Every push counts itself done in a
-// progress word; a wait during which no push completes for kSpinLimitNs
-// sets an error word, every CTA then stops, and the wrapper raises.  A
-// long wait that sees pushes land (window 1 at a large shape: a chain of
-// every push of a shard) is not an error.
+// Memory order, at system scope so that it holds across cards.  A push
+// copies its chunk with the whole CTA, meets at a barrier, and one thread
+// fences (__threadfence_system) and release-stores the flag in the
+// receiver's memory.  A waiting thread polls with relaxed loads (sleeping
+// between polls) and, once the flag is set, reads it once more with an
+// acquire load; a barrier then hands the ordering to the CTA.  The landing
+// is written during the launch, so no read of it may take the non-coherent
+// read-only path: this kernel has no `const __restrict__` pointer and no
+// __ldg, and it reads the landing through merge_path.cuh with
+// SmjPlainLoad.  Flags, ticket counter and status words are zeroed (the
+// flags set, for a merge-only launch) by the wrapper before every launch,
+// on the launch's stream.  Every push counts itself done in its card's
+// progress word; a wait during which no push of the awaited shard's card
+// completes for kSpinLimitNs sets the card's error word, every CTA of the
+// card then stops, and the wrapper raises.  A long wait that sees pushes
+// land (window 1 at a large shape: a chain of every push of a shard) is
+// not an error.
 //
 // What bounds it on the H100: the buckets read and the landing written
 // once (8 B a slot), the live keys read and every merged slot written
 // once; the merge costs log2(n) shared-memory passes a key and a little
-// more than one co-rank search a tile (dependent loads).  Every chunk
-// moves, live or not, as the TPU kernel does.  Offsets are 64-bit.
+// more than one co-rank search a tile (dependent loads).  Across cards the
+// pushes to other cards cross NVLink (450 GB/s each way a card, against
+// 3.35 TB/s of device memory).  Every chunk moves, live or not, as the TPU
+// kernel does.  Offsets are 64-bit.
 //
 // Shared memory: two tile buffers of 4,096 keys (one spare slot every 128
 // B), the group's co-ranks and the strips' limits, starts and offsets,
@@ -95,31 +111,39 @@ constexpr int kBlocksPerSm = 6;
 constexpr int kMaxShards = 256;  // remote_fifo.PULL_MAX_SHARDS
 // the longest a wait goes on while no push completes: 1 s
 constexpr unsigned long long kSpinLimitNs = 1000000000ull;
-// scratch: [0, 2) the ticket counter (64-bit), [2] the error word, [3]
-// the oversize word, [4] the pushes done, then the flags, (destination,
-// source, chunk)-major.
+// A card's control words: [0, 2) the ticket counter (64-bit), [2] the
+// error word, [3] the oversize word, [4] the pushes done.  Its flags follow
+// them in the same buffer (the wrapper's scratch), flags of shard d at
+// (source, chunk).
 constexpr int kScratchHead = 5;  // remote_fifo._PULL_SCRATCH_HEAD
 constexpr int kErrorWord = 2;
 constexpr int kOversizeWord = 3;
 constexpr int kProgressWord = 4;
 constexpr int kErrSpinLimit = 1;
+// A shard's row of the pointer table (remote_fifo._PULL_TABLE_WORDS): its
+// buckets, received counts (int32[n]), landing, merged column, waits
+// (int32[n]), violation flag, arrival flags (int32[n][chunks], source-
+// major) and its card's control words.
+constexpr int kTableWords = 8;
+enum Slot { kBflat, kCounts, kLanding, kMerged, kWaited, kViolation,
+            kFlags, kCtl };
 
 __device__ __forceinline__ int ld_relaxed(const int* p) {
   int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+  asm volatile("ld.relaxed.sys.global.b32 %0, [%1];"
                : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+  asm volatile("ld.acquire.sys.global.b32 %0, [%1];"
                : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
 __device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+  asm volatile("st.release.sys.global.b32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
 }
 
@@ -130,39 +154,48 @@ __device__ __forceinline__ unsigned long long now_ns() {
 }
 
 struct Args {
-  int* bflat;     // (n, n * cap): bucket d of shard me at [me][d * cap]
-  int* counts;    // (n, n) int32: strip r of shard d holds counts[d][r]
-  int* landing;   // (n, n * cap): strip me of shard d at [d][me * cap]
-  int* merged;    // (n, n * cap)
-  int* stats;     // waited (n, n), then violation (n)
-  int* scratch;   // see kScratchHead
+  // n rows of kTableWords pointers (Slot), then the m shards of this card
+  const long long* table;
+  int* ctl;  // this card's control words
   long long cap, chunk, chunks, row, tiles, pushes, window;
   long long groups;  // tile groups a shard: ceil(tiles / span)
   int n;
+  int m;     // the shards of this card
   int span;  // tiles a group: as many as one search warp each (+1) allows
 };
 
-// Wait until *flag is set; acquire.  False if no push completed for
-// kSpinLimitNs of the wait (the error word then says so) or another CTA
-// has already failed.
-__device__ bool wait_flag(const int* flag, int* scratch) {
+// Shard s's pointer in `slot`.
+__device__ __forceinline__ int* ptr(const Args& a, int s, Slot slot) {
+  return reinterpret_cast<int*>(a.table[(long long)s * kTableWords + slot]);
+}
+
+// The l-th shard of this card.
+__device__ __forceinline__ int local_shard(const Args& a, long long l) {
+  return (int)a.table[(long long)a.n * kTableWords + l];
+}
+
+// Wait until *flag is set; acquire.  False if no push of the awaited
+// shard's card (its progress word) completed for kSpinLimitNs of the wait
+// (this card's error word then says so) or another CTA of this card has
+// already failed.
+__device__ bool wait_flag(const int* flag, const int* progress, int* ctl) {
   if (ld_relaxed(flag)) {
     (void)ld_acquire(flag);
     return true;
   }
   unsigned long long t0 = now_ns();
-  int done = ld_relaxed(scratch + kProgressWord);
+  int done = ld_relaxed(progress);
   unsigned ns = 32;
   for (;;) {
     if (ld_relaxed(flag)) {
       (void)ld_acquire(flag);
       return true;
     }
-    if (ld_relaxed(scratch + kErrorWord)) return false;
+    if (ld_relaxed(ctl + kErrorWord)) return false;
     if (now_ns() - t0 > kSpinLimitNs) {
-      const int now_done = ld_relaxed(scratch + kProgressWord);
+      const int now_done = ld_relaxed(progress);
       if (now_done == done) {
-        atomicCAS(scratch + kErrorWord, 0, kErrSpinLimit);
+        atomicCAS(ctl + kErrorWord, 0, kErrSpinLimit);
         return false;
       }
       done = now_done;  // pushes landed meanwhile: start the limit again
@@ -173,10 +206,17 @@ __device__ bool wait_flag(const int* flag, int* scratch) {
   }
 }
 
+// The arrival flag of chunk j from shard src, in receiver dst's memory.
 __device__ __forceinline__ int* flag_of(const Args& a, int dst, int src,
                                         long long j) {
-  return a.scratch + kScratchHead +
-         ((long long)dst * a.n + src) * a.chunks + j;
+  return ptr(a, dst, kFlags) + (long long)src * a.chunks + j;
+}
+
+// Wait for the arrival flag of chunk j from src at dst.
+__device__ __forceinline__ bool wait_arrival(const Args& a, int dst, int src,
+                                             long long j) {
+  return wait_flag(flag_of(a, dst, src, j),
+                   ptr(a, src, kCtl) + kProgressWord, a.ctl);
 }
 
 // The CTA's scalars; the tile's buffers and per-strip arrays are dynamic
@@ -230,14 +270,13 @@ static_assert(group_span(kMaxShards) >= 1,
 
 // Push i of shard me.  False if a wait failed.
 __device__ bool push(const Args& a, Shared& sh, long long p) {
-  const long long i = p / a.n;
-  const int me = (int)(p % a.n);
+  const long long i = p / a.m;
+  const int me = local_shard(a, p % a.m);
   if (threadIdx.x == 0) {
     bool ok = true;
     if (i >= a.window) {  // the send window: push i - K has landed
       const long long w = i - a.window;
-      ok = wait_flag(flag_of(a, (me + (int)(w % a.n)) % a.n, me, w / a.n),
-                     a.scratch);
+      ok = wait_arrival(a, (me + (int)(w % a.n)) % a.n, me, w / a.n);
     }
     sh.abort = !ok;
   }
@@ -245,10 +284,8 @@ __device__ bool push(const Args& a, Shared& sh, long long p) {
   if (sh.abort) return false;
   const long long j = i / a.n;
   const int dst = (me + (int)(i % a.n)) % a.n;
-  const int* src = a.bflat + (long long)me * a.row + (long long)dst * a.cap +
-                   j * a.chunk;
-  int* out = a.landing + (long long)dst * a.row + (long long)me * a.cap +
-             j * a.chunk;
+  const int* src = ptr(a, me, kBflat) + (long long)dst * a.cap + j * a.chunk;
+  int* out = ptr(a, dst, kLanding) + (long long)me * a.cap + j * a.chunk;
   const bool vec = ((reinterpret_cast<uintptr_t>(src) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0 &&
                    a.chunk % 4 == 0;
@@ -263,9 +300,9 @@ __device__ bool push(const Args& a, Shared& sh, long long p) {
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
+    __threadfence_system();
     st_release(flag_of(a, dst, me, j), 1);
-    atomicAdd(a.scratch + kProgressWord, 1);
+    atomicAdd(a.ctl + kProgressWord, 1);
   }
   return true;
 }
@@ -274,10 +311,10 @@ __device__ bool push(const Args& a, Shared& sh, long long p) {
 // wait failed.
 __device__ bool merge_group(const Args& a, Shared& sh, const Tile& tl,
                             long long x) {
-  const int d = (int)(x % a.n);
-  const long long g = x / a.n;
+  const int d = local_shard(a, x % a.m);
+  const long long g = x / a.m;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int* lens = a.counts + (long long)d * a.n;
+  const int* lens = ptr(a, d, kCounts);
   if (tid == 0) {
     long long total = 0;
     int bad = 0;
@@ -286,7 +323,7 @@ __device__ bool merge_group(const Args& a, Shared& sh, const Tile& tl,
       if (l < 0 || l > a.cap) bad = 1;
       total += l;
     }
-    if (bad) atomicOr(a.scratch + kOversizeWord, 1);
+    if (bad) atomicOr(a.ctl + kOversizeWord, 1);
     sh.total = total;
     sh.bad = bad;
     sh.abort = 0;
@@ -303,9 +340,9 @@ __device__ bool merge_group(const Args& a, Shared& sh, const Tile& tl,
     return v < total ? v : total;
   };
   const long long b_last = bound_of(t_end - t_first);
-  int* out = a.merged + (long long)d * a.row;
-  const smj_mp::Cols<SmjPlainLoad> land{a.landing + (long long)d * a.row,
-                                        nullptr, SmjPlainLoad()};
+  int* out = ptr(a, d, kMerged);
+  const smj_mp::Cols<SmjPlainLoad> land{ptr(a, d, kLanding), nullptr,
+                                        SmjPlainLoad()};
   if (t_first * kTile < total) {
     for (int r = tid; r < a.n; r += blockDim.x) {
       const long long l = lens[r];
@@ -317,13 +354,13 @@ __device__ bool merge_group(const Args& a, Shared& sh, const Tile& tl,
     for (int r = 0; r < a.n && ok; ++r) {
       const long long need = (tl.lim[r] + a.chunk - 1) / a.chunk;
       for (long long j = tid; j < need && ok; j += blockDim.x)
-        ok = wait_flag(flag_of(a, d, r, j), a.scratch);
+        ok = wait_arrival(a, d, r, j);
     }
     if (!ok) sh.abort = 1;
     __syncthreads();
     if (sh.abort) return false;
     for (int r = tid; r < a.n; r += blockDim.x)
-      atomicMax(a.stats + (long long)d * a.n + r,
+      atomicMax(ptr(a, d, kWaited) + r,
                 (int)((tl.lim[r] + a.chunk - 1) / a.chunk));
     // warp i searches bound i of the group, all at once, from the windows
     // [0, lim[r]): no strip gives more than b_last keys to any of them
@@ -363,7 +400,7 @@ __device__ bool merge_group(const Args& a, Shared& sh, const Tile& tl,
         }
         const long long b1 = t0 + kTile < total ? t0 + kTile : total;
         if (viol || tl.offs[a.n] != b1 - t0) {
-          atomicOr(a.stats + (long long)a.n * a.n + d, 1);
+          atomicOr(ptr(a, d, kViolation), 1);
           for (int r = 1; r <= a.n; ++r) tl.offs[r] = 0;  // merge nothing
         }
       }
@@ -389,14 +426,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   __shared__ Shared sh;
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile tl(smem, a.n, a.span);
-  const long long tickets = a.pushes + (long long)a.n * a.groups;
+  const long long tickets = a.pushes + (long long)a.m * a.groups;
   for (;;) {
     __syncthreads();  // the last item is done with the shared state
     if (threadIdx.x == 0) {
       sh.ticket = (long long)atomicAdd(
-          reinterpret_cast<unsigned long long*>(a.scratch), 1ull);
+          reinterpret_cast<unsigned long long*>(a.ctl), 1ull);
       sh.stop = sh.ticket >= tickets ||
-                ld_relaxed(a.scratch + kErrorWord) != 0;
+                ld_relaxed(a.ctl + kErrorWord) != 0;
     }
     __syncthreads();
     if (sh.stop) return;
@@ -409,50 +446,41 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
 }  // namespace
 
-// bflat, landing, merged: int32[n][n * cap]; counts: int32[n][n], the
-// received counts; stats: int32[n * n + n], waited then violation;
-// scratch: int32[kScratchHead + n * n * (cap / chunk)], zeroed here, its
-// words 2 and 3 the error and oversize words the wrapper reads after the
-// launch.  n a power of two in [2, kMaxShards], cap a multiple of chunk,
-// window >= 1.  merge_only (for timing the merge alone): no push runs,
-// every flag is set before the launch, and the merge reads the landing
+// One card's launch, on its stream.  table: int64[n * kTableWords + m] on
+// this card (Slot pointers of every shard -- bflat, landing, merged
+// int32[n * cap], counts and waits int32[n] -- then the m shards this card
+// holds); ctl: this card's scratch, the control words (kScratchHead) then
+// the flags of its m shards (int32[n][cap / chunk] each), zeroed by the
+// caller (the flags set, with merge_only), as are the waits and violation
+// flags; words 2 and 3 of ctl are the error and oversize words the wrapper
+// reads after every card's launch.  n a power of two in [2, kMaxShards],
+// 1 <= m <= n, cap a multiple of chunk, window >= 1.  merge_only (for
+// timing the merge alone): no push runs, and the merge reads the landing
 // as the caller gives it (a full launch's).
-SMJ_API int smj_remote_pull(int* bflat, int* counts, int* landing,
-                            int* merged, int* stats, int* scratch,
+SMJ_API int smj_remote_pull(long long* table, int* ctl, int m,
                             long long cap, long long chunk, int n,
                             long long window, int merge_only, void* stream) {
-  if (n < 2 || n > kMaxShards || (n & (n - 1)) || chunk < 1 || cap < 1 ||
-      cap % chunk || window < 1)
+  if (n < 2 || n > kMaxShards || (n & (n - 1)) || m < 1 || m > n ||
+      chunk < 1 || cap < 1 || cap % chunk || window < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Args a;
-  a.bflat = bflat;
-  a.counts = counts;
-  a.landing = landing;
-  a.merged = merged;
-  a.stats = stats;
-  a.scratch = scratch;
+  a.table = table;
+  a.ctl = ctl;
   a.cap = cap;
   a.chunk = chunk;
   a.chunks = cap / chunk;
   a.row = (long long)n * cap;
   a.tiles = (a.row + kTile - 1) / kTile;
-  a.pushes = merge_only ? 0 : (long long)n * n * a.chunks;
+  a.pushes = merge_only ? 0 : (long long)m * n * a.chunks;
   a.n = n;
+  a.m = m;
   a.window = window;
   a.span = group_span(n);
   a.groups = (a.tiles + a.span - 1) / a.span;
-  const size_t flags = (size_t)n * n * a.chunks * sizeof(int);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, kScratchHead * sizeof(int), s);
-  if (e == cudaSuccess)  // a flag is set when it is not 0
-    e = cudaMemsetAsync(scratch + kScratchHead, merge_only ? 1 : 0, flags,
-                        s);
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(stats, 0, ((size_t)n * n + n) * sizeof(int), s);
-  if (e != cudaSuccess) return (int)e;
   const size_t smem = tile_smem(n);
   int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
@@ -463,7 +491,7 @@ SMJ_API int smj_remote_pull(int* bflat, int* counts, int* landing,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, remote_pull_kernel, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
-  const long long tickets = a.pushes + (long long)n * a.groups;
+  const long long tickets = a.pushes + (long long)m * a.groups;
   long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > tickets) grid = tickets;
   remote_pull_kernel<<<(unsigned)grid, kThreads, smem, s>>>(a);
@@ -480,5 +508,24 @@ SMJ_API int smj_remote_pull_occupancy(int n, int* ctas) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         ctas, remote_pull_kernel, kThreads, tile_smem(n));
+  return (int)e;
+}
+
+// Let card `dev` read and write card `peer`'s memory (K11's peer writes
+// and flag polls); access already enabled is not an error.  The current
+// device is restored.
+SMJ_API int smj_enable_peer_access(int dev, int peer) {
+  int old = 0;
+  cudaError_t e = cudaGetDevice(&old);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      (void)cudaGetLastError();  // clear it
+      e = cudaSuccess;
+    }
+    const cudaError_t back = cudaSetDevice(old);
+    if (e == cudaSuccess) e = back;
+  }
   return (int)e;
 }

@@ -13,7 +13,8 @@ not named they raise.  The JAX dryrun's machinery to find ``n`` devices
 (``__graft_entry__.py:43-80``: the XLA device-count flag, the fallback to
 CPU devices, the re-exec in a fresh process) is not needed: the port's
 mesh is ``n`` shards of one device (``parallel/mesh.py``), so any ``n``
-fits on one card.
+fits on one card; ``dryrun_multichip(n, devices=...)`` runs the legs on a
+mesh of one device a shard instead.
 
     python -m avx_sort_merge_joins_tpu_torch.graft_entry [N] [--device cpu]
 
@@ -146,10 +147,12 @@ def _leg(name: str, run, expected: int, on_card: bool) -> dict:
     return {"count": cnt, "launches": launched}
 
 
-def dryrun_multichip(n_devices: int, device=None) -> dict:
+def dryrun_multichip(n_devices: int, device=None, devices=None) -> dict:
     """The JAX dryrun's legs on a mesh of ``n_devices`` shards of
-    ``device`` (the card by default), and a ninth, the real push
-    (``remote_pull="dma"``, K11).  Each leg must count exactly
+    ``device`` (the card by default), or with ``devices`` on the mesh of
+    one device a shard that they make (shard ``me`` on ``devices[me]``, a
+    device list that may repeat one device; the 2-D leg on the same
+    devices), and a ninth, the real push (``remote_pull="dma"``, K11).  Each leg must count exactly
     ``merge_join_count_numpy``'s number with overflow 0 and, on the card,
     launch its kernels (``LEG_KERNELS``); a failing leg raises with its
     name.  The 2-D leg runs when ``n_devices`` is even and at least 4, as
@@ -161,9 +164,10 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                            dist_mpsm, dist_mway)
     from .parallel.mesh import make_mesh, make_mesh2d
 
-    dev = _device(device)
+    mesh = make_mesh(n_devices, None if devices else _device(device),
+                     devices=devices)
+    dev = mesh.device
     on_card = dev.type == "cuda"
-    mesh = make_mesh(n_devices, dev)
     n_r, n_s = DRYRUN_NR, DRYRUN_NS
     rk_np, rp_np, sk_np, sp_np, skz_np = dryrun_inputs()
     expected = merge_join_count_numpy(rk_np, sk_np)
@@ -188,7 +192,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     leg("remote-pull", lambda: dist_mway.dist_mway_join_count(
         rk, sk, n_r, n_s, mesh, remote_pull="emulate"))
     if n_devices % 2 == 0 and n_devices >= 4:
-        mesh2 = make_mesh2d(2, n_devices // 2, dev)
+        mesh2 = make_mesh2d(2, n_devices // 2, None if devices else dev,
+                            devices=devices)
         leg("2-D mesh", lambda: dist_mway.dist_mway_join_count(
             rk, sk, n_r, n_s, mesh2))
     leg("mpsm", lambda: dist_mpsm.dist_mpsm_join_count(rk, sk, n_r, n_s,

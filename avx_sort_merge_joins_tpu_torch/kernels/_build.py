@@ -56,8 +56,9 @@ _SIGNATURES = {
     "smj_merge_join_count2": (_P, _L, _P, _L, _L, _L, _P, _P),
     "smj_radix_hist": (_P, _L, _I, _I, _I, _P, _P),
     "smj_radix_hist_occupancy": (_I, _IP),
-    "smj_remote_pull": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P),
+    "smj_remote_pull": (_P, _P, _I, _L, _L, _I, _L, _I, _P),
     "smj_remote_pull_occupancy": (_I, _IP),
+    "smj_enable_peer_access": (_I, _I),
 }
 
 # entry points that return something else than a cudaError_t code

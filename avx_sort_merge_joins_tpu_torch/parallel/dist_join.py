@@ -42,14 +42,13 @@ def dist_join_count(rkeys, rpayloads, skeys, spayloads, n_r: int, n_s: int,
             "addresses only the chip axis -- use dist_mway_join_count for "
             "2-D ('host','chip') meshes")
     n = mesh.n
-    dev = mesh.device
     shard_r, shard_s = -(-n_r // n), -(-n_s // n)
     cap_r = ex.bucket_cap(shard_r, n, slack, BUCKET_ALIGN)
     cap_s = ex.bucket_cap(shard_s, n, slack, BUCKET_ALIGN)
 
     def stage(col, size, shard, fill):
-        return ex.pad_column(col[:size], shard * n, fill,
-                             device=dev).reshape(n, shard)
+        return mesh.shard(ex.pad_column(col[:size], shard * n, fill,
+                                        device=mesh.device).reshape(n, shard))
 
     rk = stage(rkeys, n_r, shard_r, ex.R_PAD_KEY)
     rp = stage(rpayloads, n_r, shard_r, 0)
@@ -58,33 +57,37 @@ def dist_join_count(rkeys, rpayloads, skeys, spayloads, n_r: int, n_s: int,
     nv_r = ex.valid_counts(n_r, shard_r, n)
     nv_s = ex.valid_counts(n_s, shard_s, n)
 
-    # 1. the global key range over live tuples
+    # 1. the global key range over live tuples, on every shard's device
     big = 2**31 - 1
     lo, hi = [], []
     for me in range(n):
+        dev = mesh.device_of(me)
         live_r = torch.arange(shard_r, device=dev) < int(nv_r[me])
         live_s = torch.arange(shard_s, device=dev) < int(nv_s[me])
         lo.append(torch.minimum(torch.where(live_r, rk[me], big).min(),
                                 torch.where(live_s, sk[me], big).min()))
         hi.append(torch.maximum(torch.where(live_r, rk[me], -big).max(),
                                 torch.where(live_s, sk[me], -big).max()))
-    lo = mesh.all_gather(torch.stack(lo)[:, None]).min()
-    hi = mesh.all_gather(torch.stack(hi)[:, None]).max()
+    lo = mesh.replicated(torch.min, mesh.all_gather(
+        mesh.stack(x[None] for x in lo)))
+    hi = mesh.replicated(torch.max, mesh.all_gather(
+        mesh.stack(x[None] for x in hi)))
     # 2. partition by destination shard
-    parts = {}
+    parts, overflow = {}, 0
     for side, k, p, nv, cap, pad in (("r", rk, rp, nv_r, cap_r, ex.R_PAD_KEY),
                                      ("s", sk, sp, nv_s, cap_s,
                                       ex.S_PAD_KEY)):
-        cut = [ex.bucketize_by(ex.dest_of_keys(k[me], n, lo, hi), k[me],
-                               p[me], int(nv[me]), n, cap, pad)
+        cut = [ex.bucketize_by(ex.dest_of_keys(
+                   k[me], n, mesh.replica(lo, me), mesh.replica(hi, me)),
+                   k[me], p[me], int(nv[me]), n, cap, pad)
                for me in range(n)]
         # 3. all-to-all of the padded buckets
-        parts[side] = ex.exchange(mesh, *(torch.stack([c[i] for c in cut])
+        parts[side] = ex.exchange(mesh, *(mesh.stack(c[i] for c in cut)
                                           for i in range(3)))
-        parts[side + "ov"] = torch.stack([c[3] for c in cut]).sum()
+        overflow += mesh.host_sum(c[3] for c in cut)
     # 4. count over each shard's owned key range
     grk, gsk = parts["r"][0], parts["s"][0]
-    counts = torch.stack([mergejoin.merge_join_count_torch(
-        grk[me], gsk[me], grk.shape[1], gsk.shape[1]) for me in range(n)])
-    overflow = parts["rov"] + parts["sov"]
-    return int(counts.sum()), int(overflow)
+    count = mesh.host_sum(mergejoin.merge_join_count_torch(
+        grk[me], gsk[me], grk[me].numel(), gsk[me].numel())
+        for me in range(n))
+    return count, overflow

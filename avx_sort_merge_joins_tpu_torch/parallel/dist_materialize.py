@@ -42,7 +42,8 @@ from ..params import BLOCKSIZE_DEFAULT
 from .dist_mway import (FANIN_DEFAULT, _check_fanin, _cut_all,
                         _equidepth_bounds, _exchange, _local_sorted,
                         _local_sorted_pair, _merge_received,
-                        _merge_received_pair, _receive, _shape, _stage)
+                        _merge_received_pair, _receive, _row_sums, _shape,
+                        _stage)
 from .mesh import Mesh, host_shape, is_2d
 
 # retries taken by the most recent dist_join_materialize call (0: the
@@ -71,25 +72,27 @@ def _join(rkeys, skeys, spayloads, n_r: int, n_s: int, mesh: Mesh,
     del s_pairs
     bounds = _equidepth_bounds(mesh, r_sorted, s_keys, nv_r, nv_s)
 
-    bflat, _, counts, ov_r = _cut_all(r_sorted, nv_r, bounds, cap_r)
+    bflat, _, counts, ov_r = _cut_all(mesh, r_sorted, nv_r, bounds, cap_r)
     recv, rcounts = _receive(mesh, bflat, counts, cap_r, hier=hier)
     del bflat
-    tr = rcounts.sum(1)
+    tr = _row_sums(mesh, rcounts)
     merged_r = [_merge_received(recv[me], rcounts[me], n, cap_r, fanin,
                                 use_kernels) for me in range(n)]
     del recv
 
-    bk, bp, counts, ov_s = _cut_all(s_keys, nv_s, bounds, cap_s, s_pays)
+    bk, bp, counts, ov_s = _cut_all(mesh, s_keys, nv_s, bounds, cap_s,
+                                    s_pays)
     recv_k, rcounts = _receive(mesh, bk, counts, cap_s, hier=hier)
     recv_p = _exchange(mesh, bp, cap_s, None, hier)
     del bk, bp
-    ts = rcounts.sum(1)
+    ts = _row_sums(mesh, rcounts)
     merged_s = [_merge_received_pair(recv_k[me], recv_p[me], rcounts[me], n,
                                      cap_s, fanin, use_kernels)
                 for me in range(n)]
     del recv_k, recv_p
 
-    tr, ts = torch.stack([tr, ts]).tolist()
+    tr, ts = zip(*mesh.tolist(mesh.map(lambda a, b: torch.stack([a, b], -1),
+                                       tr, ts)))
     rows = []
     for me in range(n):
         ok, op, om, nm = mat.materialize_matches(
@@ -100,7 +103,7 @@ def _join(rkeys, skeys, spayloads, n_r: int, n_s: int, mesh: Mesh,
             ok, op, _ = mat.expand_matches(ok, op, om, nm)
         rows.append((ok, op))
         merged_r[me] = merged_s[me] = None  # free each shard once done
-    return rows, int(ov_r + ov_s)
+    return rows, ov_r + ov_s
 
 
 def dist_join_materialize(rkeys, rpayloads, skeys, spayloads, n_r: int,
@@ -112,8 +115,9 @@ def dist_join_materialize(rkeys, rpayloads, skeys, spayloads, n_r: int,
     """Materialized distributed equi-join over ``mesh``.
 
     Returns ``(out_keys, out_payloads, count, overflow)``: int32 columns on
-    the mesh's device of every matched <S-key, S-payload> row (one row per
-    match pair, duplicate R keys expanded), shard by shard; the match count;
+    the mesh's device (its first shard's) of every matched <S-key,
+    S-payload> row (one row per match pair, duplicate R keys expanded),
+    shard by shard; the match count;
     the bucket overflow, 0 unless the slack retries ran out (a bucket
     overflow doubles the slack and retries, up to 16, as the JAX package
     does; ``LAST_RETRIES`` holds how many this call took).  ``rpayloads``
@@ -146,5 +150,6 @@ def dist_join_materialize(rkeys, rpayloads, skeys, spayloads, n_r: int,
                 append_rows(stream_to, keys.cpu().numpy(),
                             pays.cpu().numpy())
         return None, None, count, ov
-    return (torch.cat([k for k, _ in rows]), torch.cat([p for _, p in rows]),
-            count, ov)
+    # every shard's rows gathered onto the mesh's device
+    return (torch.cat([k.to(mesh.device) for k, _ in rows]),
+            torch.cat([p.to(mesh.device) for _, p in rows]), count, ov)

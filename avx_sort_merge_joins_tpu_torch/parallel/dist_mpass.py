@@ -45,7 +45,7 @@ from ..params import BLOCKSIZE_DEFAULT
 from ..utils.log import warn
 from .dist_mway import (FANIN_DEFAULT, _arrivals, _count_owned, _cut_all,
                         _equidepth_bounds, _local_sorted, _pad_runs,
-                        _pow2_runs, _receive, _shape, _stage)
+                        _pow2_runs, _receive, _row_sums, _shape, _stage)
 from .mesh import Mesh, host_shape, is_2d
 
 
@@ -76,8 +76,7 @@ def _pairwise_merge_received(recv: torch.Tensor, counts: torch.Tensor,
     return _halving_passes(keys, lens, cap)
 
 
-def _overlap_receive_merge(mesh: Mesh, bflat: torch.Tensor,
-                           counts: torch.Tensor, cap: int):
+def _overlap_receive_merge(mesh: Mesh, bflat, counts, cap: int):
     """Permute-round delivery with merge-as-they-arrive: round t brings
     each shard the bucket of shard (me - t), and every second arrival is
     merged with the one before by the varlen K4 on two runs, before the
@@ -100,7 +99,7 @@ def _overlap_receive_merge(mesh: Mesh, bflat: torch.Tensor,
             lens[me].append(ln)
     merged = [_halving_passes(torch.cat(runs[me]), torch.cat(lens[me]),
                               2 * cap) for me in range(n)]
-    return merged, counts.sum(0)
+    return merged, _row_sums(mesh, mesh.all_to_all(counts))
 
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
@@ -118,24 +117,25 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
                 for me in range(n)]
     del rk, sk
     bounds = _equidepth_bounds(mesh, r_sorted, s_sorted, nv_r, nv_s)
-    merged, totals, overflow = {}, {}, []
+    merged, totals, overflow = {}, {}, 0
     for side, ks, nv, cap in (("r", r_sorted, nv_r, cap_r),
                               ("s", s_sorted, nv_s, cap_s)):
-        bflat, _, counts, ov = _cut_all(ks, nv, bounds, cap)
-        overflow.append(ov)
+        bflat, _, counts, ov = _cut_all(mesh, ks, nv, bounds, cap)
+        overflow += ov
         if overlap_ok:
             merged[side], totals[side] = _overlap_receive_merge(
                 mesh, bflat, counts, cap)
             continue
         recv, rcounts = _receive(mesh, bflat, counts, cap, hier=hier)
         del bflat
-        totals[side] = rcounts.sum(1)
+        totals[side] = _row_sums(mesh, rcounts)
         merged[side] = [_pairwise_merge_received(recv[me], rcounts[me], n,
                                                  cap, use_kernels)
                         for me in range(n)]
         del recv
-    count = _count_owned(merged["r"], merged["s"], totals["r"], totals["s"])
-    return count, int(torch.stack(overflow).sum())
+    count = _count_owned(mesh, merged["r"], merged["s"], totals["r"],
+                         totals["s"])
+    return count, overflow
 
 
 def dist_mpass_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,

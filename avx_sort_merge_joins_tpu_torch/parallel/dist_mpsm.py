@@ -50,36 +50,41 @@ from .mesh import Mesh, is_2d
 RANGE_END = 2**31 - 1  # the last shard's exclusive upper end
 
 
-def _ring_count(mesh: Mesh, recv: torch.Tensor, rlens: list, cap: int,
-                s_cur: torch.Tensor, s_cnt: torch.Tensor,
-                bounds: torch.Tensor) -> torch.Tensor:
+def _ranges(bounds: torch.Tensor) -> torch.Tensor:
+    """``(n, 2)``: shard d's key range ``[bounds[d], bounds[d+1])``."""
+    return torch.stack([bounds, torch.cat([bounds[1:], torch.full(
+        (1,), RANGE_END, dtype=bounds.dtype, device=bounds.device)])], 1)
+
+
+def _ring_count(mesh: Mesh, recv, rlens: list, cap: int, s_cur, s_cnt,
+                bounds) -> int:
     """The n rounds of the S ring: in round t shard d holds the sorted S
     run of shard (d - t) and counts each of its received R runs against
-    that run's keys in ``[bounds[d], bounds[d+1])``.  ``s_cur`` is the
-    ``(n, L)`` stack of sorted S runs (pads INT32_MAX after the live
+    that run's keys in ``[bounds[d], bounds[d+1])``.  ``s_cur`` holds the
+    sorted S runs, ``(L,)`` a shard (pads INT32_MAX after the live
     ``s_cnt``), ``rlens[d][s]`` the host length of shard d's R run from
-    shard s.  Returns the int64 counts of every K3 call."""
+    shard s.  Returns the sum of every K3 call's int64 count."""
     n = mesh.n
-    ranges = torch.stack([bounds, torch.cat([bounds[1:], torch.full(
-        (1,), RANGE_END, dtype=bounds.dtype, device=bounds.device)])], 1)
+    ranges = mesh.own_rows(mesh.replicated(_ranges, bounds))
     perm = [(x, (x + 1) % n) for x in range(n)]
     counts = []
     for rnd in range(n):
         # the slice of each passing run in its holder's range: keys below
         # the range's ends, within the live prefix (a key equal to a bound
         # lies on exactly one shard: lower end inclusive, upper exclusive)
-        ends = torch.minimum(torch.searchsorted(s_cur, ranges),
-                             s_cnt[:, None].to(torch.int64))
-        for d, (lo, hi) in enumerate(ends.tolist()):
-            s_col = s_cur[d, lo:]
+        ends = mesh.map(lambda s, r, c: torch.minimum(
+            torch.searchsorted(s, r), c.unsqueeze(-1).to(torch.int64)),
+            s_cur, ranges, s_cnt)
+        for d, (lo, hi) in enumerate(mesh.tolist(ends)):
+            s_col = s_cur[d][lo:]
             for src in range(n):
                 counts.append(mergejoin.merge_join_count_fused(
-                    recv[d, src * cap:(src + 1) * cap], s_col,
+                    recv[d][src * cap:(src + 1) * cap], s_col,
                     rlens[d][src], hi - lo))
         if rnd != n - 1:
             s_cur = mesh.ppermute(s_cur, perm)
             s_cnt = mesh.ppermute(s_cnt, perm)
-    return torch.stack(counts)
+    return mesh.host_sum(counts)
 
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
@@ -96,15 +101,16 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
                 for me in range(n)]
     del rk, sk
     bounds = _equidepth_bounds(mesh, r_sorted, s_sorted, nv_r, nv_s)
-    bflat, _, counts, overflow = _cut_all(r_sorted, nv_r, bounds, cap_r)
+    bflat, _, counts, overflow = _cut_all(mesh, r_sorted, nv_r, bounds,
+                                          cap_r)
     recv, rcounts = _receive(mesh, bflat, counts, cap_r)
     del bflat
-    s_cur = torch.stack(s_sorted)
+    s_cur = mesh.stack(s_sorted)
     del s_sorted
-    s_cnt = torch.as_tensor(nv_s, device=mesh.device)
-    pair_counts = _ring_count(mesh, recv, rcounts.tolist(), cap_r, s_cur,
-                              s_cnt, bounds)
-    return int(pair_counts.sum()), int(overflow)
+    s_cnt = mesh.shard(torch.as_tensor(nv_s))
+    count = _ring_count(mesh, recv, mesh.tolist(rcounts), cap_r, s_cur,
+                        s_cnt, bounds)
+    return count, overflow
 
 
 def dist_mpsm_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,

@@ -11,7 +11,7 @@ collectives (``parallel/mesh.py``):
   exchange   -- equi-depth splitters from 16 quantiles per relation per
                 shard (an all-gather); each shard cuts its sorted run into
                 one contiguous bucket per destination (slice copies into
-                one preallocated stack) and the buckets move by
+                one preallocated row a shard) and the buckets move by
                 all-to-all (one landing at a time: each is merged and cut
                 to its live keys before the next), by NEXT/RING/RANDOM
                 permute rounds, or in two stages on a 2-D mesh;
@@ -20,8 +20,8 @@ collectives (``parallel/mesh.py``):
                 merge K9 (``remote_pull="emulate"``), or, with
                 ``overlap=True``, group merges in arrival order and a final
                 two-way merge; with ``remote_pull="dma"`` the exchange and
-                the merge are one K11 launch a relation, the pushes and
-                the gated merges of every shard together;
+                the merge are one K11 launch a relation and card, the
+                pushes and the gated merges of its shards together;
   mergejoin  -- K3 per shard over its owned key range, in int64; the count
                 is the host sum over shards (disjoint key ranges).
 
@@ -37,12 +37,19 @@ jit caches of the shard programs.  The bucket alignment stays the JAX
 package's 16,384 keys (its ``tile_rows * 128``), so capacities, overflow
 and the slack-doubling retry match its own.
 
-Footprint: every shard lives on the one device, so the 1.6B ⋈ 1.6B
-workload (``parallel/scale.py``) would not fit as a sum of per-device
-buffers.  The buckets are cut straight into one stack (no per-shard
-copies, gather index or ``torch.stack``), the bulk exchange delivers and
-merges one landing at a time, and each merged column keeps only its live
-keys.
+The shards' values are the mesh's per-shard values (``parallel/mesh.py``:
+stacks on a mesh of one device, one tensor a shard on a mesh of one
+device a shard), and this module has one path for both.  Host scalars
+(bucket starts, live totals, counts) are read from every shard's device
+to the host; the splitters are made on every shard's device from its copy
+of the gathered samples.
+
+Footprint: on a mesh of one device every shard lives there, so the 1.6B ⋈
+1.6B workload (``parallel/scale.py``) would not fit as a sum of
+per-device buffers.  The buckets are cut straight into one preallocated
+row a shard (no per-shard copies, gather index or ``torch.stack``), the
+bulk exchange delivers and merges one landing at a time, and each merged
+column keeps only its live keys.
 """
 
 from __future__ import annotations
@@ -127,8 +134,9 @@ def _equidepth_bounds(mesh: Mesh, r_sorted, s_sorted, nvr, nvs):
     sorted relation, at ``(nv // NQ) * j`` clamped to the live prefix (an
     empty shard reads its +inf pad at index 0, as the JAX package's clamped
     ``dynamic_slice`` does); the gathered samples, sorted, give bounds[d]
-    = samples[(ns * d) // n].  Returns an int32 tensor of n bounds,
-    bounds[0] = -2^31 + 1."""
+    = samples[(ns * d) // n].  Returns a replicated value (one tensor on a
+    one-device mesh, a copy on each shard's device otherwise,
+    :meth:`Mesh.replica`) of n int32 bounds, bounds[0] = -2^31 + 1."""
     n = mesh.n
     rows = []
     for me in range(n):
@@ -138,16 +146,19 @@ def _equidepth_bounds(mesh: Mesh, r_sorted, s_sorted, nvr, nvs):
                  for j in range(NQ)]
         rows.append(torch.stack([r_sorted[me][pos_r], s_sorted[me][pos_s]],
                                 dim=1).reshape(-1))
-    samples = torch.sort(mesh.all_gather(torch.stack(rows))).values
-    ns = samples.numel()
-    pick = torch.tensor([(ns * d) // n for d in range(1, n)],
-                        dtype=torch.int64, device=mesh.device)
-    return torch.cat([torch.full((1,), BOUND_MIN, dtype=torch.int32,
-                                 device=mesh.device), samples[pick]])
+
+    def bounds_of(gathered):
+        samples = torch.sort(gathered).values
+        ns = samples.numel()
+        pick = torch.tensor([(ns * d) // n for d in range(1, n)],
+                            dtype=torch.int64, device=samples.device)
+        return torch.cat([torch.full((1,), BOUND_MIN, dtype=torch.int32,
+                                     device=samples.device), samples[pick]])
+
+    return mesh.replicated(bounds_of, mesh.all_gather(mesh.stack(rows)))
 
 
-def _exchange(mesh: Mesh, bflat: torch.Tensor, cap: int, schedule,
-              hier=None) -> torch.Tensor:
+def _exchange(mesh: Mesh, bflat, cap: int, schedule, hier=None):
     """Deliver bucket d of every shard to shard d.  ``schedule=None``: one
     all-to-all; otherwise a list of rotation offsets
     (:func:`mesh.shuffle_order`) run as collective-permute rounds.  On a 2-D
@@ -158,18 +169,16 @@ def _exchange(mesh: Mesh, bflat: torch.Tensor, cap: int, schedule,
     if schedule is None:
         return mesh.all_to_all(bflat)
     n = mesh.n
-    me = torch.arange(n, device=bflat.device)
-    b3 = bflat.reshape(n, n, cap)
-    out = torch.zeros_like(b3)
+    out = mesh.zeros_like(bflat)
     for off in schedule:
         off = int(off)
         # shard x sends its bucket for (x + off) mod n to that shard
-        piece = b3[me, (me + off) % n]
+        piece = mesh.rotated_blocks(bflat, cap, off)
         if off != 0:
             piece = mesh.ppermute(piece, [(x, (x + off) % n)
                                           for x in range(n)])
-        out[me, (me - off) % n] = piece
-    return out.reshape(n, -1)
+        mesh.put_rotated_blocks(out, piece, cap, -off)
+    return out
 
 
 def _merge_levels_varlen(keys: torch.Tensor, lens: torch.Tensor,
@@ -252,24 +261,23 @@ def _merge_received_gated(recv: torch.Tensor, counts: torch.Tensor, n: int,
     return merged, viol
 
 
-def _arrivals(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
-              cap: int):
+def _arrivals(mesh: Mesh, bflat, counts, cap: int):
     """Permute-round delivery: round t brings each shard the bucket of
     shard (me - t), one ``mesh.ppermute`` a round.  Yields each round's
-    ``(n, cap)`` piece and ``(n,)`` counts as it arrives."""
+    per-shard ``(cap,)`` piece and 0-d count as it arrives."""
     n = mesh.n
-    me = torch.arange(n, device=bflat.device)
-    b3 = bflat.reshape(n, n, cap)
     for t in range(n):
-        piece, cnt = b3[me, (me + t) % n], counts[me, (me + t) % n]
+        piece = mesh.rotated_blocks(bflat, cap, t)
+        cnt = mesh.map(lambda c: c.squeeze(-1),
+                       mesh.rotated_blocks(counts, 1, t))
         if t:
             perm = [(x, (x + t) % n) for x in range(n)]
             piece, cnt = mesh.ppermute(piece, perm), mesh.ppermute(cnt, perm)
         yield piece, cnt
 
 
-def _overlap_receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
-                     cap: int, fanin: int, ngroups: int = 2):
+def _overlap_receive(mesh: Mesh, bflat, counts, cap: int, fanin: int,
+                     ngroups: int = 2):
     """Permute-round delivery (:func:`_arrivals`) with group merges as the
     groups fill: the runs of each ``n / ngroups`` consecutive rounds k-way
     merge as one group (the reference's merge-while-reading,
@@ -296,18 +304,28 @@ def _overlap_receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor,
     return merged
 
 
-def _stage(keys, n_keys: int, shard: int, mesh: Mesh,
-           pre_sharded: bool) -> torch.Tensor:
-    """The ``(n, shard)`` stack of one relation on the mesh's device:
-    ``keys[:n_keys]`` padded with +inf, or an already sharded array."""
-    if pre_sharded:
-        out = torch.as_tensor(keys, dtype=torch.int32, device=mesh.device)
-        if tuple(out.shape) != (mesh.n, shard):
-            raise ValueError(f"pre_sharded: shape {tuple(out.shape)}, want "
-                             f"{(mesh.n, shard)}")
-        return out.contiguous()
-    return ex.pad_column(keys[:n_keys], shard * mesh.n, KEY_POS_INF,
-                         device=mesh.device).reshape(mesh.n, shard)
+def _stage(keys, n_keys: int, shard: int, mesh: Mesh, pre_sharded: bool):
+    """One relation as a per-shard value of ``(shard,)`` rows:
+    ``keys[:n_keys]`` padded with +inf, or an already sharded array (an
+    ``(n, shard)`` tensor, or a list of one ``(shard,)`` tensor a shard)."""
+    if not pre_sharded:
+        return mesh.shard(ex.pad_column(keys[:n_keys], shard * mesh.n,
+                                        KEY_POS_INF, device=mesh.device)
+                          .reshape(mesh.n, shard))
+    if isinstance(keys, (list, tuple)):
+        rows = [torch.as_tensor(k, dtype=torch.int32) for k in keys]
+        shapes = {tuple(r.shape) for r in rows}
+        shape = (len(rows), *(shapes.pop() if len(shapes) == 1 else
+                              [sorted(shapes)]))
+    else:
+        rows = torch.as_tensor(keys, dtype=torch.int32)
+        shape = tuple(rows.shape)
+    if shape != (mesh.n, shard):
+        raise ValueError(f"pre_sharded: shape {shape}, want "
+                         f"{(mesh.n, shard)}")
+    if isinstance(rows, list):
+        return mesh.stack(r.contiguous() for r in rows)
+    return mesh.shard(rows.contiguous())
 
 
 def _schedule(mesh: Mesh, numa_strategy, next_as_rounds: bool):
@@ -335,21 +353,22 @@ def _shape(n_keys: int, n: int, slack: float):
             ex.valid_counts(n_keys, shard, n))
 
 
-def _cut_all(ks: list, nv, bounds: torch.Tensor, cap: int, ps=None):
+def _cut_all(mesh: Mesh, ks: list, nv, bounds, cap: int, ps=None):
     """Every shard's buckets (:func:`_bucket_starts`), cut straight into
-    one preallocated ``(n, n*cap)`` stack a column (+inf key pads, 0
+    one preallocated ``(n*cap,)`` row a shard and column (+inf key pads, 0
     payload pads): one slice copy a bucket of at most ``cap`` keys, no
     gather index, per-shard copy or ``torch.stack``.  The bucket starts of
-    every shard come to the host in one read.  Frees each sorted column of
-    ``ks`` (and ``ps``) once it is cut.  Returns ``(keys (n, n*cap),
-    payloads or None, int32 counts (n, n), overflow)``: the keys each
-    bucket kept, and those that did not fit."""
+    every shard come to the host in one read a device.  Frees each sorted
+    column of ``ks`` (and ``ps``) once it is cut.  Returns ``(keys,
+    payloads or None, int32 counts (n,) a shard, overflow)``, the first
+    three per-shard values of the mesh: the keys each bucket kept; the
+    overflow, those that did not fit, a host int."""
     n = len(ks)
-    dev = ks[0].device
-    starts = torch.stack([_bucket_starts(ks[me], int(nv[me]), bounds, n)
-                          for me in range(n)]).tolist()
-    bk = torch.full((n, n * cap), KEY_POS_INF, dtype=torch.int32, device=dev)
-    bp = None if ps is None else torch.zeros_like(bk)
+    starts = mesh.tolist(mesh.stack(
+        _bucket_starts(ks[me], int(nv[me]), mesh.replica(bounds, me), n)
+        for me in range(n)))
+    bk = mesh.full((n * cap,), KEY_POS_INF)
+    bp = None if ps is None else mesh.zeros_like(bk)
     counts, overflow = [], 0
     for me in range(n):
         cols = [(bk[me], ks[me])] + ([] if ps is None else [(bp[me], ps[me])])
@@ -368,40 +387,43 @@ def _cut_all(ks: list, nv, bounds: torch.Tensor, cap: int, ps=None):
     del ks[:]
     if ps is not None:
         del ps[:]
-    return (bk, bp, torch.tensor(counts, dtype=torch.int32, device=dev),
-            torch.tensor(overflow, device=dev))
+    return bk, bp, mesh.from_host(counts), overflow
 
 
-def _receive(mesh: Mesh, bflat: torch.Tensor, counts: torch.Tensor, cap: int,
-             schedule=None, hier=None):
-    """:func:`_exchange` of the bucket stack and of its counts: ``(recv,
-    rcounts)``, shard d's run from shard s at ``recv[d, s*cap:]`` with
-    ``rcounts[d, s]`` keys."""
+def _receive(mesh: Mesh, bflat, counts, cap: int, schedule=None, hier=None):
+    """:func:`_exchange` of the buckets and of their counts: ``(recv,
+    rcounts)``, shard d's run from shard s at ``recv[d][s*cap:]`` with
+    ``rcounts[d][s]`` keys."""
     recv = _exchange(mesh, bflat, cap, schedule, hier)
     rcounts = ex.exchange_hier(mesh, counts, 1) if hier else \
         mesh.all_to_all(counts)
     return recv, rcounts
 
 
-def _live_prefixes(cols, totals: torch.Tensor) -> list:
+def _row_sums(mesh: Mesh, counts):
+    """Each shard's sum of its ``(n,)`` counts row: its live total."""
+    return mesh.map(lambda c: c.sum(-1), counts)
+
+
+def _live_prefixes(mesh: Mesh, cols, totals) -> list:
     """Each shard's merged column cut to its live keys (at least one slot):
     a copy of ``col[:total]``, taken as ``cols`` yields each column, so
     that a full merged landing is freed before the next is made.  K3 reads
     no slot past its length."""
-    live = totals.tolist()
+    live = mesh.tolist(totals)
     return [col[:max(t, 1)].clone() for col, t in zip(cols, live)]
 
 
-def _count_owned(merged_r: list, merged_s: list, totals_r: torch.Tensor,
-                 totals_s: torch.Tensor) -> int:
+def _count_owned(mesh: Mesh, merged_r: list, merged_s: list, totals_r,
+                 totals_s) -> int:
     """K3 per shard over the merged columns of its owned key range, the
     live lengths read once for every shard; the host sum over shards
     (disjoint key ranges) is the count, in int64."""
-    tr, ts = torch.stack([totals_r, totals_s]).tolist()
-    counts = torch.stack([mergejoin.merge_join_count_fused(
+    tr, ts = zip(*mesh.tolist(mesh.map(lambda a, b: torch.stack([a, b], -1),
+                                       totals_r, totals_s)))
+    return mesh.host_sum(mergejoin.merge_join_count_fused(
         merged_r[me], merged_s[me], tr[me], ts[me])
-        for me in range(len(tr))])
-    return sum(counts.tolist())
+        for me in range(len(tr)))
 
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
@@ -428,64 +450,66 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
 
     t0 = time.perf_counter()
     bounds = _equidepth_bounds(mesh, r_sorted, s_sorted, nv_r, nv_s)
-    merged, totals, overflow, viols = {}, {}, [], []
+    merged, totals, overflow, viols = {}, {}, 0, []
     for side, ks, nv, cap in (("r", r_sorted, nv_r, cap_r),
                               ("s", s_sorted, nv_s, cap_s)):
-        bflat, _, counts, ov = _cut_all(ks, nv, bounds, cap)
-        overflow.append(ov)
+        bflat, _, counts, ov = _cut_all(mesh, ks, nv, bounds, cap)
+        overflow += ov
         if overlap_ok:
-            totals[side] = counts.sum(0)
+            totals[side] = _row_sums(mesh, mesh.all_to_all(counts))
             merged[side] = _live_prefixes(
-                _overlap_receive(mesh, bflat, counts, cap, fanin),
+                mesh, _overlap_receive(mesh, bflat, counts, cap, fanin),
                 totals[side])
             continue
         if remote_pull == "dma":
             rcounts = mesh.all_to_all(counts)
-            totals[side] = rcounts.sum(1)
+            totals[side] = _row_sums(mesh, rcounts)
             chunk = rf.pick_chunk_elems(cap, TILE_ELEMS, n)
             out, _waited, viol, _landing = rf.remote_pull_exchange_merge(
                 mesh, bflat, rcounts, cap, chunk)
             del bflat, _landing
-            merged[side] = _live_prefixes(out, totals[side])
-            viols.append(viol.sum())
+            merged[side] = _live_prefixes(mesh, out, totals[side])
+            viols += [viol[me] for me in range(n)]
             continue
         if schedule is None and hier is None and remote_pull is None:
             # the bulk all-to-all a landing at a time, each merged and cut
-            # to its live keys before the next: one landing on the device,
-            # not the (n, n*cap) receive stack beside the bucket stack
+            # to its live keys before the next: one landing a device, not
+            # the whole receive stack beside the bucket stack
             rcounts = mesh.all_to_all(counts)
-            totals[side] = rcounts.sum(1)
-            merged[side] = _live_prefixes(
-                (_merge_received(mesh.all_to_all_row(bflat, me), rcounts[me],
-                                 n, cap, fanin, use_kernels)
-                 for me in range(n)), totals[side])
+            totals[side] = _row_sums(mesh, rcounts)
+            merged[side] = _live_prefixes(mesh, (
+                _merge_received(mesh.all_to_all_row(bflat, me), rcounts[me],
+                                n, cap, fanin, use_kernels)
+                for me in range(n)), totals[side])
             del bflat
             continue
         recv, rcounts = _receive(mesh, bflat, counts, cap, schedule, hier)
         del bflat
-        totals[side] = rcounts.sum(1)
+        totals[side] = _row_sums(mesh, rcounts)
         if remote_pull == "emulate":
             out = [_merge_received_gated(recv[me], rcounts[me], n, cap,
                                          pull_rate) for me in range(n)]
             viols += [o[1] for o in out]
-            merged[side] = _live_prefixes((o[0] for o in out), totals[side])
+            merged[side] = _live_prefixes(mesh, (o[0] for o in out),
+                                          totals[side])
         else:
-            merged[side] = _live_prefixes(
-                (_merge_received(recv[me], rcounts[me], n, cap, fanin,
-                                 use_kernels) for me in range(n)),
+            merged[side] = _live_prefixes(mesh, (
+                _merge_received(recv[me], rcounts[me], n, cap, fanin,
+                                use_kernels) for me in range(n)),
                 totals[side])
         del recv
     device_sync(merged["s"])
     phases["merge1"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    count = _count_owned(merged["r"], merged["s"], totals["r"], totals["s"])
+    count = _count_owned(mesh, merged["r"], merged["s"], totals["r"],
+                         totals["s"])
     phases["mergejoin"] = time.perf_counter() - t0
     phases["total"] = phases["sort"] + phases["merge1"] + phases["mergejoin"]
-    if viols and int(torch.stack(viols).sum()):
+    if viols and mesh.host_sum(viols):
         raise RuntimeError("chunk-gated merge read past a delivered prefix: "
                            "the remote-pull gating arithmetic regressed")
-    return count, int(torch.stack(overflow).sum()), phases
+    return count, overflow, phases
 
 
 def _check_fanin(fanin: int) -> None:
@@ -499,7 +523,8 @@ def _check_remote_pull(remote_pull, mesh: Mesh, use_kernels: bool,
                        overlap: bool) -> None:
     """Raise unless ``remote_pull`` is None, ``"emulate"`` or ``"dma"``,
     and on ``"dma"`` unless K11 takes the run: the kernel pipeline on a
-    flat mesh of a power of two >= 2 shards, without overlap."""
+    flat mesh of a power of two >= 2 shards, without overlap, every pair of
+    its cards with peer access."""
     if remote_pull not in (None, "emulate", "dma"):
         raise ValueError(f"remote_pull={remote_pull!r}: not None, 'emulate' "
                          "or 'dma'")
@@ -511,6 +536,8 @@ def _check_remote_pull(remote_pull, mesh: Mesh, use_kernels: bool,
             "power of two >= 2 shards, without overlap "
             f"(use_kernels={use_kernels}, n_chips={n}, "
             f"mesh_axes={mesh.axis_names}, overlap={overlap})")
+    if remote_pull == "dma":
+        rf._check_peers(mesh)
 
 
 def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
@@ -546,14 +573,15 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
     overlap and falls back loudly otherwise.
 
     ``remote_pull="dma"`` is the real push: per relation, one K11 launch
-    (``remote_fifo.remote_pull_exchange_merge``) pushes every shard's
-    buckets chunk by chunk into its peers' landing strips and merges each
-    shard's strips as they arrive; only the bucket counts go by
-    all-to-all first.  The chunk is the emulate route's.  It raises on a
-    gating violation, and it raises, never falls back, on what K11 does
-    not take: a 2-D mesh, ``overlap``, ``use_kernels=False``, a shard
-    count that is not a power of two >= 2 (the JAX kernel asserts the
-    same, remote_fifo.py:374).  It takes any ``numa_strategy``: a
+    a card (``remote_fifo.remote_pull_exchange_merge``) pushes its shards'
+    buckets chunk by chunk into their peers' landing strips, by NVLink
+    peer writes to other cards, and merges its shards' strips as they
+    arrive; only the bucket counts go by all-to-all first.  The chunk is
+    the emulate route's.  It raises on a gating violation, and it raises,
+    never falls back, on what K11 does not take: a 2-D mesh, ``overlap``,
+    ``use_kernels=False``, a shard count that is not a power of two >= 2
+    (the JAX kernel asserts the same, remote_fifo.py:374), a pair of the
+    mesh's cards without peer access.  It takes any ``numa_strategy``: a
     schedule orders only the bulk exchange's rounds, which the pushes
     replace, and K11 pushes in NEXT order.  This is the JAX package's own
     value of the argument, defined by its module's test plan (step 3),

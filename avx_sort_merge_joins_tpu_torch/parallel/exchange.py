@@ -11,7 +11,8 @@ R pads INT32_MAX, S pads INT32_MIN; live keys lie in [-2^31+2, 2^31-2].
 A bucket that overflows its capacity is counted, never dropped silently.
 
 Functions of one shard take its 1-D columns; the exchanges take the
-mesh's stacked ``(n, ...)`` tensors.
+mesh's per-shard values (``parallel/mesh.py``: a stacked ``(n, ...)``
+tensor on a one-device mesh, a list of one tensor a shard otherwise).
 """
 
 from __future__ import annotations
@@ -92,18 +93,23 @@ def bucketize_by(dest: torch.Tensor, keys: torch.Tensor,
     return bk, bp, counts, overflow
 
 
-def exchange(mesh, bkeys: torch.Tensor, bpayloads: torch.Tensor,
-             counts: torch.Tensor):
-    """All-to-all the stacked padded buckets: bucket d of shard s lands on
-    shard d as received run s.  Returns the received ``(keys, payloads,
-    counts)`` stacks; ``counts[d][s]`` is how many live tuples shard s sent
-    shard d (its run at ``[s*cap, s*cap + counts[d][s])``)."""
+def exchange(mesh, bkeys, bpayloads, counts):
+    """All-to-all the per-shard padded buckets: bucket d of shard s lands
+    on shard d as received run s.  Returns the received ``(keys, payloads,
+    counts)``; ``counts[d][s]`` is how many live tuples shard s sent shard
+    d (its run at ``[s*cap, s*cap + counts[d][s])``)."""
     return (mesh.all_to_all(bkeys), mesh.all_to_all(bpayloads),
             mesh.all_to_all(counts))
 
 
-def exchange_hier(mesh, bflat: torch.Tensor, cap: int,
-                  host_schedule=None) -> torch.Tensor:
+def _swap_groups(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Rows of ``a x b`` groups (any leading dims) regrouped as ``b x a``:
+    group (i, j) moves to (j, i)."""
+    lead = x.shape[:-1]
+    return x.reshape(*lead, a, b, -1).transpose(-3, -2).reshape(*lead, -1)
+
+
+def exchange_hier(mesh, bflat, cap: int, host_schedule=None):
     """Two-stage all-to-all over a 2-D ``(host, chip)`` mesh: stage 1
     exchanges destination-chip groups within each host, so each shard
     gathers every co-hosted shard's traffic for its chip index; stage 2
@@ -111,33 +117,29 @@ def exchange_hier(mesh, bflat: torch.Tensor, cap: int,
     ``host_schedule`` (offsets over the hosts, from
     :func:`mesh.shuffle_order`), as collective-permute rounds.
 
-    ``bflat`` is the stacked ``(n, n*cap)`` bucket layout, bucket d for
-    flat shard d = h*C + c.  Returns the received stack, bit for bit the
-    flat exchange's: the run from source shard s at ``[s*cap, ...)``."""
+    ``bflat`` is the per-shard ``(n*cap,)`` bucket layout, bucket d for
+    flat shard d = h*C + c.  Returns the received per-shard value, bit for
+    bit the flat exchange's: the run from source shard s at ``[s*cap,
+    ...)``."""
     from .mesh import AXIS, HOST_AXIS
 
     H, C = mesh.hosts
-    n = mesh.n
-    x = bflat.reshape(n, H, C, cap)                 # [h_dest, c_dest]
     # stage 1: deliver destination-chip groups within the host
-    x = x.transpose(1, 2).reshape(n, -1)             # [c_dest, h_dest]
-    x = mesh.all_to_all(x, AXIS)                     # [c_src, h_dest]
-    x = x.reshape(n, C, H, cap).transpose(1, 2)      # [h_dest, c_src]
-    x = x.reshape(n, -1)
+    x = mesh.map(lambda r: _swap_groups(r, H, C), bflat)   # [c_dest, h_dest]
+    x = mesh.all_to_all(x, AXIS)                           # [c_src, h_dest]
+    x = mesh.map(lambda r: _swap_groups(r, C, H), x)       # [h_dest, c_src]
     # stage 2: deliver host groups
     if host_schedule is None:
-        return mesh.all_to_all(x, HOST_AXIS)         # [h_src, c_src]
-    me_h = torch.arange(n, device=x.device) // C
-    x3 = x.reshape(n, H, C * cap)
-    out = torch.zeros_like(x3)
+        return mesh.all_to_all(x, HOST_AXIS)               # [h_src, c_src]
+    out = mesh.zeros_like(x)
     for off in host_schedule:
         off = int(off)
-        piece = x3[torch.arange(n, device=x.device), (me_h + off) % H]
+        piece = mesh.rotated_blocks(x, C * cap, off, group=C)
         if off != 0:
             piece = mesh.ppermute(piece, [(h, (h + off) % H)
                                           for h in range(H)], HOST_AXIS)
-        out[torch.arange(n, device=x.device), (me_h - off) % H] = piece
-    return out.reshape(n, -1)
+        mesh.put_rotated_blocks(out, piece, C * cap, -off, group=C)
+    return out
 
 
 def pad_column(x, total: int, fill: int, device=None) -> torch.Tensor:

@@ -15,13 +15,14 @@ as a leaf that becomes readable chunk by chunk.
   a delivered prefix.  On a CUDA tensor it launches
   ``csrc/chunk_gated_merge.cu``; on a CPU tensor it takes the plain
   version :func:`chunk_gated_merge_plain`.
-* :func:`remote_pull_exchange_merge` (K11) runs both sides for real, on
-  the mesh of N shards on one device (``parallel/mesh.py``): each shard's
-  pushes are device-side copies into its peers' landing strips, each
-  arrival a flag in device memory, and each shard's merge waits for the
-  arrivals it reads.  On a CUDA mesh it launches ``csrc/remote_pull.cu``
-  once for all shards; on a CPU mesh it takes the plain version
-  :func:`remote_pull_exchange_merge_plain`.
+* :func:`remote_pull_exchange_merge` (K11) runs both sides for real on a
+  mesh of N shards (``parallel/mesh.py``): each shard's pushes are copies
+  into its peers' landing strips, peer writes over NVLink where a peer
+  lies on another card, each arrival a flag in the receiver's memory, and
+  each shard's merge waits for the arrivals it reads.  On a CUDA mesh it
+  launches ``csrc/remote_pull.cu`` once a card, for the shards that card
+  holds (once in all on a mesh of one card); on a CPU mesh it takes the
+  plain version :func:`remote_pull_exchange_merge_plain`.
 
 The host helpers are the JAX package's, line for line, with its
 ``max_entries=512`` in :func:`pick_chunk_elems`: it fixes the chunk size,
@@ -53,6 +54,12 @@ PULL_MAX_SHARDS = 256
 # K11's status words ahead of its flags (its kScratchHead): the ticket
 # counter (two words), the error and oversize words, the pushes done.
 _PULL_SCRATCH_HEAD = 5
+# K11's pointers a shard (its kTableWords, in its Slot order): buckets,
+# received counts, landing, merged column, waits, violation flag, arrival
+# flags, the card's control words.
+_PULL_TABLE_WORDS = 8
+# ordered pairs of cards (by index) with peer access enabled for K11
+_PEERS: set = set()
 
 
 def remote_dma_enabled() -> bool:
@@ -301,12 +308,30 @@ def _gated_launch(landing: torch.Tensor, lens: torch.Tensor, stride: int,
     return out, stats[:W], stats[W]
 
 
-def _checked_pull(mesh, bflat: torch.Tensor, recv_counts: torch.Tensor,
-                  cap: int, chunk_elems: int, window) -> int:
+def peer_pairs_missing(mesh) -> list:
+    """The ordered pairs of distinct cards of a CUDA mesh, by index, that
+    cannot reach each other's memory (``torch.cuda.can_device_access_peer``
+    false): K11's peer writes need every pair."""
+    cards = [c.index for c in mesh.cards if c.type == "cuda"]
+    return [(i, j) for i in cards for j in cards
+            if i != j and not torch.cuda.can_device_access_peer(i, j)]
+
+
+def _check_peers(mesh) -> None:
+    missing = peer_pairs_missing(mesh)
+    if missing:
+        i, j = missing[0]
+        raise ValueError(f"remote_pull_exchange_merge: cuda:{i} cannot "
+                         f"reach cuda:{j}'s memory (no peer access; pairs "
+                         f"{missing}): K11 pushes by peer writes")
+
+
+def _checked_pull(mesh, bflat, recv_counts, cap: int, chunk_elems: int,
+                  window) -> int:
     """Raise on what K11 does not take (the JAX wrapper's asserts,
-    remote_fifo.py:374-375, less its TPU tiling); return the send window
-    K = min(window, pushes a shard), ``window`` defaulting to
-    :func:`push_window`."""
+    remote_fifo.py:374-375, less its TPU tiling; a pair of the mesh's
+    cards without peer access); return the send window K = min(window,
+    pushes a shard), ``window`` defaulting to :func:`push_window`."""
     from .mesh import is_2d
 
     n = mesh.n
@@ -320,13 +345,9 @@ def _checked_pull(mesh, bflat: torch.Tensor, recv_counts: torch.Tensor,
     if cap < 1 or chunk_elems < 1 or cap % chunk_elems:
         raise ValueError(f"remote_pull_exchange_merge: strips of {cap} keys "
                          f"do not hold whole chunks of {chunk_elems}")
-    for name, t, shape in (("bflat", bflat, (n, n * cap)),
-                           ("recv_counts", recv_counts, (n, n))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != mesh.device:
-            raise ValueError(f"remote_pull_exchange_merge: {name} must be "
-                             f"a contiguous int32{list(shape)} on "
-                             f"{mesh.device}")
+    mesh.check_rows(bflat, "remote_pull_exchange_merge: bflat", n * cap)
+    mesh.check_rows(recv_counts, "remote_pull_exchange_merge: recv_counts", n)
+    _check_peers(mesh)
     if window is None:
         window = push_window()
     if int(window) < 1:
@@ -340,95 +361,161 @@ def _oversize(cap: int) -> ValueError:
                       "(never clamped)")
 
 
-def remote_pull_exchange_merge_plain(mesh, bflat: torch.Tensor,
-                                     recv_counts: torch.Tensor, cap: int,
+def remote_pull_exchange_merge_plain(mesh, bflat, recv_counts, cap: int,
                                      chunk_elems: int, window=None):
     """Plain version of K11: every shard's pushes, full chunks in the JAX
     kernel's order (:func:`push_schedule` over whole strips), copied into
-    a landing buffer one after another, so the send window changes
+    the landing strips one after another, so the send window changes
     nothing; then each shard's strips merged by
     :func:`chunk_gated_merge_plain` with every chunk delivered at round 0,
-    which reports ``chunks_needed`` per strip and a zero flag."""
+    which reports ``chunks_needed`` per strip and a zero flag.  Takes and
+    returns per-shard values of either mesh layout."""
     _checked_pull(mesh, bflat, recv_counts, cap, chunk_elems, window)
-    if bool(((recv_counts < 0) | (recv_counts > cap)).any()):
+    if any(mesh.tolist(mesh.map(
+            lambda c: ((c < 0) | (c > cap)).any(-1), recv_counts))):
         raise _oversize(cap)
     n = mesh.n
-    landing = torch.empty_like(bflat)
+    landing = mesh.empty_like(bflat)
     for me in range(n):
         for p in push_schedule(n, me, [cap] * n, chunk_elems):
-            landing[p.dst, me * cap + p.start:me * cap + p.start + p.size] = \
-                bflat[me, p.dst * cap + p.start:p.dst * cap + p.start + p.size]
+            at = me * cap + p.start
+            landing[p.dst][at:at + p.size].copy_(
+                bflat[me][p.dst * cap + p.start:
+                          p.dst * cap + p.start + p.size])
     arrive = np.zeros((n, cap // chunk_elems), np.int32)
     out = [chunk_gated_merge_plain(landing[d], recv_counts[d], cap,
                                    chunk_elems, arrive) for d in range(n)]
-    return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]),
-            torch.stack([o[2] for o in out]), landing)
+    return (mesh.stack(o[0] for o in out), mesh.stack(o[1] for o in out),
+            mesh.stack(o[2] for o in out), landing)
 
 
-def remote_pull_exchange_merge(mesh, bflat: torch.Tensor,
-                               recv_counts: torch.Tensor, cap: int,
+def remote_pull_exchange_merge(mesh, bflat, recv_counts, cap: int,
                                chunk_elems: int, window=None):
     """The remote pull of one relation over a flat mesh of n shards (n a
     power of two >= 2): every shard pushes its n buckets, chunk by chunk,
     into its peers' landing strips while every shard merges its strips as
-    they arrive.
+    they arrive.  Arguments and results are per-shard values of the mesh
+    (``parallel/mesh.py``: stacks on a one-device mesh, one tensor a shard
+    otherwise).
 
-    ``bflat``       -- ``(n, n*cap)`` int32, bucket d of shard me at
-                       ``[me, d*cap:(d+1)*cap]`` (the ``dist_mway._cut_all``
-                       layout), pads past each bucket's count.
-    ``recv_counts`` -- ``(n, n)`` int32: shard d's strip r holds
-                       ``recv_counts[d, r]`` live keys (the counts after
+    ``bflat``       -- ``(n*cap,)`` int32 a shard, bucket d of shard me at
+                       ``bflat[me][d*cap:(d+1)*cap]`` (the
+                       ``dist_mway._cut_all`` layout), pads past each
+                       bucket's count.
+    ``recv_counts`` -- ``(n,)`` int32 a shard: shard d's strip r holds
+                       ``recv_counts[d][r]`` live keys (the counts after
                        their small all-to-all); a count outside [0, cap]
                        raises (the JAX test plan's step 5), never clamps.
     ``window``      -- pushes in flight per shard: push i of a shard waits
                        for its push i - K (``SMJ_REMOTE_WINDOW`` by
                        default, :func:`push_window`).
-    Returns ``(merged, waited, violation, landing)``, stacked per shard:
-    the merged columns ``(n, n*cap)`` (INT32_MAX past each live total),
-    the chunks each shard's reader waited for per strip ``(n, n)``
-    (ceil(count / chunk_elems), the JAX ``expected_sem_waits``), a flag
-    per shard ``(n,)`` that is set if a merge read past what it waited
-    for, and the landing ``(n, n*cap)``: the all-to-all of the buckets.
-    On a CUDA mesh it launches K11 once and reads two status words back
-    (the one host sync of the call); on a CPU mesh it takes the plain
-    version."""
-    if bflat.device.type == "cpu":
+    Returns ``(merged, waited, violation, landing)``, a shard each: the
+    merged column ``(n*cap,)`` (INT32_MAX past its live total), the chunks
+    its reader waited for per strip ``(n,)`` (ceil(count / chunk_elems),
+    the JAX ``expected_sem_waits``), a flag that is set if its merge read
+    past what it waited for, and its landing ``(n*cap,)``: the all-to-all
+    of the buckets.  On a CUDA mesh it launches K11 once a card and reads
+    two status words a card back after the last launch (the one host sync
+    of the call); a pair of cards without peer access raises
+    ``ValueError``; on a CPU mesh it takes the plain version."""
+    if mesh.device.type == "cpu":
         return remote_pull_exchange_merge_plain(mesh, bflat, recv_counts,
                                                 cap, chunk_elems, window)
     K = _checked_pull(mesh, bflat, recv_counts, cap, chunk_elems, window)
     return _pull_launch(mesh, bflat, recv_counts, cap, chunk_elems, K)
 
 
-def _pull_launch(mesh, bflat: torch.Tensor, recv_counts: torch.Tensor,
-                 cap: int, chunk_elems: int, window: int, landing=None):
-    """One K11 launch on checked inputs.  With ``landing`` (a full
-    launch's) no push runs and every arrival flag is set before the
-    launch, so the launch times the gated merge alone; the result is the
-    full launch's."""
+def _enable_peers(cards: list) -> None:
+    """Peer access for every ordered pair of ``cards``: first through a
+    one-word copy each way, which enables it in PyTorch's caching allocator
+    too (so that memory it maps later stays reachable), then by the
+    library, which takes access already enabled as done."""
+    from ..kernels import _build
+
+    for a in cards:
+        for b in cards:
+            if a != b and (a.index, b.index) not in _PEERS:
+                torch.zeros(1, device=b).copy_(torch.zeros(1, device=a))
+                _build.check("smj_enable_peer_access", _build.library()
+                             .smj_enable_peer_access(a.index, b.index))
+                _PEERS.add((a.index, b.index))
+
+
+def _join_streams(cards: list) -> None:
+    """Order each card's current stream after the work queued so far on
+    every other card's."""
+    events = []
+    for c in cards:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(c))
+        events.append(ev)
+    for c in cards:
+        stream = torch.cuda.current_stream(c)
+        for o, ev in zip(cards, events):
+            if o != c:
+                stream.wait_event(ev)
+
+
+def _pull_launch(mesh, bflat, recv_counts, cap: int, chunk_elems: int,
+                 window: int, landing=None):
+    """K11 on checked inputs: one launch a card, every card's launch
+    ordered after the work queued on every card and issued before any
+    host read, and every card's later work ordered after every launch (a
+    card's pushes write the other cards' landings and flags).  With
+    ``landing`` (a full launch's) no push runs and every arrival flag is
+    set before the launch, so the launch times the gated merge alone; the
+    result is the full launch's."""
     from ..kernels import _build
 
     global PULL_LAUNCHES
-    n = mesh.n
-    dev = bflat.device
+    n, chunks = mesh.n, cap // chunk_elems
     merge_only = landing is not None
     if not merge_only:
-        landing = torch.empty_like(bflat)
-    merged = torch.empty_like(bflat)
-    stats = torch.empty(n * n + n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(_PULL_SCRATCH_HEAD + n * n * (cap // chunk_elems),
-                          dtype=torch.int32, device=dev)
-    with _build.launching_on(bflat) as stream:
-        code = _build.library().smj_remote_pull(
-            bflat.data_ptr(), recv_counts.data_ptr(), landing.data_ptr(),
-            merged.data_ptr(), stats.data_ptr(), scratch.data_ptr(), cap,
-            chunk_elems, n, window, int(merge_only), stream)
-    _build.check("smj_remote_pull", code)
-    PULL_LAUNCHES += 1
-    error, oversize = scratch[2:4].tolist()
-    if error:
+        landing = mesh.empty_like(bflat)
+    merged = mesh.empty_like(bflat)
+    cards = mesh.cards
+    local = {c: [me for me in range(n) if mesh.device_of(me) == c]
+             for c in cards}
+    # each card's control words, then the flags of its shards as receivers
+    scratch = {c: torch.zeros(_PULL_SCRATCH_HEAD + len(local[c]) * n * chunks,
+                              dtype=torch.int32, device=c) for c in cards}
+    if merge_only:
+        for s in scratch.values():
+            s[_PULL_SCRATCH_HEAD:] = 1
+    stats = mesh.full((n + 1,), 0)  # a shard's waits, then its flag
+    waited = mesh.map(lambda s: s[..., :n], stats)
+    viol = mesh.map(lambda s: s[..., n], stats)
+    # the table's rows in K11's Slot order: each shard's buffers, its
+    # flags (its block of its card's scratch) and its card's control words
+    table = np.empty((n, _PULL_TABLE_WORDS), np.int64)
+    for k, x in enumerate((bflat, recv_counts, landing, merged, waited,
+                           viol)):
+        table[:, k] = mesh.row_ptrs(x)
+    for me in range(n):
+        c = mesh.device_of(me)
+        table[me, 7] = scratch[c].data_ptr()
+        table[me, 6] = table[me, 7] + 4 * (_PULL_SCRATCH_HEAD + local[c]
+                                           .index(me) * n * chunks)
+    tables = {c: torch.from_numpy(np.concatenate(
+        [table.reshape(-1), np.asarray(local[c], np.int64)])).to(c)
+        for c in cards}
+    if len(cards) > 1:
+        _enable_peers(cards)
+        _join_streams(cards)
+    for c in cards:
+        with _build.launching_on(scratch[c]) as stream:
+            code = _build.library().smj_remote_pull(
+                tables[c].data_ptr(), scratch[c].data_ptr(), len(local[c]),
+                cap, chunk_elems, n, window, int(merge_only), stream)
+        _build.check("smj_remote_pull", code)
+        PULL_LAUNCHES += 1
+    if len(cards) > 1:
+        _join_streams(cards)
+    status = [scratch[c][2:4].tolist() for c in cards]
+    if any(error for error, _ in status):
         raise RuntimeError("remote_pull_exchange_merge: a wait for an "
                            "arrival saw no push land for 1 s: K11 is "
                            "broken")
-    if oversize:
+    if any(oversize for _, oversize in status):
         raise _oversize(cap)
-    return merged, stats[:n * n].view(n, n), stats[n * n:], landing
+    return merged, waited, viol, landing

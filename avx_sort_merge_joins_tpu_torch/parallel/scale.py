@@ -3,8 +3,8 @@ the host (counterpart of ``avx_sort_merge_joins_tpu/parallel/scale.py``;
 reference: scripts/tput-scalability.sh:15-16, the R = S = 1.6·10⁹
 workload).
 
-Each shard's columns are made on the mesh's device, one shard at a time,
-and go to the distributed m-way join through its ``pre_sharded`` input
+Each shard's columns are made on its device, one shard at a time, and go
+to the distributed m-way join through its ``pre_sharded`` input
 (``parallel/dist_mway.py``).  The host holds scalars and, under skew, the
 quantile table of the Zipf CDF (2^20 entries).
 
@@ -18,7 +18,7 @@ shuffled workload.  |R| and |S| must divide by the shard count
 
 S differs from the JAX package's.  The JAX tier draws each shard's S with
 threefry (``jax.random.randint(fold_in(PRNGKey(s_seed), me), ...)``); the
-port draws it from a ``torch.Generator`` on the mesh's device, seeded from
+port draws it from a ``torch.Generator`` on the shard's device, seeded from
 ``(s_seed, me)``.  R is the same array in both packages; the S arrays are
 not, and the counts agree (both are |S|: every foreign key matches one
 unique R key).  A generator seeded alike gives different streams on the
@@ -86,12 +86,13 @@ def _shard_seed(s_seed: int, me: int) -> int:
 def make_workload_a_sharded(n_r: int, n_s: int, mesh: Mesh, seed: int = 42,
                             skew: float = 0.0,
                             s_seed: Optional[int] = None):
-    """Per-shard generation of the pk-fk workload on the mesh's device:
-    uniform foreign keys, or Zipf(z = ``skew``) ones drawn through
+    """Per-shard generation of the pk-fk workload, each shard on its
+    device: uniform foreign keys, or Zipf(z = ``skew``) ones drawn through
     :func:`_zipf_quantile_lut`.
 
-    Returns ``(rk, sk)``, ``(mesh.n, shard)`` int32 tensors on
-    ``mesh.device``, for ``dist_mway_join_count(..., pre_sharded=True)``.
+    Returns ``(rk, sk)``, per-shard values of the mesh of ``(shard,)``
+    int32 rows (``(mesh.n, shard)`` tensors on a one-device mesh), for
+    ``dist_mway_join_count(..., pre_sharded=True)``.
     R is ``me + 1 + n * j`` (no randomness, the JAX arrays exactly); S
     follows ``s_seed`` (``-y``), or ``seed`` when it is None, as the
     reference seeds its relations apart."""
@@ -102,19 +103,23 @@ def make_workload_a_sharded(n_r: int, n_s: int, mesh: Mesh, seed: int = 42,
     shard_r, shard_s = n_r // n, n_s // n
     if s_seed is None:
         s_seed = seed
-    dev = mesh.device
     lut = None
     if skew > 0:
         t0 = time.perf_counter()
         lut = torch.from_numpy(_zipf_quantile_lut(n_r, skew).astype(
-            np.int32)).to(dev)
+            np.int32))
         info(f"Zipf quantile table of {n_r} keys, z={skew}: "
              f"{time.perf_counter() - t0:.3f} s on the host")
-    rk = torch.empty((n, shard_r), dtype=torch.int32, device=dev)
-    sk = torch.empty((n, shard_s), dtype=torch.int32, device=dev)
-    j = torch.arange(shard_r, dtype=torch.int32, device=dev) * n
+    rk = mesh.empty((shard_r,))
+    sk = mesh.empty((shard_s,))
+    j, luts = {}, {}  # a copy a device
     for me in range(n):
-        torch.add(j, me + 1, out=rk[me])
+        dev = mesh.device_of(me)
+        if dev not in j:
+            j[dev] = torch.arange(shard_r, dtype=torch.int32,
+                                  device=dev) * n
+            luts[dev] = None if lut is None else lut.to(dev)
+        torch.add(j[dev], me + 1, out=rk[me])
         gen = torch.Generator(device=dev).manual_seed(_shard_seed(s_seed, me))
         if lut is None:
             torch.randint(1, n_r + 1, (shard_s,), generator=gen,
@@ -122,7 +127,7 @@ def make_workload_a_sharded(n_r: int, n_s: int, mesh: Mesh, seed: int = 42,
         else:
             u = torch.randint(0, ZIPF_QUANTILE_BINS, (shard_s,),
                               generator=gen, dtype=torch.int32, device=dev)
-            torch.index_select(lut, 0, u, out=sk[me])
+            torch.index_select(luts[dev], 0, u, out=sk[me])
             del u
     return rk, sk
 

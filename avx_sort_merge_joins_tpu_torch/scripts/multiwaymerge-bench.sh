@@ -6,6 +6,8 @@
 set -u
 # run from anywhere: put the repo root on PYTHONPATH
 export PYTHONPATH="$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd):${PYTHONPATH:-}"
+# the port's allocator default (types.ALLOC_CONF_DEFAULT)
+export PYTORCH_CUDA_ALLOC_CONF="${PYTORCH_CUDA_ALLOC_CONF:-expandable_segments:True}"
 TOTALS=${TOTALS:-"4194304 8388608 16777216"}
 FANINS=${FANINS:-"4 8 16 32 64"}
 OUT=${OUT:-multiwaymerge-bench.txt}

@@ -6,6 +6,8 @@
 set -u
 # run from anywhere: put the repo root on PYTHONPATH
 export PYTHONPATH="$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd):${PYTHONPATH:-}"
+# the port's allocator default (types.ALLOC_CONF_DEFAULT)
+export PYTORCH_CUDA_ALLOC_CONF="${PYTORCH_CUDA_ALLOC_CONF:-expandable_segments:True}"
 N=${N:-8388608}
 BITS=${BITS:-"2 4 6 8 10 12 14 16"}
 OUT=${OUT:-partitioning-bench.txt}

@@ -424,4 +424,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from ..types import default_alloc_conf
+
+    default_alloc_conf()  # before the first CUDA call
     sys.exit(main())

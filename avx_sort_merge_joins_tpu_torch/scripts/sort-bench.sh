@@ -7,6 +7,8 @@
 set -u
 # run from anywhere: put the repo root on PYTHONPATH
 export PYTHONPATH="$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd):${PYTHONPATH:-}"
+# the port's allocator default (types.ALLOC_CONF_DEFAULT)
+export PYTORCH_CUDA_ALLOC_CONF="${PYTORCH_CUDA_ALLOC_CONF:-expandable_segments:True}"
 SIZES=${SIZES:-"1 2 4 8 16 32 64 128 256"}
 VARIANTS=${VARIANTS:-"pairwise multiway keysonly torch"}
 OUT=${OUT:-sort-bench.txt}

@@ -13,6 +13,8 @@
 set -u
 # run from anywhere: put the repo root on PYTHONPATH
 export PYTHONPATH="$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd):${PYTHONPATH:-}"
+# the port's allocator default (types.ALLOC_CONF_DEFAULT)
+export PYTORCH_CUDA_ALLOC_CONF="${PYTORCH_CUDA_ALLOC_CONF:-expandable_segments:True}"
 NR=${NR:-134217728}
 NS=${NS:-$NR}
 REPS=${REPS:-3}

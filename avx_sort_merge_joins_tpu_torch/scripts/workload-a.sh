@@ -17,6 +17,8 @@
 #   DEVICE=cpu .../workload-a.sh --devices 8 --ntuples 400000 \
 #     --scale-min 100000
 set -u
+# the port's allocator default (types.ALLOC_CONF_DEFAULT)
+export PYTORCH_CUDA_ALLOC_CONF="${PYTORCH_CUDA_ALLOC_CONF:-expandable_segments:True}"
 DEVICES=8
 NTUPLES=1600000000
 SKEW=0

@@ -10,6 +10,7 @@ INT32_MAX (keys) and 0 (payloads).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -17,6 +18,20 @@ import torch
 
 # int32 max sorts after every real key (keys lie in [-2^31+2, 2^31-2])
 from .ops.bitonic import KEY_POS_INF as KEY_SENTINEL
+
+
+# The caching allocator's setting the entry points (the CLI, the results
+# grid, rerun_cells and the script twins) install unless the caller set
+# PYTORCH_CUDA_ALLOC_CONF: expandable segments, with which the scalesize
+# row of 60 x 32 Mi keys a side fits the 80 GB card (the default leaves
+# blocks it holds but cannot reuse), at no cost on the grid's cells.
+ALLOC_CONF_DEFAULT = "expandable_segments:True"
+
+
+def default_alloc_conf() -> None:
+    """Install :data:`ALLOC_CONF_DEFAULT` unless ``PYTORCH_CUDA_ALLOC_CONF``
+    is set.  It takes effect only before the process's first CUDA call."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF_DEFAULT)
 
 
 def default_device() -> torch.device:

@@ -171,7 +171,19 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    at 128M x 128M (count 128,000,000, K11 launched twice, K9 never, waits
    ceil(len / 81,920), no flag); at 16M with ``-z 1.0`` against the
    torch.sort baseline; at 16M with SMJ_REMOTE_WINDOW 4, 8, 32 and every
-   push in flight.
+   push in flight.  Then the mesh of cards: ``torch.cuda.device_count()``
+   and ``can_device_access_peer`` of every pair; the 128M x 128M join
+   over 8 shards through the device-a-shard layout (``make_mesh(8,
+   devices=[cuda:0] * 8)``) on the bulk, ``-S RING``, emulate (K9) and
+   dma (K11, one launch a card) routes, each exact, equal to the
+   one-device mesh's count and timed beside it, with the launch counts
+   set to 0 just before each run and read just after; K11's per-card
+   launch on that join's buckets against its plain version and the
+   one-device launch, exact, timed beside it; ``-n 8 --mapping-file`` on
+   a file of eight 0s through the CLI (``Results = 128000000``); on a
+   machine with two or more cards the join and the K11 check again with
+   shard me on cuda:(me mod count) (or, for a pair without peer access,
+   dma's refusal), and on one card a line that says they did not run.
 22. The distributed m-pass, mpsm and materializing joins over 8 shards,
    each with the launch counts set to 0 just before it and read just
    after: ``-n 8 -a m-pass``, ``-n 8 -a mpsm`` and ``-n 8 --materialize``
@@ -236,7 +248,7 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 Each phase's wall time is printed as a ``[phase]`` line.  The line before
 the last is one JSON object with each kernel's launches
 over the runs of phases 6, 7, 9, 13-15, 18, 21-23, 25-26 and 27-28, its
-largest error in phases 3-5, 8, 11-12, 17, 20, 24 and 27, its times, its
+largest error in phases 3-5, 8, 11-12, 17, 20-21, 24 and 27, its times, its
 bound and its library yardstick's time; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -295,8 +307,8 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
            "parallel/remote_fifo.py:181"),
     "K10": ("K10 merge_join_count2", "merge_join_count.cu",
             "ops/mergejoin.py:533"),
-    "K11": ("K11 remote_pull", "remote_pull.cu",
-            "parallel/remote_fifo.py:272"),
+    "K11": ("K11 remote_pull (a launch a card; NVLink peer writes across "
+            "cards)", "remote_pull.cu", "parallel/remote_fifo.py:272"),
 }
 PATHS = {  # join path -> (CLI flags, kernels it must launch)
     "m-way": (["-a", "m-way"], ("K1", "K2", "K3")),
@@ -2089,7 +2101,7 @@ def dist_landings(dev: torch.device):
     bounds = dm._equidepth_bounds(mesh, *sorted_, nv, nv)
     out, buckets = [], []
     for ks in sorted_:
-        bflat, _, counts, _ = dm._cut_all(ks, nv, bounds, cap)
+        bflat, _, counts, _ = dm._cut_all(mesh, ks, nv, bounds, cap)
         recv = mesh.all_to_all(bflat)
         counts = mesh.all_to_all(counts)
         out.append((recv[0].clone(), counts[0].clone()))
@@ -2831,6 +2843,176 @@ def phase_dist_dma(dev: torch.device) -> dict[str, int]:
     return total
 
 
+MESH_ROUTES = {  # route of the 128M -n 8 join -> dist_mway_join_count kwargs
+    "bulk": {},
+    "-S RING": {"numa_strategy": "RING"},
+    "emulate": {"remote_pull": "emulate"},
+    "dma": {"remote_pull": "dma"},
+}
+MESH_ROUTE_KERNELS = {"bulk": ("K1", "K2", "K3"), "-S RING": ("K1", "K2", "K3"),
+                      "emulate": ("K1", "K2", "K3", "K9"),
+                      "dma": ("K1", "K2", "K3", "K11")}
+
+
+def mesh_join_ms(R, S, mesh, kw: dict) -> tuple[int, float]:
+    """One warm run of the 128M -n 8 m-way join on ``mesh``, then one timed
+    on the host clock (staging included, a sync after): (count, ms)."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+
+    dm.dist_mway_join_count(R.keys, S.keys, MAIN_N, MAIN_N, mesh, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count, ov = dm.dist_mway_join_count(R.keys, S.keys, MAIN_N, MAIN_N, mesh,
+                                        **kw)
+    torch.cuda.synchronize()
+    if ov != 0:
+        raise AssertionError(f"mesh join {kw}: overflow {ov}")
+    return count, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_routes(R, S, devices: list, label: str,
+                routes=tuple(MESH_ROUTES)) -> dict[str, int]:
+    """The 128M -n 8 join on each route of ``MESH_ROUTES`` through the
+    device-a-shard layout on ``devices``, beside the one-device mesh of
+    cuda:0: both exact; the per-shard run's launches (counts set to 0 just
+    before it, read just after) returned, summed over the routes."""
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    one = make_mesh(DIST_SHARDS, torch.device("cuda", 0))
+    cards = make_mesh(DIST_SHARDS, devices=devices)
+    total = {}
+    for route in routes:
+        kw = MESH_ROUTES[route]
+        want, one_ms = mesh_join_ms(R, S, one, kw)
+        reset_launches()
+        got, ms = mesh_join_ms(R, S, cards, kw)
+        counts = launches()
+        log(f"[mesh] {label} {route}: count {got} in {ms:.3f} ms (one-device "
+            f"mesh: {want} in {one_ms:.3f} ms); launches of the two runs "
+            f"{counts}")
+        if got != want or got != MAIN_N:
+            raise AssertionError(f"mesh {label} {route}: {got} != {want}")
+        check_launched(f"mesh {label} {route}", counts,
+                       MESH_ROUTE_KERNELS[route])
+        if route == "dma" and counts["K11"] != 4 * len(cards.cards):
+            raise AssertionError(f"mesh {label} dma: K11 {counts['K11']}, "
+                                 f"want 2 launches a card a run")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_pull_cards(buckets, cap: int, devices: list, label: str) -> None:
+    """K11's per-card launch on the 128M join's buckets (the dist dma
+    phase's shape), shard me's rows on ``devices[me]``: equal to its plain
+    version and to the one-device launch, shard for shard, and timed beside
+    the one-device launch."""
+    from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    W = DIST_SHARDS
+    one = make_mesh(W, torch.device("cuda", 0))
+    cards = make_mesh(W, devices=devices)
+    chunk = rf.pick_chunk_elems(cap, dm.TILE_ELEMS, W)
+    e = 0
+    for side, (bflat, rcounts) in zip("RS", buckets):
+        rows = [bflat[me].to(devices[me]) for me in range(W)]
+        rc = [rcounts[me].to(devices[me]) for me in range(W)]
+        want = rf.remote_pull_exchange_merge(one, bflat, rcounts, cap, chunk)
+        got = rf.remote_pull_exchange_merge(cards, rows, rc, cap, chunk)
+        plain = rf.remote_pull_exchange_merge_plain(cards, rows, rc, cap,
+                                                    chunk)
+        for name, a, b, c in zip(("merged", "waited", "violation",
+                                  "landing"), got, plain, want):
+            for me in range(W):
+                e = max(e, max_abs_err(a[me], b[me]),
+                        max_abs_err(a[me].to("cuda:0"), c[me]))
+                if not (torch.equal(a[me], b[me])
+                        and torch.equal(a[me].to("cuda:0"), c[me])):
+                    raise AssertionError(f"K11 {label} {side} shard {me} "
+                                         f"{name}: per-card launch != plain "
+                                         "or one-device launch")
+        del want, got, plain
+        ms = time_ms(lambda: rf.remote_pull_exchange_merge(cards, rows, rc,
+                                                           cap, chunk))
+        one_ms = time_ms(lambda: rf.remote_pull_exchange_merge(
+            one, bflat, rcounts, cap, chunk))
+        log(f"[mesh] K11 {label} {side} ({W} x {W} strips of {cap}, chunk "
+            f"{chunk}, {len(cards.cards)} launch(es)): equal to its plain "
+            f"version and to the one-device launch (max_abs_err {e}); "
+            f"{ms:.3f} ms against {one_ms:.3f} ms for one launch on the "
+            "one-device mesh")
+    ERR["K11"] = max(ERR["K11"], e)
+
+
+def phase_mesh_cards(dev: torch.device) -> dict[str, int]:
+    """The mesh of cards: the card count and the peer-access matrix; the
+    128M -n 8 join through the device-a-shard layout with all eight shards
+    on cuda:0 (bulk, -S RING, emulate, dma), each exact and equal to the
+    one-device mesh's; K11's per-card launch against its plain version at
+    the dist dma phase's shape; the CLI with --mapping-file on a file of
+    eight 0s; where the machine has two or more cards, the join and the
+    K11 check again with shard me on cuda:(me mod count)."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as rf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+             for i in range(count) for j in range(count) if i != j}
+    log(f"[mesh] torch.cuda.device_count() = {count}; "
+        f"can_device_access_peer: {peers or 'no pair (one card)'}")
+    R, S = dist_relations(MAIN_N, dev)
+    on_one = [dev] * DIST_SHARDS
+    total = mesh_routes(R, S, on_one, "8 shards on cuda:0")
+    del R, S
+    _, cap, _, buckets = dist_landings(dev)
+    check_pull_cards(buckets, cap, on_one, "8 shards on cuda:0")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mapping.txt")
+        with open(path, "w") as f:
+            f.write(f"{DIST_SHARDS} {' '.join(['0'] * DIST_SHARDS)}\n")
+        argv = ["-a", "m-way", "-n", str(DIST_SHARDS), "-r", str(MAIN_N),
+                "-s", str(MAIN_N), "--mapping-file", path]
+        reset_launches()
+        rc, stdout = run_cli(argv)
+        torch.cuda.synchronize()
+        counts = launches()
+    log(f"[mesh] cli.main({argv[:-1]} <{DIST_SHARDS} 0s>) -> rc {rc}, "
+        f"launches {counts}")
+    if rc != 0 or results_of(stdout) != MAIN_N:
+        raise AssertionError(f"--mapping-file: rc {rc}, {stdout!r}")
+    check_launched("--mapping-file", counts, ("K1", "K2", "K3"))
+    for k, v in counts.items():
+        total[k] += v
+    if count < 2:
+        log("[mesh] the cross-card legs did not run: this machine has one "
+            "card, and they need a second")
+        return total
+    spread = [torch.device("cuda", me % count) for me in range(DIST_SHARDS)]
+    label = f"8 shards over {count} cards"
+    mesh = make_mesh(DIST_SHARDS, devices=spread)
+    missing = rf.peer_pairs_missing(mesh)
+    R, S = dist_relations(MAIN_N, dev)
+    routes = [r for r in MESH_ROUTES if not (missing and r == "dma")]
+    for k, v in mesh_routes(R, S, spread, label, routes).items():
+        total[k] += v
+    if missing:  # K11 pushes by peer writes: it refuses, never reroutes
+        from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
+        try:
+            dm.dist_mway_join_count(R.keys, S.keys, MAIN_N, MAIN_N, mesh,
+                                    remote_pull="dma")
+        except ValueError as e:
+            log(f"[mesh] {label}: pairs without peer access {missing}; dma "
+                f"refuses: {e}")
+        else:
+            raise AssertionError(f"dma ran without peer access {missing}")
+    del R, S
+    if not missing:
+        check_pull_cards(buckets, cap, spread, label)
+    return total
+
+
 def phase_dist_small(dev: torch.device) -> dict[str, int]:
     """At 16M x 16M: a 2 x 4 ``make_mesh2d`` run and ``overlap=True`` on 8
     shards (counted), and ``dist_join_count`` against the torch.sort
@@ -3061,7 +3243,7 @@ def phase_scale_kernels(dev: torch.device) -> None:
     bounds = dm._equidepth_bounds(mesh, *sorted_, nv, nv)
     merged = []
     for name, ks in zip("RS", sorted_):
-        bflat, _, counts, ov = dm._cut_all(ks, nv, bounds, cap)
+        bflat, _, counts, ov = dm._cut_all(mesh, ks, nv, bounds, cap)
         recv, rcounts = mesh.all_to_all(bflat), mesh.all_to_all(counts)
         del bflat
         land, lens = recv[0].clone(), rcounts[0].clone()
@@ -3470,6 +3652,7 @@ def main() -> int:
              DIST_SMALL_N),
             ("dist emulate", phase_dist_emulate, dev),
             ("dist dma", phase_dist_dma, dev),
+            ("mesh of cards", phase_mesh_cards, dev),
             ("dist small", phase_dist_small, dev),
             ("-n 8 -z 1.0", phase_dist_cli, "m-way", ["-z", "1.0"],
              DIST_SMALL_N),

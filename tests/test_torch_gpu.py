@@ -1575,3 +1575,154 @@ def test_run_past_the_card_exits_1(cuda, capsys):
     assert rc == 1 and "Results" not in out
     assert "[ERROR] out of device memory at -r 1000 -s 30000000000 -n 1:" \
         in err
+
+
+# ------------------------------------------------------- mesh of cards --
+
+def _cards(cuda, spread):
+    """Eight shard devices: all cuda:0, or shard me on cuda:(me mod
+    count); skips the spread case on a machine of one card."""
+    count = torch.cuda.device_count()
+    if spread and count < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", me % count if spread else 0)
+            for me in range(8)]
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("case", ["uniform", "empty", "hot"])
+def test_remote_pull_per_card_launch_equals_plain(cuda, spread, case):
+    """K11 on a mesh of one device a shard: one launch a card, every
+    result shard for shard equal to its plain version and to the
+    one-device launch on the same buckets, at windows 1 and every push in
+    flight."""
+    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import make_mesh
+
+    devices = _cards(cuda, spread)
+    n, cap, chunk = 8, 8192, 1024
+    one, cards = make_mesh(n, cuda), make_mesh(n, devices=devices)
+    bflat, counts = _buckets(n, cap, case, 77)
+    bflat, counts = bflat.to(cuda), counts.to(cuda)
+    rcounts = one.all_to_all(counts)
+    rows = [bflat[me].to(devices[me]) for me in range(n)]
+    rc = [rcounts[me].to(devices[me]) for me in range(n)]
+    want = trf.remote_pull_exchange_merge(one, bflat, rcounts, cap, chunk)
+    plain = trf.remote_pull_exchange_merge_plain(cards, rows, rc, cap, chunk)
+    for window in (1, n * cap // chunk):
+        before = trf.PULL_LAUNCHES
+        got = trf.remote_pull_exchange_merge(cards, rows, rc, cap, chunk,
+                                             window=window)
+        torch.cuda.synchronize()
+        assert trf.PULL_LAUNCHES == before + len(cards.cards)
+        for g, p, w in zip(got, plain, want):
+            for me in range(n):
+                assert g[me].device == devices[me]
+                assert torch.equal(g[me], p[me]), (window, me)
+                assert torch.equal(g[me].to(cuda), w[me]), (window, me)
+
+
+MESH_ROUTES = ["bulk", "RING", "RANDOM", "2-D", "overlap", "emulate", "dma",
+               "dist_join", "m-pass", "mpsm", "materialize"]
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("route", MESH_ROUTES)
+def test_route_on_a_mesh_of_cards(cuda, route, spread):
+    """Each distributed route at 1M x 1M (unique R, foreign-key S) on a
+    mesh of one device a shard: the count is |S| and the one-device
+    mesh's; the materializing join's rows equal the one-device mesh's as a
+    multiset."""
+    from avx_sort_merge_joins_tpu_torch.parallel import (dist_join,
+                                                         dist_materialize,
+                                                         dist_mpass,
+                                                         dist_mpsm,
+                                                         dist_mway)
+    from avx_sort_merge_joins_tpu_torch.parallel.mesh import (make_mesh,
+                                                              make_mesh2d)
+
+    devices = _cards(cuda, spread)
+    n = 1_000_000
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rk = (torch.randperm(n, generator=gen, device=cuda) + 1).to(torch.int32)
+    sk = torch.randint(1, n + 1, (n,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    sp = torch.arange(n, dtype=torch.int32, device=cuda)
+    if route == "2-D":
+        one, cards = make_mesh2d(2, 4, cuda), make_mesh2d(2, 4,
+                                                          devices=devices)
+    else:
+        one, cards = make_mesh(8, cuda), make_mesh(8, devices=devices)
+
+    def run(mesh):
+        if route == "dist_join":
+            return dist_join.dist_join_count(rk, sp, sk, sp, n, n, mesh)
+        if route == "m-pass":
+            return dist_mpass.dist_mpass_join_count(rk, sk, n, n, mesh)
+        if route == "mpsm":
+            return dist_mpsm.dist_mpsm_join_count(rk, sk, n, n, mesh)
+        if route == "materialize":
+            k, p, cnt, ov = dist_materialize.dist_join_materialize(
+                rk, None, sk, sp, n, n, mesh)
+            assert k.device == mesh.device and len(k) == cnt
+            return torch.sort(tsort.pack_pairs(k, p)).values, ov
+        kw = {"RING": {"numa_strategy": "RING"},
+              "RANDOM": {"numa_strategy": "RANDOM"},
+              "overlap": {"overlap": True},
+              "emulate": {"remote_pull": "emulate"},
+              "dma": {"remote_pull": "dma"}}.get(route, {})
+        return dist_mway.dist_mway_join_count(rk, sk, n, n, mesh, **kw)
+
+    got, ov = run(cards)
+    want, ov1 = run(one)
+    torch.cuda.synchronize()
+    assert ov == ov1 == 0
+    if route == "materialize":
+        assert torch.equal(got.to(cuda), want) and len(got) == n
+    else:
+        assert got == want == n
+
+
+def test_cli_mapping_file_id_past_the_cards_exits_2(cuda, tmp_path, capsys):
+    from avx_sort_merge_joins_tpu_torch import cli as tcli
+
+    count = torch.cuda.device_count()
+    path = tmp_path / "mapping.txt"
+    path.write_text(f"2 0 {count}\n")
+    assert tcli.main(["-n", "2", "-r", "1000", "-s", "1000",
+                      "--mapping-file", str(path)]) == 2
+    out, err = capsys.readouterr()
+    assert "Results" not in out
+    assert f"device ids [{count}] past the {count} CUDA devices" in err
+
+
+def test_cli_mapping_file_of_zeros_counts_exactly(cuda, tmp_path, capsys):
+    from avx_sort_merge_joins_tpu_torch import cli as tcli
+
+    path = tmp_path / "mapping.txt"
+    path.write_text("8 0 0 0 0 0 0 0 0\n")
+    assert tcli.main(["-n", "8", "-S", "RING", "-r", "2000000", "-s",
+                      "3000000", "--mapping-file", str(path)]) == 0
+    assert "Results = 3000000" in capsys.readouterr().out
+
+
+def test_scalesize_last_row_counts_exactly(cuda, tmp_path):
+    """``scalesize.sh``'s 60 x 32 Mi row (R = S = 2,013,265,920 keys on
+    one card), run as the twin runs it, a fresh process: exactly |S|."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.empty_cache()  # this process's cached blocks: the row
+    # needs most of the card
+    env = dict(os.environ, SIZES="60")
+    env["PATH"] = os.path.dirname(sys.executable) + os.pathsep + env["PATH"]
+    proc = subprocess.run(
+        ["bash", os.path.join(root, "avx_sort_merge_joins_tpu_torch",
+                              "scripts", "scalesize.sh")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=900)
+    out = (tmp_path / "scalesize.txt").read_text()
+    assert proc.returncode == 0, (tmp_path / "scalesize.log").read_text()
+    assert out.strip() == f"Results = {60 * 32 * 1024 * 1024}", \
+        (tmp_path / "scalesize.log").read_text()[-3000:]

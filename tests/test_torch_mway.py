@@ -192,24 +192,40 @@ def test_cli_zipf_count_equals_the_jax_cli(algo, capsys):
     assert got == want == "20000"
 
 
+SHORT_MAPPING = "<a mapping file of 2 ids>"
+
+
 @pytest.mark.parametrize("argv", [["-n", "0"],
-                                  ["--mapping-file", "F"],
+                                  ["-n", "4", "--mapping-file",
+                                   SHORT_MAPPING],
                                   ["-a", "m-pass", "--materialize"],
                                   ["-a", "mpsm", "--materialize"],
                                   ["-f", "3"]])
-def test_cli_refuses_what_is_not_ported(argv, capsys):
+def test_cli_refuses_what_is_not_ported(argv, capsys, tmp_path):
     """Refused flags and values exit 2 with no result.  (``-m`` is ported:
-    its case became ``-n 0``, a shard count the CLI refuses.)"""
+    its case became ``-n 0``, a shard count the CLI refuses; so is
+    ``--mapping-file``: its case became a file with fewer ids than
+    ``-n``.)"""
+    path = tmp_path / "mapping.txt"
+    path.write_text("2 0 0\n")
+    argv = [str(path) if a == SHORT_MAPPING else a for a in argv]
     assert tcli.main(["-r", "100", "-s", "100", *argv]) == 2
     assert "Results" not in capsys.readouterr().out
 
 
-def test_cli_mapping_file_waits_for_a_mesh_of_cards(capsys):
-    assert tcli.main(["-r", "100", "-s", "100", "--mapping-file", "F",
-                      "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported: --mapping-file" in err
-    assert "mesh of cards" in err
+def test_cli_mapping_file_shapes_the_mesh(tmp_path, capsys):
+    """``--mapping-file`` places the ``-n N`` shards on the file's devices
+    (every id names the CPU under ``--device cpu``); its trailing host
+    count sets RING's stride while the run lasts; the count is exact."""
+    from avx_sort_merge_joins_tpu_torch.parallel import mesh as tmesh
+
+    path = tmp_path / "mapping.txt"
+    path.write_text("4 0 0 0 0 2\n")
+    before = tmesh.DEFAULT_MESH, tmesh.HOST_GRANULARITY
+    assert tcli.main(["-n", "4", "-S", "RING", "-r", "3000", "-s", "5000",
+                      "--mapping-file", str(path), "--device", "cpu"]) == 0
+    assert "Results = 5000" in capsys.readouterr().out
+    assert (tmesh.DEFAULT_MESH, tmesh.HOST_GRANULARITY) == before
 
 
 def test_cli_writes_a_trace(tmp_path, capsys):

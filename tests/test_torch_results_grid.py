@@ -163,3 +163,46 @@ def test_main_refuses_an_unknown_grid_and_runs_without_a_card(capsys):
     if not torch.cuda.is_available():
         assert rg.main(["algo"]) == 1
         assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("key", ["algo/m-way/5000/cuda",
+                                 "scale/m-way/512/cuda",
+                                 "zipf/m-way/4096/z1.0"])
+def test_rerun_cells_appends_a_row_the_renderer_keeps(grid_file, tmp_path,
+                                                      monkeypatch, key):
+    """``rerun_cells KEY`` (the twin of ``scripts/rerun_cells.py``) runs that
+    one cell again at its own size: one row appended, exact, with the old
+    row's columns (the algo row's phase columns), and the renderer keeps the
+    new row."""
+    from avx_sort_merge_joins_tpu_torch.scripts import rerun_cells
+
+    path = tmp_path / "rows.jsonl"
+    path.write_text(open(grid_file).read())
+    before = _rows(str(path))
+    old = mr.load(str(path))[key]
+    monkeypatch.setenv("SMJ_GRID_OUT", str(path))
+    monkeypatch.setenv("SMJ_GRID_REPS", "1")
+    monkeypatch.setenv("SMJ_GRID_BURN", "0")
+    assert rerun_cells.main([key, "--device", "cpu"]) == 0
+    after = _rows(str(path))
+    assert after[:len(before)] == before and len(after) == len(before) + 1
+    new = after[-1]
+    assert new["key"] == key and new["exact"] and new["reps"] == 1
+    assert mr.load(str(path))[key] == new
+    assert set(new) == set(old)
+    assert len(mr.load(str(path))) == 25
+
+
+def test_rerun_cells_refuses_an_unknown_key(grid_file, tmp_path, monkeypatch,
+                                            capsys):
+    from avx_sort_merge_joins_tpu_torch.scripts import rerun_cells
+
+    path = tmp_path / "rows.jsonl"
+    path.write_text(open(grid_file).read())
+    monkeypatch.setenv("SMJ_GRID_OUT", str(path))
+    for key in ("algo/m-way/7/cuda", "nope"):
+        assert rerun_cells.main([key, "--device", "cpu"]) == 2
+        assert "unknown cell keys" in capsys.readouterr().err
+    assert path.read_text() == open(grid_file).read()
+    with pytest.raises(ValueError, match="no grid"):
+        rerun_cells.grid_call("other/m-way/7/cuda", {})
