@@ -471,8 +471,9 @@ def _run_scale_tier(args, device, dname: str) -> int:
     device_sync(sk)
     info(f"relations ready in {time.perf_counter() - t0:.3f} s")
     # the phased entry point gives the [RECORD] row SORT / MERGE1 / MJOIN
-    # columns at the cost of two more device syncs; SMJ_SCALE_PHASED=0
-    # runs the fused one, whose row has the total only
+    # columns at the cost of three device syncs, which the fused one does
+    # not make; SMJ_SCALE_PHASED=0 runs the fused one, whose row has the
+    # total only
     phased = os.environ.get("SMJ_SCALE_PHASED", "1") == "1"
     t0 = time.perf_counter()
     with torch.profiler.record_function("join"):

@@ -76,7 +76,8 @@ def sortmergejoin_multipass(R: Relation, S: Relation,
                                        config.scalar_sort,
                                        config.scalar_merge)
 
-        stats, timings = common.run_phases({"sortmerge": pipeline})
+        stats, timings = common.run_phases({"sortmerge": pipeline},
+                                           R.keys.device)
         return common.make_result(mergejoin.finish_count_fused(stats),
                                   nR, nS, timings)
 
@@ -106,7 +107,8 @@ def sortmergejoin_multipass(R: Relation, S: Relation,
     stats, timings = common.run_phases({"sort": sort_phase,
                                         "merge1": merge1_phase,
                                         "mergerest": mergerest_phase,
-                                        "mergejoin": join_phase})
+                                        "mergejoin": join_phase},
+                                       R.keys.device)
     result = common.make_result(mergejoin.finish_count_fused(stats), nR, nS,
                                 timings)
     # read + write bytes per phase (keys only = 4 B per tuple)

@@ -102,7 +102,8 @@ def sortmergejoin_mpsm(R: Relation, S: Relation,
         return _count_chunks(sorted_, nR, chunks, config.scalar_merge)
 
     counts, timings = common.run_phases({"sort": sort_phase,
-                                         "mergejoin": join_phase})
+                                         "mergejoin": join_phase},
+                                        R.keys.device)
     result = common.make_result(sum(mergejoin.finish_count_fused(c)
                                     for c in counts), nR, nS, timings)
     chunk = -(-nS // nchunks)

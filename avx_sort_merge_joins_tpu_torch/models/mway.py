@@ -2,8 +2,10 @@
 (counterpart of ``avx_sort_merge_joins_tpu/models/mway.py:35-148,197-310``;
 reference: src/joins/sortmergejoin_multiway.c).
 
-The phases of the reference's record structure, each timed on the host
-clock after a device sync:
+The phases of the reference's record structure, each timed on the card
+between CUDA events at its boundaries (on the CPU on the host clock), and
+each a span ``smj.phase.<name>`` (``models/common.run_phases``); the join
+is the span ``smj.join``:
 
   "sort"      -- K1 block sort of R and S (the in-cache sort of
                  partitions, :388-460),
@@ -39,6 +41,7 @@ import torch
 from ..ops import materialize, mergejoin, multiwaymerge as mw
 from ..params import BLOCKSIZE_DEFAULT
 from ..types import JoinConfig, JoinResult, Relation, ThreadResult
+from ..utils import profiling
 from . import common
 
 FANIN_DEFAULT = 16
@@ -101,8 +104,15 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
                            config: JoinConfig | None = None,
                            fanin: int = FANIN_DEFAULT,
                            block: int = BLOCK_MWAY) -> JoinResult:
-    config = config or JoinConfig()
+    with profiling.span("smj.join"):
+        return _sortmergejoin_multiway(R, S, config or JoinConfig(), fanin,
+                                       block)
+
+
+def _sortmergejoin_multiway(R: Relation, S: Relation, config: JoinConfig,
+                            fanin: int, block: int) -> JoinResult:
     nR, nS = R.num_tuples, S.num_tuples
+    dev = R.keys.device
     tile = mw.merge_tile_for(config.mwaybufsize_bytes, fanin)
 
     if config.materialize:
@@ -110,8 +120,10 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
             return _mway_materialize_device(R.keys, S.keys, S.payloads, nR,
                                             nS, fanin, block, tile)
 
-        (ok, op, om, nm), timings = common.run_phases({"sortmerge": pipeline})
-        matches = int(om.sum(dtype=torch.int64))
+        (ok, op, om, nm), timings = common.run_phases({"sortmerge": pipeline},
+                                                      dev)
+        with profiling.sync("matches"):
+            matches = int(om.sum(dtype=torch.int64))
         if matches != nm:
             # some R key repeats: one output tuple per match pair
             # (joincommon.c:266-289 nested duplicate loops)
@@ -128,7 +140,7 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
                                       config.scalar_sort,
                                       config.scalar_merge)
 
-        stats, timings = common.run_phases({"sortmerge": pipeline})
+        stats, timings = common.run_phases({"sortmerge": pipeline}, dev)
         return common.make_result(mergejoin.finish_count_fused(stats),
                                   nR, nS, timings)
 
@@ -164,7 +176,7 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
     stats, timings = common.run_phases({"sort": sort_phase,
                                         "merge1": merge1_phase,
                                         "mergerest": mergerest_phase,
-                                        "mergejoin": join_phase})
+                                        "mergejoin": join_phase}, dev)
     result = common.make_result(mergejoin.finish_count_fused(stats), nR, nS,
                                 timings)
     # read + write bytes per phase (keys only = 4 B per tuple)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Relation
+from ..utils import profiling
 
 
 def materialize_matches(rk_sorted: torch.Tensor, nR: int,
@@ -33,16 +34,18 @@ def materialize_matches(rk_sorted: torch.Tensor, nR: int,
     ``(out_keys, out_payloads, out_mult, n_matched)``: the ``n_matched``
     matched S tuples in S order, with ``out_mult[i]`` = cntR(key_i) in
     int32 (1 for a primary-key R).  Total matches =
-    ``out_mult.sum(dtype=torch.int64)``.
+    ``out_mult.sum(dtype=torch.int64)``.  The span ``smj.ops.materialize``.
     """
-    rk = rk_sorted[:nR]
-    sk = sk_sorted[:nS]
-    sp = sp_sorted[:nS]
-    lo = torch.searchsorted(rk, sk, out_int32=True)
-    hi = torch.searchsorted(rk, sk, right=True, out_int32=True)
-    mult = hi - lo
-    at = torch.nonzero(mult > 0).squeeze(1)  # ascending: S order is kept
-    return sk[at], sp[at], mult[at], int(at.numel())
+    with profiling.span("smj.ops.materialize"):
+        rk = rk_sorted[:nR]
+        sk = sk_sorted[:nS]
+        sp = sp_sorted[:nS]
+        lo = torch.searchsorted(rk, sk, out_int32=True)
+        hi = torch.searchsorted(rk, sk, right=True, out_int32=True)
+        mult = hi - lo
+        with profiling.sync("nonzero"):  # sizes its output on the host
+            at = torch.nonzero(mult > 0).squeeze(1)  # ascending: S order
+        return sk[at], sp[at], mult[at], int(at.numel())
 
 
 def expand_matches(ok: torch.Tensor, op: torch.Tensor, om: torch.Tensor,
@@ -50,11 +53,14 @@ def expand_matches(ok: torch.Tensor, op: torch.Tensor, om: torch.Tensor,
     """Replicate matched S tuples by their R multiplicity -- one output
     tuple per match pair, the reference's nested duplicate loops
     (src/joins/joincommon.c:266-289).  Returns ``(ekeys, epayloads,
-    total)`` with ``total`` rows."""
-    mult = om[:n_matched].to(torch.int64)
-    ek = torch.repeat_interleave(ok[:n_matched], mult)
-    ep = torch.repeat_interleave(op[:n_matched], mult)
-    return ek, ep, int(ek.numel())
+    total)`` with ``total`` rows.  The span ``smj.ops.materialize``."""
+    with profiling.span("smj.ops.materialize"):
+        mult = om[:n_matched].to(torch.int64)
+        # each call sums ``mult`` on the host to size its output
+        with profiling.sync("repeat_interleave", 2):
+            ek = torch.repeat_interleave(ok[:n_matched], mult)
+            ep = torch.repeat_interleave(op[:n_matched], mult)
+        return ek, ep, int(ek.numel())
 
 
 def materialized_relation(ok: torch.Tensor, op: torch.Tensor,

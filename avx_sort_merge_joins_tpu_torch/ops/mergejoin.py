@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import sort as sort_ops
 
 LAUNCHES = 0  # K3 kernel launches since the last reset
@@ -169,7 +170,8 @@ def finish_count_fused(out: torch.Tensor) -> int:
     """The combine step: the count as a Python int.  The TPU package joins
     two base-2^30 limbs here and raises on limb overflow; the port's count
     is already an exact int64."""
-    return int(out.item())
+    with profiling.sync("count"):
+        return int(out.item())
 
 
 def _tag_merge(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,

@@ -65,6 +65,7 @@ from ..ops.bitonic import KEY_POS_INF
 from ..params import BLOCKSIZE_DEFAULT
 from ..types import NumaStrategy
 from ..utils.log import warn
+from ..utils.profiling import span
 from . import exchange as ex
 from . import remote_fifo as rf
 from .mesh import (Mesh, chips_per_host_of, host_shape, is_2d,
@@ -136,22 +137,26 @@ def _equidepth_bounds(mesh: Mesh, r_sorted, s_sorted, nvr, nvs):
     ``dynamic_slice`` does); the gathered samples, sorted, give bounds[d]
     = samples[(ns * d) // n].  Returns a replicated value (one tensor on a
     one-device mesh, a copy on each shard's device otherwise,
-    :meth:`Mesh.replica`) of n int32 bounds, bounds[0] = -2^31 + 1."""
+    :meth:`Mesh.replica`) of n int32 bounds, bounds[0] = -2^31 + 1.  The
+    sample positions are made on the device: the host waits for nothing."""
     n = mesh.n
+
+    def positions(col, nv):
+        nv = int(nv)
+        return (torch.arange(NQ, device=col.device) * (nv // NQ)).clamp_(
+            max=max(nv - 1, 0))
+
     rows = []
     for me in range(n):
-        pos_r = [min((int(nvr[me]) // NQ) * j, max(int(nvr[me]) - 1, 0))
-                 for j in range(NQ)]
-        pos_s = [min((int(nvs[me]) // NQ) * j, max(int(nvs[me]) - 1, 0))
-                 for j in range(NQ)]
-        rows.append(torch.stack([r_sorted[me][pos_r], s_sorted[me][pos_s]],
+        rc, sc = r_sorted[me], s_sorted[me]
+        rows.append(torch.stack([rc[positions(rc, nvr[me])],
+                                 sc[positions(sc, nvs[me])]],
                                 dim=1).reshape(-1))
 
     def bounds_of(gathered):
         samples = torch.sort(gathered).values
         ns = samples.numel()
-        pick = torch.tensor([(ns * d) // n for d in range(1, n)],
-                            dtype=torch.int64, device=samples.device)
+        pick = torch.arange(1, n, device=samples.device) * ns // n
         return torch.cat([torch.full((1,), BOUND_MIN, dtype=torch.int32,
                                      device=samples.device), samples[pick]])
 
@@ -222,12 +227,23 @@ def _merge_received(recv: torch.Tensor, counts: torch.Tensor, n: int,
     """One shard's received runs (run s at ``[s*cap, s*cap + counts[s])``)
     k-way merged into one ascending column: the varlen K2 with fan-in
     ``min(fanin, nruns)`` per level, a shard count that is not a power of
-    two padded with empty runs; ``torch.sort`` on the baseline route."""
-    if not use_kernels:
-        return torch.sort(recv).values
-    nruns = _pow2_runs(n)
-    keys, lens, _ = _pad_runs(recv, counts, n, cap, nruns)
-    return _merge_levels_varlen(keys, lens, cap, nruns, fanin)[0]
+    two padded with empty runs; ``torch.sort`` on the baseline route.  The
+    span ``smj.dist.merge``."""
+    with span("smj.dist.merge"):
+        if not use_kernels:
+            return torch.sort(recv).values
+        nruns = _pow2_runs(n)
+        keys, lens, _ = _pad_runs(recv, counts, n, cap, nruns)
+        return _merge_levels_varlen(keys, lens, cap, nruns, fanin)[0]
+
+
+def _landing_merged(mesh: Mesh, bflat, rcounts, me: int, n: int, cap: int,
+                    fanin: int, use_kernels: bool) -> torch.Tensor:
+    """Shard ``me``'s landing of the bulk all-to-all (span
+    ``smj.dist.exchange``), merged."""
+    with span("smj.dist.exchange"):
+        landing = mesh.all_to_all_row(bflat, me)
+    return _merge_received(landing, rcounts[me], n, cap, fanin, use_kernels)
 
 
 def _merge_received_pair(recv_k: torch.Tensor, recv_p: torch.Tensor,
@@ -428,45 +444,59 @@ def _count_owned(mesh: Mesh, merged_r: list, merged_s: list, totals_r,
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
           block: int, fanin: int, use_kernels: bool, schedule,
-          pre_sharded: bool, overlap_ok: bool, remote_pull, pull_rate: int):
-    """One run of the pipeline at one slack: (count, overflow, phases),
-    each phase timed on the host clock after a device sync."""
+          pre_sharded: bool, overlap_ok: bool, remote_pull, pull_rate: int,
+          timed: bool = False):
+    """One run of the pipeline at one slack: (count, overflow, phases).
+    With ``timed`` each phase is timed on the host clock after a device
+    sync; without it ``phases`` is empty and the host waits for the device
+    only where it reads a value.  Each step is a span ``smj.dist.<step>``."""
     n = mesh.n
     hier = host_shape(mesh) if is_2d(mesh) else None
     shard_r, cap_r, nv_r = _shape(n_r, n, slack)
     shard_s, cap_s, nv_s = _shape(n_s, n, slack)
     rk = _stage(rkeys, n_r, shard_r, mesh, pre_sharded)
     sk = _stage(skeys, n_s, shard_s, mesh, pre_sharded)
-    device_sync(sk)
-    phases = {}
+    phases, t0 = {}, 0.0
 
-    t0 = time.perf_counter()
-    r_sorted = [_local_sorted(rk[me], block, fanin, use_kernels)
-                for me in range(n)]
-    s_sorted = [_local_sorted(sk[me], block, fanin, use_kernels)
-                for me in range(n)]
-    device_sync(s_sorted)
-    phases["sort"] = time.perf_counter() - t0
+    def lap(name, ready):
+        nonlocal t0
+        if timed:
+            if ready is not None:
+                device_sync(ready)
+            now = time.perf_counter()
+            if name:
+                phases[name] = now - t0
+            t0 = now
 
-    t0 = time.perf_counter()
-    bounds = _equidepth_bounds(mesh, r_sorted, s_sorted, nv_r, nv_s)
+    lap(None, sk)
+    with span("smj.dist.sort"):
+        r_sorted = [_local_sorted(rk[me], block, fanin, use_kernels)
+                    for me in range(n)]
+        s_sorted = [_local_sorted(sk[me], block, fanin, use_kernels)
+                    for me in range(n)]
+    lap("sort", s_sorted)
+
+    with span("smj.dist.splitters"):
+        bounds = _equidepth_bounds(mesh, r_sorted, s_sorted, nv_r, nv_s)
     merged, totals, overflow, viols = {}, {}, 0, []
     for side, ks, nv, cap in (("r", r_sorted, nv_r, cap_r),
                               ("s", s_sorted, nv_s, cap_s)):
-        bflat, _, counts, ov = _cut_all(mesh, ks, nv, bounds, cap)
+        with span("smj.dist.cut"):
+            bflat, _, counts, ov = _cut_all(mesh, ks, nv, bounds, cap)
         overflow += ov
         if overlap_ok:
-            totals[side] = _row_sums(mesh, mesh.all_to_all(counts))
-            merged[side] = _live_prefixes(
-                mesh, _overlap_receive(mesh, bflat, counts, cap, fanin),
-                totals[side])
+            with span("smj.dist.exchange"):
+                totals[side] = _row_sums(mesh, mesh.all_to_all(counts))
+                out = _overlap_receive(mesh, bflat, counts, cap, fanin)
+            merged[side] = _live_prefixes(mesh, out, totals[side])
             continue
         if remote_pull == "dma":
-            rcounts = mesh.all_to_all(counts)
-            totals[side] = _row_sums(mesh, rcounts)
-            chunk = rf.pick_chunk_elems(cap, TILE_ELEMS, n)
-            out, _waited, viol, _landing = rf.remote_pull_exchange_merge(
-                mesh, bflat, rcounts, cap, chunk)
+            with span("smj.dist.exchange"):
+                rcounts = mesh.all_to_all(counts)
+                totals[side] = _row_sums(mesh, rcounts)
+                chunk = rf.pick_chunk_elems(cap, TILE_ELEMS, n)
+                out, _waited, viol, _landing = rf.remote_pull_exchange_merge(
+                    mesh, bflat, rcounts, cap, chunk)
             del bflat, _landing
             merged[side] = _live_prefixes(mesh, out, totals[side])
             viols += [viol[me] for me in range(n)]
@@ -475,20 +505,24 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
             # the bulk all-to-all a landing at a time, each merged and cut
             # to its live keys before the next: one landing a device, not
             # the whole receive stack beside the bucket stack
-            rcounts = mesh.all_to_all(counts)
+            with span("smj.dist.exchange"):
+                rcounts = mesh.all_to_all(counts)
             totals[side] = _row_sums(mesh, rcounts)
             merged[side] = _live_prefixes(mesh, (
-                _merge_received(mesh.all_to_all_row(bflat, me), rcounts[me],
-                                n, cap, fanin, use_kernels)
-                for me in range(n)), totals[side])
+                _landing_merged(mesh, bflat, rcounts, me, n, cap, fanin,
+                                use_kernels) for me in range(n)),
+                totals[side])
             del bflat
             continue
-        recv, rcounts = _receive(mesh, bflat, counts, cap, schedule, hier)
+        with span("smj.dist.exchange"):
+            recv, rcounts = _receive(mesh, bflat, counts, cap, schedule,
+                                     hier)
         del bflat
         totals[side] = _row_sums(mesh, rcounts)
         if remote_pull == "emulate":
-            out = [_merge_received_gated(recv[me], rcounts[me], n, cap,
-                                         pull_rate) for me in range(n)]
+            with span("smj.dist.merge"):
+                out = [_merge_received_gated(recv[me], rcounts[me], n, cap,
+                                             pull_rate) for me in range(n)]
             viols += [o[1] for o in out]
             merged[side] = _live_prefixes(mesh, (o[0] for o in out),
                                           totals[side])
@@ -498,14 +532,15 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
                                 use_kernels) for me in range(n)),
                 totals[side])
         del recv
-    device_sync(merged["s"])
-    phases["merge1"] = time.perf_counter() - t0
+    lap("merge1", merged["s"])
 
-    t0 = time.perf_counter()
-    count = _count_owned(mesh, merged["r"], merged["s"], totals["r"],
-                         totals["s"])
-    phases["mergejoin"] = time.perf_counter() - t0
-    phases["total"] = phases["sort"] + phases["merge1"] + phases["mergejoin"]
+    with span("smj.dist.count"):
+        count = _count_owned(mesh, merged["r"], merged["s"], totals["r"],
+                             totals["s"])
+    lap("mergejoin", None)  # the count is on the host
+    if timed:
+        phases["total"] = (phases["sort"] + phases["merge1"]
+                           + phases["mergejoin"])
     if viols and mesh.host_sum(viols):
         raise RuntimeError("chunk-gated merge read past a delivered prefix: "
                            "the remote-pull gating arithmetic regressed")
@@ -553,7 +588,9 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
 
     Returns (count, overflow) as host ints; overflow must be 0.  A bucket
     overflow doubles the slack and retries, up to 16, as the JAX package
-    does; past that it is returned.
+    does; past that it is returned.  The call is the span ``smj.join``; it
+    times nothing, so the host waits for the device only to read the bucket
+    starts, the live totals and the count.
 
     ``rkeys``/``skeys`` are 1-D key columns (numpy or torch, anywhere) of
     logical sizes ``n_r``/``n_s``, or with ``pre_sharded`` the ``(n,
@@ -611,15 +648,16 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
              "(the permute rounds are sequential by construction)")
     global LAST_SLACK
     schedule = _schedule(mesh, numa_strategy, next_as_rounds=True)
-    while True:
-        LAST_SLACK = slack
-        count, ov, _ = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
-                             fanin, use_kernels, schedule, pre_sharded,
-                             overlap_ok, remote_pull, pull_rate)
-        if ov == 0 or slack >= 16.0:
-            return count, ov
-        # extreme skew overflowed a bucket: retry with doubled capacity
-        slack *= 2
+    with span("smj.join"):
+        while True:
+            LAST_SLACK = slack
+            count, ov, _ = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
+                                 fanin, use_kernels, schedule, pre_sharded,
+                                 overlap_ok, remote_pull, pull_rate)
+            if ov == 0 or slack >= 16.0:
+                return count, ov
+            # extreme skew overflowed a bucket: retry with doubled capacity
+            slack *= 2
 
 
 def dist_mway_join_phased(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
@@ -639,11 +677,12 @@ def dist_mway_join_phased(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
     global LAST_SLACK
     _check_fanin(fanin)
     schedule = _schedule(mesh, numa_strategy, next_as_rounds=False)
-    while True:
-        LAST_SLACK = slack
-        count, ov, phases = _join(rkeys, skeys, n_r, n_s, mesh, slack, block,
-                                  fanin, use_kernels, schedule, pre_sharded,
-                                  False, None, 1)
-        if ov == 0 or slack >= 16.0:
-            return count, ov, phases
-        slack *= 2
+    with span("smj.join"):
+        while True:
+            LAST_SLACK = slack
+            count, ov, phases = _join(rkeys, skeys, n_r, n_s, mesh, slack,
+                                      block, fanin, use_kernels, schedule,
+                                      pre_sharded, False, None, 1, timed=True)
+            if ov == 0 or slack >= 16.0:
+                return count, ov, phases
+            slack *= 2

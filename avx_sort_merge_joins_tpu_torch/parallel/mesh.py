@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..types import NumaStrategy, default_device
+from ..utils import profiling
 
 AXIS = "chips"
 HOST_AXIS = "host"
@@ -143,18 +144,21 @@ class Mesh:
 
     def from_host(self, rows, dtype=torch.int32):
         """Host rows (a nested list or an array with one row a shard) as a
-        per-shard value."""
+        per-shard value, copied to a card through pinned memory, with no
+        wait for the card."""
         if not self.per_shard:
-            return torch.tensor(rows, dtype=dtype, device=self.device)
-        return [torch.tensor(rows[me], dtype=dtype, device=d)
+            return _to_device(rows, dtype, self.device)
+        return [_to_device(rows[me], dtype, d)
                 for me, d in enumerate(self.devices)]
 
     def tolist(self, x) -> list:
         """A per-shard value read to the host, one entry a shard: one read
         of the stack, or one read a shard's device."""
         if not self.per_shard:
-            return x.tolist()
-        return [r.tolist() for r in x]
+            with profiling.sync("tolist"):
+                return x.tolist()
+        with profiling.sync("tolist", len(x)):
+            return [r.tolist() for r in x]
 
     def replicated(self, fn, x):
         """``fn`` of a replicated value (what ``all_gather`` returns): once
@@ -186,7 +190,8 @@ class Mesh:
         by_dev: dict = {}
         for v in values:
             by_dev.setdefault(v.device, []).append(v)
-        return sum(int(torch.stack(vs).sum()) for vs in by_dev.values())
+        with profiling.sync("host_sum", len(by_dev)):
+            return sum(int(torch.stack(vs).sum()) for vs in by_dev.values())
 
     def rotated_blocks(self, x, width: int, off: int, group: int = 1):
         """Each shard's block ``(me // group + off) mod B`` of ``width``
@@ -367,6 +372,15 @@ class Mesh:
             out.view(outer, self.n // outer, -1)[:, dst] = \
                 x.view(outer, self.n // outer, -1)[:, src]
         return out
+
+
+def _to_device(rows, dtype, device) -> torch.Tensor:
+    """Host data as a tensor on ``device``: to a card through pinned
+    memory, since a copy from pageable memory waits for the card."""
+    t = torch.tensor(rows, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _mesh_device(device) -> torch.device:

@@ -10,7 +10,19 @@ and the PCM wrapper src/util/perf_counters.c).
   measured on the device the join ran on (``SMJ_HBM_GBPS`` overrides it);
   never a constant taken from another device;
 * :func:`trace` -- a ``torch.profiler`` context writing a Chrome trace
-  (the PCM_start/stop analog, perf_counters.h:51-103).
+  (the PCM_start/stop analog, perf_counters.h:51-103);
+* :func:`span`, :func:`count`, :func:`sync` -- the program's spans
+  (``smj.<layer>.<what>``) and counters, and :func:`span_totals` /
+  :func:`reset` over their registry.
+
+Spans and counters are on only while a ``torch.profiler`` session records
+(``-o DIR``, or a benchmark's traced run); off, a span is one check and a
+shared no-op context.  On, a span is a host event on the profiler's clock
+(a ``RecordFunction`` of function scope: unlike ``record_function``'s user
+scope it casts no GPU-side annotation among the device's operations), its
+host seconds, and once CUDA is initialised in the process a pair of CUDA
+events on the current stream, read only by :func:`span_totals`: nothing
+is synchronised when a span is recorded.
 """
 
 from __future__ import annotations
@@ -132,6 +144,108 @@ def hbm_gbps(device) -> tuple[float, str]:
     return _MEASURED[key], f"copy rate measured on {key}"
 
 
+# -- spans and counters ------------------------------------------------
+
+HOST_SYNCS = "smj.host_syncs"  # the counter sync() adds to
+_OFF = contextlib.nullcontext()
+# name -> [calls, host seconds, device seconds resolved, pending event
+# pairs]; counter name -> count
+_SPANS: Dict[str, list] = {}
+_COUNTS: Dict[str, int] = {}
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records in this process: the
+    gate of every span and counter."""
+    return torch._C._autograd._profiler_enabled()
+
+
+class _Span:
+    __slots__ = ("name", "rf", "t0", "ev")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = torch._C._profiler._RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        self.ev = None
+        if torch.cuda.is_initialized():
+            self.ev = torch.cuda.Event(enable_timing=True)
+            self.ev.record()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        host = time.perf_counter() - self.t0
+        entry = _SPANS.setdefault(self.name, [0, 0.0, 0.0, []])
+        entry[0] += 1
+        entry[1] += host
+        if self.ev is None:
+            entry[2] += host  # no device: the work ran as it was issued
+        else:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            entry[3].append((self.ev, end))
+        self.rf.__exit__(*exc)
+
+
+def span(name: str):
+    """A context that records the block as the span ``name`` while a
+    profiler session records, and does nothing otherwise."""
+    return _Span(name) if recording() else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler session
+    records."""
+    if recording():
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def sync(what: str, n: int = 1):
+    """The context of a blocking read of the device by the host (or of a
+    wait for it): counts ``n`` host syncs under :data:`HOST_SYNCS` and
+    records the block as the span ``smj.sync.<what>``, while a profiler
+    session records.  A read of a tensor's value counts on any device; a
+    wait for a device counts only where there is one to wait for."""
+    if not recording():
+        return _OFF
+    _COUNTS[HOST_SYNCS] = _COUNTS.get(HOST_SYNCS, 0) + n
+    return _Span("smj.sync." + what)
+
+
+@dataclasses.dataclass
+class SpanTotal:
+    """A span's calls and summed host and device seconds; a counter's
+    count as ``calls``, with no seconds."""
+
+    calls: int
+    host_s: float
+    device_s: float
+
+
+def span_totals() -> Dict[str, SpanTotal]:
+    """Every span and counter recorded since :func:`reset`, by name.  A
+    span's device seconds lie between its CUDA events; without them (no
+    CUDA in the process) they are its host seconds.  It waits for each
+    span's end event, so call it after the recorded work."""
+    for entry in _SPANS.values():
+        for a, b in entry[3]:
+            b.synchronize()
+            entry[2] += a.elapsed_time(b) / 1e3
+        entry[3].clear()
+    out = {name: SpanTotal(calls, host, dev)
+           for name, (calls, host, dev, _) in _SPANS.items()}
+    out.update((name, SpanTotal(n, 0.0, 0.0)) for name, n in _COUNTS.items())
+    return out
+
+
+def reset() -> None:
+    """Forget every span and counter recorded so far."""
+    _SPANS.clear()
+    _COUNTS.clear()
+
+
 TRACE_FILE = "trace.json"  # what trace() writes into its logdir
 
 
@@ -140,7 +254,8 @@ def trace(logdir: str, device="cpu"):
     """A ``torch.profiler`` trace of the block: CPU activity, and CUDA
     activity when ``device`` is the card.  On exit it writes
     ``logdir/TRACE_FILE`` (a Chrome trace: chrome://tracing or Perfetto)
-    and yields nothing."""
+    and yields nothing.  The program's spans (:func:`span`) are in it,
+    and the registry of :func:`span_totals` starts empty with it."""
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
@@ -148,6 +263,7 @@ def trace(logdir: str, device="cpu"):
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    reset()
     with profile(activities=acts) as prof:
         try:
             yield
