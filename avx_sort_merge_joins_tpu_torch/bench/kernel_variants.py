@@ -1,14 +1,20 @@
-"""Design choices of K1 (block sort), K3 (match count), K4 (merge pass),
-K5 (pair block sort), K7 (64-bit match count), K8 (radix histogram) and
-K11 (remote-pull push and gated merge) of the PyTorch port, and the parts
+"""Design choices of K1 (block sort), K2/K6 (multiway merge: its
+co-ranks), K3 (match count), K4 (merge pass), K5 (pair block sort), K7
+(64-bit match count), K8 (radix histogram) and K11 (remote-pull push and
+gated merge) of the PyTorch port, and the parts
 of K9 (chunk-gated merge) and K10 (two-run count), measured against each
 other on one NVIDIA GPU, from the root of a checkout (it takes
 chip_smoke.py's helpers):
 
     python -m avx_sort_merge_joins_tpu_torch.bench.kernel_variants [k1 k3 ...]
 
-(the variants of the kernels named among k1, k3, k4, k5, k7, k8, k9,
-k10, k11, default all; ``final`` always runs).  K4 is timed on 128M keys
+(the variants of the kernels named among k1, k2, k3, k4, k5, k7, k8,
+k9, k10, k11, default all; ``final`` always runs; naming variants runs
+those alone beside ``final``; each runs twice, in order and then in
+reverse).  K2 and K6 are timed
+in parts (coarse co-ranks, fine co-ranks, tile merge) at the benchmark's
+shapes: 128M keys, 128M pairs, a 200M-key shard and the W = 8 merge of
+a shard's received runs, uniform and Zipf.  K4 is timed on 128M keys
 in one pass of span 16,384 and one of span 2^26, and on 128M pairs at
 span 16,384; K7 at 128M x 128M widened int32 keys, beside K3 on the same
 int32 keys (the committed K3 in every variant: a yardstick that does not
@@ -20,6 +26,23 @@ change to its CUDA sources, written under the gitignored csrc/build/variants/
 and built there by the package's own builder:
 
   final            the sources as committed;
+  k2_search_fine   K2/K6's fine co-ranks by the coarse pass's search in
+                   device memory, a warp a boundary (the design before the
+                   sampled one; the committed K2/K6 samples every 32nd
+                   element of each coarse window and finishes each
+                   boundary in shared memory);
+  k2_stride_16, k2_stride_64  the sampled fine co-ranks at a sample stride
+                   of 16 or 64 elements at fan-in 16 (committed: 32; the
+                   stride at fan-in W < 16 is 16 / W times it);
+  k2_finish_global the sampled brackets finished by the search in device
+                   memory, not staged in shared memory;
+  k2_finish_4, k2_finish_16  the finish ranking up to 4 or 16 windows'
+                   middle elements a round (committed: 8; 16: every
+                   window's at fan-in 16);
+  k2_part_*        timing only, their rows are wrong (timed on 128M keys
+                   alone): the sampled CTA stopping after its samples'
+                   loads, after their order, after the brackets, or
+                   staging the brackets without the search;
   k1_one_cta       K1 allowed 128 registers, one CTA of 512 threads an SM
                    (the committed K1 is capped at 64: two CTAs an SM);
   k1_16_keys       K1 with 16 keys a thread, 1,024 threads a CTA;
@@ -120,8 +143,42 @@ K8_ROW = "  int* row = out + (per_tile ? blockIdx.x * (long long)fanout : 0);"
 
 # name -> (what it measures, [(source, committed text, variant's text)])
 VARIANTS = {
-    "final": (("k1", "k3", "k4", "k5", "k7", "k8", "k9", "k10", "k11"),
-              []),
+    "final": (("k1", "k2", "k3", "k4", "k5", "k7", "k8", "k9", "k10",
+               "k11"), []),
+    "k2_search_fine": (("k2",), [
+        ("multiway_merge.cu",
+         "    if (pass == 1 && W <= kSampledMaxFanin) {",
+         "    if (pass == 1 && W <= 0) {")]),
+    "k2_stride_16": (("k2",), [
+        ("multiway_merge.cu", "constexpr int kSampleStride = 32;",
+         "constexpr int kSampleStride = 16;")]),
+    "k2_stride_64": (("k2",), [
+        ("multiway_merge.cu", "constexpr int kSampleStride = 32;",
+         "constexpr int kSampleStride = 64;")]),
+    "k2_finish_global": (("k2",), [
+        ("multiway_merge.cu",
+         "    if (total <= 2 * W * s) {  // the same branch for the whole warp",
+         "    if (false) {")]),
+    "k2_finish_4": (("k2",), [
+        ("multiway_merge.cu", "constexpr int kFinishCandidates = 8;",
+         "constexpr int kFinishCandidates = 4;")]),
+    "k2_finish_16": (("k2",), [
+        ("multiway_merge.cu", "constexpr int kFinishCandidates = 8;",
+         "constexpr int kFinishCandidates = 16;")]),
+    "k2_part_samples": (("k2",), [
+        ("multiway_merge.cu", "  // b. their order, then each sample's rank",
+         "  return;")]),
+    "k2_part_order": (("k2",), [
+        ("multiway_merge.cu", "  // c. the brackets of every interior "
+         "boundary and run", "  return;")]),
+    "k2_part_brackets": (("k2",), [
+        ("multiway_merge.cu", "  // d. a warp a boundary: stage its "
+         "brackets, then the exact search", "  return;")]),
+    "k2_part_stage": (("k2",), [
+        ("multiway_merge.cu",
+         "      finish_candidates<E>(stk, stp, offs, W, lo, b,\n"
+         "                           wfin + warp * fin_words(W), row, lane);",
+         "")]),
     "k1_one_cta": (("k1",), [
         ("block_sort.cu", "constexpr int kMinBlocks = 2;",
          "constexpr int kMinBlocks = 1;")]),
@@ -355,6 +412,117 @@ def k11_device_ms(rf, mesh, bflat, rcounts, cap: int, chunk: int,
     return f"{ms:.4f}" if ms > 0 else "no device time"
 
 
+def k2_shapes(cs, sort_ops, dev):
+    """K2's and K6's inputs at the benchmark's shapes, one at a time:
+    (label, keys, payloads or None, n) as block-sorted runs, or (label,
+    landing, lens, stride) for the varlen merge.  128M keys
+    (workload B's sort: W = 16, 16, 16, 2), 128M (key, row id) pairs,
+    a 200M-key shard of workload A (W = 16, 16, 16, 4), and the varlen
+    W = 8 merge of a shard's received runs (8 runs of 25M at the stride
+    of slack 2, 50,003,968), uniform and Zipf 1.0 (zipf_keys)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = cs.MAIN_N
+    keys = torch.randint(1, n + 1, (n,), generator=gen, dtype=torch.int32,
+                         device=dev)
+    yield ("128M keys", sort_ops.sort_blocks(keys, n), None, n)
+    pays = torch.arange(n, dtype=torch.int32, device=dev)
+    yield ("128M pairs", *sort_ops.sort_blocks_pairs(keys, pays, n), n)
+    del keys, pays
+    shard = 200_000_000
+    keys = torch.randint(1, 1_600_000_001, (shard,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    yield ("200M shard", sort_ops.sort_blocks(keys, shard), None, shard)
+    del keys
+    stride, live = 50_003_968, 25_000_000
+    for label in ("uniform", "zipf1"):
+        land = torch.full((8 * stride,), 2**31 - 1, dtype=torch.int32,
+                          device=dev)
+        for r in range(8):
+            run = (torch.randint(1, 1_600_000_001, (live,), generator=gen,
+                                 dtype=torch.int32, device=dev)
+                   if label == "uniform" else zipf_keys(live, dev))
+            land[r * stride:r * stride + live] = torch.sort(run).values
+        lens = torch.full((8,), live, dtype=torch.int32, device=dev)
+        yield (f"varlen W=8 {label}", land, lens, stride)
+        del land
+
+
+def k2_parts(cs, mw, sort_ops, name: str) -> None:
+    """K2/K6 timed in parts at k2_shapes' calls (CUDA events, 10 calls
+    each): the coarse co-ranks (mask 1), the fine ones on the coarse rows
+    (2), both (1 | 2) and the tile merge (4); each call's merged columns
+    checked against the plain version, and its co-rank rows against
+    ``corank_rows_plain`` where the package has it."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    part = name.startswith("k2_part_")
+    plain_rows = None if part else getattr(mw, "corank_rows_plain", None)
+    for label, keys, extra, size in k2_shapes(cs, sort_ops, dev):
+        if part and label != "128M keys":
+            continue
+        if label.startswith("varlen"):
+            lens, stride, w = extra, size, extra.numel()
+            got = mw.multiway_merge(keys, w, lens=lens, stride=stride)[0]
+            if not torch.equal(got, mw.multiway_merge_varlen_plain(
+                    keys, w, lens, stride)[0]):
+                raise AssertionError(f"{name}: K2 {label}")
+            del got
+            k2_time(cs, mw, name, label, keys, None,
+                    ("smj_multiway_merge_varlen", 1, stride, w,
+                     lens.data_ptr(), lens.numel(), stride), plain_rows,
+                    dict(lens=lens, stride=stride))
+            continue
+        runs, rp, n = keys, extra, size
+        del keys, extra
+        for level in mw.merge_levels(n, cs.BLOCK, 16):
+            _, span, nruns, w = level
+            ul = (nruns, n, span)
+            want = mw.multiway_merge_plain(runs, w, ul, rp)
+            if not part:
+                got = mw.multiway_merge(runs, w, ul, rp)[0]
+                if not all(torch.equal(g, x) for g, x in zip(
+                        got if rp is not None else (got,),
+                        want if rp is not None else (want,))):
+                    raise AssertionError(f"{name}: K2 {label} {level}")
+                del got
+            k2_time(cs, mw, name, f"{label} W={w} span={span}", runs, rp,
+                    ("smj_multiway_merge", sort_ops.cdiv(nruns, w), span, w,
+                     n, span), plain_rows, dict(uniform_lens=ul))
+            runs, rp = want if rp is not None else (want, None)
+        del runs, rp
+
+
+def k2_time(cs, mw, name: str, label: str, runs, pays, call, plain_rows,
+            layout: dict) -> None:
+    import torch
+
+    entry, ngroups, stride, w, *args = call
+    scratch = mw.corank_scratch(runs, ngroups, stride, w)
+
+    def part(mask):
+        return mw._launch(entry, runs, pays, ngroups, stride, w, *args,
+                          parts=mask, scratch=scratch)
+
+    # a timing-only variant's rows are wrong: no tile merge on them
+    masks = (1, 2) if name.startswith("k2_part_") else (1, 2, 3, 4)
+    ms = {m: cs.time_ms(lambda m=m: part(m), 10) for m in masks}
+    rows = ""
+    if plain_rows is not None:
+        part(3)
+        want = plain_rows(runs, w, payloads=pays, **layout)
+        got = scratch[:want.numel()].view(want.shape)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: K2 {label}: rows != plain")
+        rows = ", rows = plain"
+    more = (f", co-rank {ms[3]:.4f}, merge {ms[4]:.4f}" if 4 in ms
+            else "")
+    print(f"[{name}] K2 {label}{' pairs' if pays is not None else ''}: "
+          f"coarse {ms[1]:.4f} ms, fine {ms[2]:.4f}{more}{rows}", flush=True)
+
+
 def worker(name: str, kernels: list[str]) -> None:
     """Measure one variant; its package comes first on sys.path."""
     sys.path.append(ROOT)  # chip_smoke's helpers, after the variant
@@ -363,6 +531,7 @@ def worker(name: str, kernels: list[str]) -> None:
     import chip_smoke as cs
     from avx_sort_merge_joins_tpu_torch.kernels import _build
     from avx_sort_merge_joins_tpu_torch.ops import mergejoin
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
     from avx_sort_merge_joins_tpu_torch.ops import partition as pt
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
     from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as dm
@@ -380,7 +549,10 @@ def worker(name: str, kernels: list[str]) -> None:
              "merge_pass_kernel": "K4",
              "block_sort_pairs_kernelILi16384E": "K5",
              "radix_hist_kernel": "K8",
-             "remote_pull_kernel": "K11"}
+             "remote_pull_kernel": "K11",
+             "corank_kernelIiLi4096EEEvNS_11SampledPass": "K2 sampled co-rank",
+             "corank_kernelIxLi4096EEEvNS_11SampledPass": "K6 sampled co-rank",
+             "corank_kernelIiLb1ELi4096E": "K2 co-rank search"}
     for fn, line in re.findall(r"Function ([^\s:]+):?\n([^\n]*)", usage):
         for pattern, kernel in kinds.items():
             if pattern in fn:
@@ -514,6 +686,8 @@ def worker(name: str, kernels: list[str]) -> None:
             print(f"[{name}] K5 {n} pairs descending={desc}: {ms:.3f} ms",
                   flush=True)
         del keys, pays
+    if "k2" in what:
+        k2_parts(cs, mw, sort_ops, name)
     if "k9" in what:
         landings, cap, _, buckets = cs.dist_landings(dev)
         del buckets
@@ -585,8 +759,14 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         worker(sys.argv[2], sys.argv[3:])
         return 0
-    kernels = sys.argv[1:] or ["k1", "k3", "k4", "k5", "k7", "k8", "k9",
-                               "k10", "k11"]
+    named = [a for a in sys.argv[1:] if a in VARIANTS]
+    unknown = [a for a in sys.argv[1:] if a not in VARIANTS
+               and not re.fullmatch(r"k\d+", a)]
+    if unknown:
+        raise SystemExit(f"unknown variants or kernels: {unknown}")
+    kernels = [k for k in sys.argv[1:] if k not in named]
+    kernels = kernels or sorted({k for n in named for k in VARIANTS[n][0]}) \
+        or ["k1", "k2", "k3", "k4", "k5", "k7", "k8", "k9", "k10", "k11"]
     import torch
 
     if not torch.cuda.is_available():
@@ -596,14 +776,19 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     order = [name for name, (what, _) in VARIANTS.items()
-             if name == "final" or set(what) & set(kernels)]
+             if name == "final" or (name in named if named else
+                                     set(what) & set(kernels))]
     roots = {name: make_variant(name) for name in order}
+    failed = []
     for name in order + order[::-1]:
         env = dict(os.environ, PYTHONPATH=roots[name])
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--worker", name, *kernels], env=env, check=True,
-                       cwd=ROOT)
-    return 0
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--worker", name, *kernels], env=env,
+                            cwd=ROOT).returncode
+        if rc != 0:
+            print(f"[{name}] failed: exit {rc}", flush=True)
+            failed.append(name)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -225,34 +225,6 @@ __device__ __forceinline__ int local_run_start(const At& at, int i,
   return hi;
 }
 
-// cp.async: 16 bytes (the first `bytes` of them read, the rest zeroed) or
-// 4 bytes from device memory into shared memory, without registers.
-__device__ __forceinline__ void cp_async16(int* dst, const int* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most kPending of this thread's cp.async groups are in
-// flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // Starts copying plane[from, to) into the circular window win (element k
 // at slot (base + k) & Shape::kMask, where base + k is the element's index
 // in its plane modulo the window; to - from <= Shape::kWindow), without

@@ -13,6 +13,11 @@
 // other CTAs write during the launch and which may not take the
 // non-coherent read-only path).
 //
+// K2/K6's coarse co-ranks, their fine ones above fan-in 32, and a sampled
+// fine bracket that overflows its stage (multiway_merge.cu) run the
+// search; the sampled fine co-ranks at fan-in 32 or less narrow their
+// brackets in shared memory by their own rounds instead.
+//
 // The co-rank of boundary b is every run's consumed prefix c[r]: how many
 // of the first b merged outputs come from run r, ties to the lower run.
 // The search narrows the value of output b - 1 between the smallest and

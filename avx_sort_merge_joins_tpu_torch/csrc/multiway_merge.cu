@@ -20,8 +20,12 @@
 // What bounds it on the H100: each element is read and written once in
 // device memory (8 B a key, 16 B a pair), plus the co-rank scratch (one
 // int64 a run a tile boundary).  The merge is bound by shared memory and
-// instruction issue, log2(W) merge steps an element, and the co-rank
-// search by dependent loads.
+// instruction issue, log2(W) merge steps an element.  The coarse co-rank
+// search is a chain of dependent loads over whole runs (one wave of
+// warps, so its latency); the sampled fine co-ranks read about a quarter
+// of the keys' sectors (a sample every 32 keys, 32-byte sectors) and
+// their brackets (fewer than 2 W s elements a boundary), each in one
+// round trip, and narrow in shared memory.
 //
 // Design: merge-path tiles of kTile outputs, three launches; the co-rank
 // search and the tile merge are merge_path.cuh's, shared with K11.  K9
@@ -34,9 +38,15 @@
 //      kTile, live) of a group, t a multiple of kCoarse, finds each run's
 //      consumed prefix c[t][r] (ties go to the lower run), its windows
 //      starting as the whole runs.
-//   2. corank_kernel, fine: the same search for every other boundary,
-//      inside the windows the two coarse boundaries around it leave: at
-//      most kCoarse tiles of outputs, not the whole run.
+//   2. corank_kernel, fine, every other boundary, inside the windows the
+//      two coarse boundaries around it leave (at most kCoarse tiles of
+//      outputs): up to fan-in kSampledMaxFanin (32), one CTA a coarse
+//      interval brackets every boundary from a regular sample of the
+//      windows ranked in shared memory and finishes each in shared
+//      memory (the design at kSampledMaxFanin below); above it (fan-in
+//      64 to 2,048, keys, or 1,024, pairs) one warp a boundary runs the
+//      coarse pass's search in the windows, whose sample would not fit
+//      shared memory beside a stage of 2 W s elements a warp.
 //   3. merge_kernel, one CTA per tile: it merges the tile's W segments
 //      [c[t][r], c[t+1][r]) in shared memory, writes the tile back
 //      coalesced, and writes the pads after the group's live elements.
@@ -158,6 +168,468 @@ corank_kernel(Runs runs, long long* __restrict__ c, long long ngroups,
                            b, ws, row, lane);
 }
 
+// ---- The sampled fine co-ranks (fan-in <= kSampledMaxFanin) ----
+//
+// One CTA a coarse interval [t0, t1) of a group: the coarse rows c[t0]
+// and c[t1] leave each run r a window [A_r, A_r + n_r), the interval's
+// N = sum(n_r) outputs.  Window offset o of run r is "(r, o)".
+//   a. Samples: the last element of every whole block of s elements (s =
+//      sample_stride(W): 32 at fan-in 16 and 32, 512 / W below), offsets
+//      (j + 1) s - 1 for j < m_r = n_r / s: M <= N / s independent copies
+//      into shared memory (cp.async, one round trip).
+//   b. Their order: the W sample lists merged in log2(W) pairwise rounds
+//      of their indices, lower list first among equal values (the
+//      merge's total order: value, then run, then offset), and each
+//      sample's rank pos among the M.
+//   c. Brackets: the first p samples in that order hold k_r(p) of run r
+//      (a binary search of run r's pos).  With X = the p-th sample, the
+//      k_r(p) s elements before each run's k_r(p)-th sample are <= X and
+//      at most p s + W (s - 1) elements are < X; the (p + 1)-th sample Y
+//      has at least p s + s - 1 elements below it.  So for boundary b'
+//      (outputs from the interval's start) every run's share c_r lies in
+//      [k_r(pa) s, k_r(pb) < m_r ? (k_r(pb) + 1) s - 1 : n_r] with pa =
+//      max(0, ceil((b' - W (s - 1)) / s) - 1) and pb = floor(b' / s):
+//      pb - pa <= W, so the brackets of one boundary hold fewer than 2 W
+//      s elements together.
+//   d. Exact finish: a warp a boundary copies its brackets into a stage
+//      in shared memory (cp.async, one round trip) and narrows them there
+//      (finish_candidates: each round ranks the middle elements of up to
+//      kFinishCandidates windows in every window).  A bracket sum above
+//      the stage (the bound above says never) runs smj_mp::corank's search
+//      on the device columns instead and counts itself in
+//      g_corank_fallbacks.
+// Keys and payloads stay apart in shared memory (a pair is packed where
+// it is compared).  The samples and tags share their shared memory with
+// the stages, which are written once every bracket is known.
+constexpr int kSampledMaxFanin = 32;  // one run a lane in the finish
+constexpr int kSampleStride = 32;     // s at fan-in 16 and 32
+// s at fan-in W, a power of two: fewer runs take a sparser sample, so
+// that every fan-in up to 16 stages 2 W s = 32 kSampleStride elements a
+// boundary at most
+__host__ __device__ constexpr int sample_stride(int W) {
+  return W >= 16 ? kSampleStride : kSampleStride * 16 / W;
+}
+constexpr int kFineThreads = 256;
+constexpr int kFineWarps = kFineThreads / 32;
+constexpr int kFinishCandidates = 8;  // finish_candidates' most a round
+// 3 CTAs an SM: up to 85 registers a thread, so that the finish spills
+// nothing (at 4, 64 registers, it kept 24 bytes of stack)
+constexpr int kFineMinBlocks = 3;
+
+__device__ unsigned long long g_corank_fallbacks;
+
+struct SampledPass {};  // tags the sampled fine co-rank's launch
+
+// Element i of int32 columns k (and p, for pairs) in shared memory.
+template <typename E>
+__device__ __forceinline__ E smem_at(const int* k, const int* p, int i) {
+  if constexpr (sizeof(E) == 8) {
+    return smj_pack(k[i], p[i]);
+  } else {
+    return k[i];
+  }
+}
+
+__host__ __device__ constexpr size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// Samples of one interval at tiles of kTileN outputs, at most, and the
+// tag slots of their merge: two spare slots after every kTagRun, one
+// thread's outputs of a round, so that a warp's stores hit distinct
+// banks.
+template <int kTileN>
+constexpr int kMaxSamples = kCoarse * kTileN / kSampleStride;
+template <int kTileN>
+constexpr int kTagRun = kMaxSamples<kTileN> / kFineThreads;
+template <int kTileN>
+constexpr int kTagSlots = kMaxSamples<kTileN> + 2 * kFineThreads;
+
+template <int kTileN>
+__device__ __forceinline__ int tag_slot(int p) {
+  return p + 2 * (p / kTagRun<kTileN>);
+}
+
+// Shared memory of a sampled co-rank CTA at fan-in W: the pool (the
+// samples' columns and two tag lists, or the warps' stages), then each
+// warp's search words and bracket starts, the windows' starts A, the live
+// total, the brackets [L, U) of every interior boundary and run, the
+// windows' lengths, the sample offsets and each warp's stage offsets.
+template <typename E, int kTileN>
+__host__ __device__ constexpr size_t fine_pool_bytes(int W) {
+  const size_t samples = (size_t)kMaxSamples<kTileN> * sizeof(E) +
+                         2 * (size_t)kTagSlots<kTileN> * sizeof(short);
+  const size_t stages = (size_t)kFineWarps * 2 * W * sample_stride(W) *
+                        sizeof(E);
+  return align16(samples > stages ? samples : stages);
+}
+
+// Scratch ints of one warp's finish_candidates at fan-in W.
+__host__ __device__ constexpr int fin_words(int W) {
+  return 2 * W + (W < kFinishCandidates ? W : kFinishCandidates) * (W + 1);
+}
+
+template <typename E, int kTileN>
+__host__ __device__ constexpr size_t fine_smem(int W) {
+  return fine_pool_bytes<E, kTileN>(W) +
+         8 * ((size_t)kFineWarps * (smj_mp::corank_words(W) + W) + W + 1) +
+         4 * ((size_t)2 * kCoarse * W + W + (W + 1) +
+              (size_t)kFineWarps * (W + 1 + fin_words(W)));
+}
+
+// Entries of the ascending p[0, n) below v.
+__device__ __forceinline__ int count_below(const unsigned short* p, int n,
+                                           int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (p[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The whole CTA: merges the W sample lists (list r at [soff[r], soff[r +
+// 1]) of the columns sk, sp, ascending) in log2(W) pairwise rounds of
+// their indices between `from` (the identity) and `to`, output p at
+// tag_slot(p), the lower list first among equal values; kTagRun outputs
+// a thread a round.  Returns the buffer that holds the merged indices,
+// after a __syncthreads.
+template <typename E, int kTileN>
+__device__ unsigned short* merge_sample_tags(const int* sk, const int* sp,
+                                             const int* soff, int W,
+                                             unsigned short* from,
+                                             unsigned short* to) {
+  constexpr int kPer = kTagRun<kTileN>;
+  const auto at = [&](int t) { return smem_at<E>(sk, sp, t); };
+  const auto tag = [&](const unsigned short* b, int p) -> int {
+    return b[tag_slot<kTileN>(p)];
+  };
+  const int n = soff[W];
+  const int p0 = threadIdx.x * kPer;
+  for (int s = 1; s < W; s <<= 1) {
+    if (p0 < n) {
+      // the pair j holding output p0: the first whose end is past it
+      int j = 0, jhi = W / (2 * s) - 1;
+      while (j < jhi) {
+        const int mid = (j + jhi) >> 1;
+        if (soff[(mid + 1) * 2 * s] > p0) jhi = mid; else j = mid + 1;
+      }
+      int a0 = soff[j * 2 * s], b0 = soff[j * 2 * s + s];
+      int e = soff[(j + 1) * 2 * s];
+      int na = b0 - a0, nb = e - b0;
+      const int d = p0 - a0;
+      int lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+      while (lo < hi) {  // co-rank of d in the pair, a winning ties
+        const int mid = (lo + hi) >> 1;
+        if (at(tag(from, a0 + mid)) <= at(tag(from, b0 + d - 1 - mid))) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      int ia = lo, ib = d - lo;
+      int ta = ia < na ? tag(from, a0 + ia) : 0;
+      int tb = ib < nb ? tag(from, b0 + ib) : 0;
+      E va = ia < na ? at(ta) : E(), vb = ib < nb ? at(tb) : E();
+      for (int q = 0; q < kPer; ++q) {
+        const int p = p0 + q;
+        if (p >= n) break;
+        while (p >= e) {  // into the next pair
+          ++j;
+          a0 = e;
+          b0 = soff[j * 2 * s + s];
+          e = soff[(j + 1) * 2 * s];
+          na = b0 - a0;
+          nb = e - b0;
+          ia = ib = 0;
+          ta = na > 0 ? tag(from, a0) : 0;
+          tb = nb > 0 ? tag(from, b0) : 0;
+          va = na > 0 ? at(ta) : E();
+          vb = nb > 0 ? at(tb) : E();
+        }
+        if (ib >= nb || (ia < na && va <= vb)) {
+          to[tag_slot<kTileN>(p)] = (unsigned short)ta;
+          if (++ia < na) {
+            ta = tag(from, a0 + ia);
+            va = at(ta);
+          }
+        } else {
+          to[tag_slot<kTileN>(p)] = (unsigned short)tb;
+          if (++ib < nb) {
+            tb = tag(from, b0 + ib);
+            vb = at(tb);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    unsigned short* x = from;
+    from = to;
+    to = x;
+  }
+  return from;
+}
+
+// One warp, fan-in W <= 32: row[r] = run r's share of the first b
+// outputs, from the brackets staged in shared memory (the columns k, p):
+// run r's positions [lo_r, lo_r + w_r) at stage slots [offs[r], offs[r +
+// 1]), lo_r held by lane r, the brackets such that every element before
+// one is among the first b outputs and none after one is.  Each round
+// takes the middle element of C = min(W, kFinishCandidates) windows as
+// candidates (the runs taking turns when W > C), and counts, in every
+// window, the elements before each (ties to the lower run: the merge's
+// order), 32 / C lanes a candidate.  A candidate whose counts sum to b
+// gives the row; one below sums to less, and the windows' starts move
+// past it, one above to more, and their ends move to it: every window at
+// least halves in W / C rounds.  scratch: 2 W + C + C W ints of the
+// warp's shared memory.
+template <typename E>
+__device__ void finish_candidates(const int* k, const int* p,
+                                  const int* offs, int W, long long lo,
+                                  long long b, int* scratch, long long* row,
+                                  int lane) {
+  const int C = W < kFinishCandidates ? W : kFinishCandidates;
+  const int turns = W / C;  // rounds for every run to take a turn
+  int* wl = scratch;  // the windows, stage slots
+  int* wh = wl + W;
+  int* fc = wh + W;   // each candidate's count, -1 for none
+  int* cnt = fc + C;  // cnt[i * W + r]: run r's elements before candidate i
+  const int LP = 32 / C;  // lanes a candidate
+  const int ci = lane / LP, sub = lane - ci * LP;
+  const int target = (int)(b - smj_mp::group_sum(lane < W ? lo : 0, 32));
+  if (lane < W) {
+    wl[lane] = offs[lane];
+    wh[lane] = offs[lane + 1];
+  }
+  __syncwarp();
+  for (int round = 0;; ++round) {
+    int sl = 0, sh = 0;
+    if (lane < W) {
+      sl = wl[lane] - offs[lane];
+      sh = wh[lane] - offs[lane];
+    }
+    sl = __reduce_add_sync(smj_mp::kFullWarp, sl);
+    sh = __reduce_add_sync(smj_mp::kFullWarp, sh);
+    if (sl == target || sh == target) {
+      if (lane < W)
+        row[lane] = lo + (sl == target ? wl[lane] : wh[lane]) - offs[lane];
+      return;
+    }
+    const int turn = round % turns;
+    const int c = ci * turns + turn;  // this lane's candidate's run
+    const int lo_c = wl[c], hi_c = wh[c];
+    const bool valid = lo_c < hi_c;
+    const int mid = (lo_c + hi_c) >> 1;
+    int part = 0;
+    if (valid) {
+      const E v = smem_at<E>(k, p, mid);
+      for (int r = sub; r < W; r += LP) {
+        int a = mid;
+        if (r != c) {
+          a = wl[r];
+          int z = wh[r];
+          while (a < z) {
+            const int m = (a + z) >> 1;
+            const E u = smem_at<E>(k, p, m);
+            if (r < c ? u <= v : u < v) a = m + 1; else z = m;
+          }
+        }
+        cnt[ci * W + r] = a;
+        part += a - offs[r];
+      }
+    }
+    for (int o = 1; o < LP; o <<= 1)
+      part += __shfl_xor_sync(smj_mp::kFullWarp, part, o);
+    if (sub == 0) fc[ci] = valid ? part : -1;
+    __syncwarp();
+    const unsigned hit =
+        __ballot_sync(smj_mp::kFullWarp, valid && sub == 0 && part == target);
+    if (hit != 0) {
+      const int ce = (__ffs(hit) - 1) / LP;
+      if (lane < W) row[lane] = lo + cnt[ce * W + lane] - offs[lane];
+      return;
+    }
+    if (lane < W) {
+      int nl = wl[lane], nh = wh[lane];
+      for (int q = 0; q < C; ++q) {
+        const int f = fc[q];
+        if (f < 0) continue;
+        const int x = cnt[q * W + lane];
+        if (f < target) {  // candidate q is before the boundary
+          const int y = x + (q * turns + turn == lane ? 1 : 0);
+          nl = y > nl ? y : nl;
+        } else {
+          nh = x < nh ? x : nh;
+        }
+      }
+      wl[lane] = nl;
+      wh[lane] = nh;
+    }
+    __syncwarp();
+  }
+}
+
+// c[g][t][r] for the interior boundaries t of each coarse interval [t0,
+// t1) (t0 a multiple of kCoarse, t1 = min(t0 + kCoarse, tpg)), on the
+// coarse rows c[t0] and c[t1]: one CTA an interval, fan-in W <=
+// kSampledMaxFanin (the design above).
+template <typename E, int kTileN>
+__global__ void __launch_bounds__(kFineThreads, kFineMinBlocks)
+corank_kernel(SampledPass, Runs runs, long long* __restrict__ c,
+              long long ngroups, long long tpg, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s = sample_stride(W), ls = __ffs(s) - 1;  // s = 2^ls
+  constexpr int kM = kMaxSamples<kTileN>;
+  constexpr bool kPairs = sizeof(E) == 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long per = (tpg + kCoarse - 1) / kCoarse;
+  const long long g = blockIdx.x / per;
+  const long long t0 = (blockIdx.x - g * per) * kCoarse;
+  const long long t1 = t0 + kCoarse < tpg ? t0 + kCoarse : tpg;
+  const int F = (int)(t1 - t0 - 1);  // interior boundaries
+  if (g >= ngroups || F < 1) return;  // the same for the whole CTA
+  unsigned char* pool = smem;
+  long long* ws = reinterpret_cast<long long*>(
+      smem + fine_pool_bytes<E, kTileN>(W));
+  long long* wsrc = ws + kFineWarps * smj_mp::corank_words(W);
+  long long* A = wsrc + kFineWarps * W;
+  long long* live_s = A + W;
+  int* brk = reinterpret_cast<int*>(live_s + 1);
+  int* nlen = brk + 2 * kCoarse * W;
+  int* soff = nlen + W;
+  int* woff = soff + W + 1;
+  int* wfin = woff + kFineWarps * (W + 1);  // finish_candidates' scratch
+  int* sk = reinterpret_cast<int*>(pool);  // the samples' keys
+  int* sp = sk + kM;                       // and payloads (pairs)
+  unsigned short* tags0 = reinterpret_cast<unsigned short*>(
+      sk + (kPairs ? 2 : 1) * kM);
+  unsigned short* tags1 = tags0 + kTagSlots<kTileN>;
+  const long long run0 = g * W;
+  const long long* lo_row = c + (g * (tpg + 1) + t0) * W;
+  const long long* hi_row = c + (g * (tpg + 1) + t1) * W;
+
+  // the windows, the live total and the sample offsets (warp 0, W <= 32)
+  if (warp == 0) {
+    long long len = 0, a = 0;
+    int n = 0;
+    if (lane < W) {
+      len = runs.len(run0 + lane);
+      a = lo_row[lane];
+      n = (int)(hi_row[lane] - a);
+      A[lane] = a;
+      nlen[lane] = n;
+    }
+    const long long live = smj_mp::group_sum(len, 32);
+    int incl = n >> ls;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(smj_mp::kFullWarp, incl, o);
+      if (lane >= o) incl += x;
+    }
+    if (lane < W) soff[lane + 1] = incl;
+    if (lane == 0) {
+      soff[0] = 0;
+      *live_s = live;
+    }
+  }
+  __syncthreads();
+  const int M = soff[W];
+  const long long live = *live_s;
+  const long long b0 = t0 * kTileN < live ? t0 * kTileN : live;
+
+  // a. the samples, every copy in flight at once
+  for (int r = 0; r < W; ++r) {
+    const int s0 = soff[r], m = soff[r + 1] - s0;
+    const long long base = (run0 + r) * runs.stride + A[r] + s - 1;
+    for (int j = tid; j < m; j += kFineThreads) {
+      const long long at = base + ((long long)j << ls);
+      cp_async4(sk + s0 + j, runs.k + at);
+      if constexpr (kPairs) cp_async4(sp + s0 + j, runs.p + at);
+      tags0[tag_slot<kTileN>(s0 + j)] = (unsigned short)(s0 + j);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // b. their order, then each sample's rank
+  const unsigned short* order = merge_sample_tags<E, kTileN>(
+      sk, sp, soff, W, tags0, tags1);
+  unsigned short* pos = order == tags0 ? tags1 : tags0;
+  for (int p = tid; p < M; p += kFineThreads)
+    pos[order[tag_slot<kTileN>(p)]] = (unsigned short)p;
+  __syncthreads();
+
+  // c. the brackets of every interior boundary and run
+  for (int i = tid; i < F * W; i += kFineThreads) {
+    const int f = i / W, r = i - f * W;
+    const long long t = t0 + 1 + f;
+    const long long b = t * kTileN < live ? t * kTileN : live;
+    const long long bp = b - b0;  // <= N
+    const long long x = bp - (long long)W * (s - 1);
+    int pa = x <= 0 ? 0 : (int)((x - 1) >> ls);
+    int pb = (int)(bp >> ls);
+    pa = pa < M ? pa : M;
+    pb = pb < M ? pb : M;
+    const int m = soff[r + 1] - soff[r];
+    const int ka = count_below(pos + soff[r], m, pa);
+    const int kb = count_below(pos + soff[r], m, pb);
+    brk[2 * i] = ka << ls;
+    brk[2 * i + 1] = kb < m ? ((kb + 1) << ls) - 1 : nlen[r];
+  }
+  __syncthreads();  // the pool is the stages from here
+
+  // d. a warp a boundary: stage its brackets, then the exact search
+  int* stk = reinterpret_cast<int*>(reinterpret_cast<E*>(pool) +
+                                    (size_t)warp * 2 * W * s);
+  int* stp = stk + 2 * W * s;  // pairs: the payloads after the keys
+  long long* wsw = ws + warp * smj_mp::corank_words(W);
+  long long* src = wsrc + warp * W;
+  int* offs = woff + warp * (W + 1);
+  for (int f = warp; f < F; f += kFineWarps) {
+    const long long t = t0 + 1 + f;
+    const long long b = t * kTileN < live ? t * kTileN : live;
+    long long* row = c + (g * (tpg + 1) + t) * W;
+    int wid = 0;
+    long long lo = 0;
+    if (lane < W) {
+      const int l = brk[2 * (f * W + lane)];
+      wid = brk[2 * (f * W + lane) + 1] - l;
+      lo = A[lane] + l;
+      wsw[lane] = lo;
+      wsw[W + lane] = lo + wid;
+      src[lane] = (run0 + lane) * runs.stride + lo;
+    }
+    int incl = wid;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(smj_mp::kFullWarp, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const int total = __shfl_sync(smj_mp::kFullWarp, incl, 31);
+    if (lane < W) offs[lane + 1] = incl;
+    if (lane == 0) offs[0] = 0;
+    __syncwarp();
+    if (total <= 2 * W * s) {  // the same branch for the whole warp
+      for (int r = 0; r < W; ++r) {
+        const int o = offs[r], w = offs[r + 1] - o;
+        for (int i = lane; i < w; i += 32) {
+          cp_async4(stk + o + i, runs.k + src[r] + i);
+          if constexpr (kPairs) cp_async4(stp + o + i, runs.p + src[r] + i);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+      finish_candidates<E>(stk, stp, offs, W, lo, b,
+                           wfin + warp * fin_words(W), row, lane);
+    } else {
+      if (lane == 0) atomicAdd(&g_corank_fallbacks, 1ULL);
+      smj_mp::corank<E, true>(runs.cols(), run0 * runs.stride, runs.stride,
+                              W, b, wsw, row, lane);
+    }
+    __syncwarp();
+  }
+}
+
 // Dynamic shared memory of a merge tile of kTileN outputs: two buffers,
 // then W segment starts (int64) and W + 1 segment offsets (int).  The
 // wrapper's merge_smem_bytes is this sum for keys.
@@ -241,6 +713,19 @@ int launch_coranks(const Runs& runs, long long* c, long long ngroups,
   }
   for (int pass = 0; pass < 2; ++pass) {
     if ((parts & (1 << pass)) == 0) continue;
+    if (pass == 1 && W <= kSampledMaxFanin) {  // the sampled fine pass
+      void (*fine)(SampledPass, Runs, long long*, long long, long long,
+                   int) = corank_kernel<E, kTileN>;
+      const size_t fsmem = fine_smem<E, kTileN>(W);
+      if (fsmem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            fine, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fsmem);
+        if (err != cudaSuccess) return (int)err;
+      }
+      fine<<<(unsigned)(ngroups * cdiv(tpg, kCoarse)), kFineThreads, fsmem,
+             s>>>(SampledPass{}, runs, c, ngroups, tpg, W);
+      continue;
+    }
     const long long blocks = cdiv(warps[pass], cta_warps);
     if (W <= 32) {  // one run a lane: the windows in registers
       corank_kernel<E, true, kTileN>
@@ -320,6 +805,23 @@ int launch_any(const Runs& runs, int* out_k, int* out_p, long long* c,
 }
 
 }  // namespace
+
+// Fine boundaries whose sampled brackets overflowed their stage since the
+// last reset (the search then ran on the device columns), on the current
+// card: the tests and the smoke read it; it synchronises.  -1 on error.
+SMJ_API long long smj_corank_fallbacks(int reset) {
+  unsigned long long n = 0;
+  if (cudaMemcpyFromSymbol(&n, g_corank_fallbacks, sizeof(n)) !=
+      cudaSuccess)
+    return -1;
+  if (reset) {
+    const unsigned long long zero = 0;
+    if (cudaMemcpyToSymbol(g_corank_fallbacks, &zero, sizeof(zero)) !=
+        cudaSuccess)
+      return -1;
+  }
+  return (long long)n;
+}
 
 // Elements (int64) of the co-rank scratch a merge of ngroups groups of
 // `fanin` runs of `stride` slots needs at tiles of `tile` outputs

@@ -28,3 +28,31 @@ __device__ __forceinline__ int smj_key(long long v) { return (int)(v >> 32); }
 __device__ __forceinline__ int smj_payload(long long v) {
   return (int)((unsigned)v ^ 0x80000000u);
 }
+
+// cp.async: 16 bytes (the first `bytes` of them read, the rest zeroed) or
+// 4 bytes from device memory into shared memory, without registers.
+__device__ __forceinline__ void cp_async16(int* dst, const int* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's cp.async groups are in
+// flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}

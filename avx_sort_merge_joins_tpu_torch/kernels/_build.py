@@ -11,8 +11,9 @@ path never calls :func:`library`.
 
 Every entry point takes pointers and the stream as ``c_void_p``, sizes as
 ``c_int64``, and returns ``cudaGetLastError()`` as an int; :func:`check`
-turns a non-zero code into an exception.  The one exception,
-``smj_multiway_merge_scratch``, returns a size (``_RESTYPES``); the
+turns a non-zero code into an exception.  Two exceptions:
+``smj_multiway_merge_scratch`` returns a size and
+``smj_corank_fallbacks`` returns a count (``_RESTYPES``); the
 ``*_occupancy`` entry points write a count into a host int (``_IP``).
 """
 
@@ -45,6 +46,7 @@ _SIGNATURES = {
     "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
                                   _I, _I, _P),
     "smj_multiway_merge_scratch": (_L, _L, _I, _I),
+    "smj_corank_fallbacks": (_I,),
     "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _L, _P, _L, _L, _L, _I,
                               _I, _I, _P),
     "smj_chunk_gated_merge_tile": (),
@@ -62,7 +64,8 @@ _SIGNATURES = {
 }
 
 # entry points that return something else than a cudaError_t code
-_RESTYPES = {"smj_multiway_merge_scratch": ctypes.c_int64}
+_RESTYPES = {"smj_multiway_merge_scratch": ctypes.c_int64,
+             "smj_corank_fallbacks": ctypes.c_int64}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

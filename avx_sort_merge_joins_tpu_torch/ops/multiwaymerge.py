@@ -17,6 +17,13 @@ lengths at a fixed stride, keys only or with payloads (the varlen K2 and
 K6, plain version ``multiway_merge_varlen_plain``): the distributed
 joins' merge of the runs each shard receives.
 
+Before its tile merge the kernel writes co-rank rows, each run's share of
+the outputs before each tile boundary, in two launches: the coarse
+boundaries, every 32 tiles, by a search in device memory; the rest, up to
+fan-in ``SAMPLED_MAX_FANIN``, from regular samples of the coarse windows
+ranked and finished in shared memory, above it by the same search as the
+coarse ones.  :func:`corank_rows_plain` is those rows' plain version.
+
 The kernel merges in tiles of ``MERGE_TILE`` outputs.  Keys only, uniform
 or varlen, it also takes ``tile=`` 2,048 or 8,192 (``MERGE_TILES``): the
 ``-m`` merge-buffer size picks one through :func:`merge_tile_for`.  The
@@ -37,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..params import BLOCKSIZE_DEFAULT
+from ..utils import profiling
 from . import sort as sort_ops
 
 LAUNCHES = 0  # K2 wrapper calls that launched the kernel since the last reset
@@ -47,6 +55,11 @@ MERGE_TILE = 4096  # outputs a merge tile (smj_mp::kTile): K6 and the default
 MERGE_TILES = (2048, 4096, 8192)  # the tiles of the keys-only K2
 # K2 launches a tile since the last reset (a part of LAUNCHES)
 TILE_LAUNCHES = {t: 0 for t in MERGE_TILES}
+COARSE = 32  # tiles between two coarse co-rank boundaries (kCoarse)
+SAMPLED_MAX_FANIN = 32  # the sampled fine co-ranks' largest fan-in
+# K2/K6 calls whose fine co-ranks kept the search in device memory (fan-in
+# above SAMPLED_MAX_FANIN) since the last reset
+CORANK_SEARCH_LAUNCHES = 0
 
 
 def merge_smem_bytes(tile: int, fanin: int) -> int:
@@ -122,6 +135,67 @@ def multiway_merge_varlen_plain(keys: torch.Tensor, fanin: int,
     return (out if payloads is None else (out, out_p)), glen
 
 
+def corank_rows_plain(keys: torch.Tensor, fanin: int, uniform_lens=None,
+                      payloads: torch.Tensor | None = None, *,
+                      lens: torch.Tensor | None = None,
+                      stride: int | None = None,
+                      tile: int = MERGE_TILE) -> torch.Tensor:
+    """Plain version of K2's and K6's co-rank rows: an int64 tensor of
+    shape ``(ngroups, tpg + 1, fanin)``, ``tpg = cdiv(fanin * stride,
+    tile)``, whose ``[g, t, r]`` is how many of run r's elements are
+    among the first ``min(t * tile, live_g)`` outputs of group g's merge,
+    ties to the lower run (the scratch rows the kernel's co-rank launches
+    write).  Layouts as :func:`multiway_merge`'s: ``uniform_lens`` or
+    ``lens=`` with ``stride=``.  From a stable sort of every group's live
+    elements by value, laid out run after run: ties keep run order."""
+    if lens is None:
+        nruns, total, stride = uniform_lens
+        ngroups = sort_ops.cdiv(nruns, fanin)
+        starts = torch.arange(ngroups * fanin, dtype=torch.int64,
+                              device=keys.device) * stride
+        run_lens = (total - starts).clamp(0, stride)
+    else:
+        ngroups = lens.numel() // fanin
+        run_lens = lens.to(torch.int64).clamp(0, stride)
+    tpg = sort_ops.cdiv(fanin * stride, tile)
+    nr = ngroups * fanin
+    run = torch.repeat_interleave(
+        torch.arange(nr, dtype=torch.int64, device=keys.device), run_lens)
+    first = torch.cumsum(run_lens, 0) - run_lens
+    idx = run * stride + (torch.arange(run.numel(), dtype=torch.int64,
+                                       device=keys.device) - first[run])
+    vals = keys[idx].to(torch.int64) if payloads is None else \
+        sort_ops.pack_pairs(keys[idx], payloads[idx])
+    # grouped, then by value within a group, then run and position
+    order = torch.sort(vals, stable=True).indices
+    order = order[torch.sort(run[order] // fanin, stable=True).indices]
+    group = run[order] // fanin
+    glive = run_lens.view(ngroups, fanin).sum(1)
+    rank = torch.arange(order.numel(), dtype=torch.int64,
+                        device=keys.device) - (torch.cumsum(glive, 0) -
+                                               glive)[group]
+    # an output of rank k is before boundary t once t * tile > k
+    rows = torch.zeros((ngroups, tpg + 1, fanin), dtype=torch.int64,
+                       device=keys.device)
+    rows.index_put_((group, rank // tile + 1, run[order] % fanin),
+                    torch.ones_like(rank), accumulate=True)
+    return rows.cumsum(1)
+
+
+def corank_fallbacks(device, reset: bool = False) -> int:
+    """Fine co-rank boundaries on ``device``'s card whose sampled brackets
+    overflowed their shared-memory stage since the last reset (the
+    kernel's bound says none can), ``reset`` zeroing the count.  It
+    synchronises: for the tests and the smoke, never the join's path."""
+    from ..kernels import _build
+
+    with torch.cuda.device(device):
+        n = _build.library().smj_corank_fallbacks(int(reset))
+    if n < 0:
+        raise RuntimeError("smj_corank_fallbacks: reading the count failed")
+    return int(n)
+
+
 def corank_scratch(keys: torch.Tensor, ngroups: int, stride: int,
                    fanin: int, tile: int = MERGE_TILE) -> torch.Tensor:
     """The co-rank scratch of one K2 or K6 call on the keys' card, at tiles
@@ -144,7 +218,7 @@ def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
     tile."""
     from ..kernels import _build
 
-    global LAUNCHES, PAIR_LAUNCHES
+    global LAUNCHES, PAIR_LAUNCHES, CORANK_SEARCH_LAUNCHES
     most = MAX_FANIN if payloads is None else MAX_PAIR_FANIN
     if fanin > most:
         raise ValueError(f"multiway_merge: the kernel takes a fanin of at "
@@ -160,6 +234,14 @@ def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
             scratch.data_ptr(), scratch.numel(), keys.numel(), *layout, fanin,
             tile, parts, stream)
     _build.check(entry, code)
+    tpg = sort_ops.cdiv(fanin * stride, tile)
+    coarse = ngroups * (sort_ops.cdiv(tpg, COARSE) + 1)
+    searched = ((coarse if parts & 1 else 0) +
+                (ngroups * (tpg + 1) - coarse if parts & 2 else 0))
+    if searched:
+        profiling.count("smj.k2.coranks", searched)
+    if parts & 2 and fanin > SAMPLED_MAX_FANIN:
+        CORANK_SEARCH_LAUNCHES += 1
     if payloads is None:
         LAUNCHES += 1
         TILE_LAUNCHES[tile] += 1

@@ -20,7 +20,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    1, keys at +-(2^31 - 2)).  Then each kernel, its plain version
    and its one-call library yardstick are timed with CUDA events at the
    main path's shapes (128M keys); each K2 level also in its parts: the
-   co-rank passes (and the coarse one alone) and the tile merge.
+   co-rank passes (the coarse one and the sampled fine one alone) and the
+   tile merge, and its co-rank rows held to ``corank_rows_plain`` bit for
+   bit, with no sampled bracket falling back to the search (so each K6
+   level at 128M pairs).
 4. Kernel vs plain, pairs and merge passes, exact: K5 (pair block sort)
    in both directions at every block size, and at its network's edges
    (sorted and reversed keys, equal keys with distinct payloads, equal
@@ -139,7 +142,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    Its registers (cuobjdump -res-usage): at most 40, the six CTAs an SM
    its launch bounds ask for; its CTAs an SM at 2 to 256 shards, printed.
    The registers, stack and static shared memory of K2's and K6's co-rank
-   and tile-merge kernels, printed; K1's and K5's registers, local
+   and tile-merge kernels, printed (the sampled fine co-rank with local
+   memory or stack fails the run); K1's and K5's registers, local
    memory, stack and CTAs an SM at each block size: a K1 or K5 with local
    memory or stack (their keys and pairs live in registers) fails the
    run.  The same for K4's six kernels and K8's (registers, local memory,
@@ -528,8 +532,9 @@ def padded_rows(col: torch.Tensor, n: int, row: int, fill) -> torch.Tensor:
 
 def merge_parts_ms(runs: torch.Tensor, pays, n: int, level) -> dict:
     """One K2 (``pays`` None) or K6 level timed in its parts, CUDA events:
-    the two co-rank passes, the coarse one alone, and the tile merge on
-    their co-ranks."""
+    the two co-rank passes, the coarse one alone (a search in device
+    memory), the fine one alone (sampled, finished in shared memory, up to
+    fan-in 32) on the coarse rows, and the tile merge on their co-ranks."""
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
@@ -542,7 +547,32 @@ def merge_parts_ms(runs: torch.Tensor, pays, n: int, level) -> dict:
             "smj_multiway_merge", runs, pays, ngroups, span, w, n, span,
             parts=mask, scratch=scratch))
 
-    return {"corank": part(1 | 2), "coarse": part(1), "merge": part(4)}
+    return {"corank": part(1 | 2), "coarse": part(1), "fine": part(2),
+            "merge": part(4)}
+
+
+def check_corank_rows(kernel: str, runs: torch.Tensor, pays, n: int,
+                      level) -> None:
+    """One K2 (``pays`` None) or K6 level's co-rank rows, the scratch its
+    coarse and fine co-rank launches write, against
+    ``corank_rows_plain``: bit for bit, and no sampled bracket fell back
+    to the search in device memory."""
+    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
+    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+
+    _, span, nruns, w = level
+    ngroups = sort_ops.cdiv(nruns, w)
+    scratch = mw.corank_scratch(runs, ngroups, span, w)
+    mw.corank_fallbacks(runs.device, reset=True)
+    mw._launch("smj_multiway_merge", runs, pays, ngroups, span, w, n, span,
+               parts=1 | 2, scratch=scratch)
+    want = mw.corank_rows_plain(runs, w, (nruns, n, span), pays)
+    record(kernel, f"co-rank rows n={n} level={level}",
+           scratch[:want.numel()].view(want.shape), want)
+    falls = mw.corank_fallbacks(runs.device)
+    if falls:
+        raise AssertionError(f"{kernel} level={level}: {falls} sampled "
+                             f"brackets fell back to the search")
 
 
 def gated_parts_ms(land: torch.Tensor, lens: torch.Tensor, stride: int,
@@ -680,6 +710,7 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
         want = mw.multiway_merge_plain(runs, w, lens)
         record("K2", f"main_shape level={level}", got, want)
         del got
+        check_corank_rows("K2", runs, None, MAIN_N, level)
         lib_in = padded_rows(runs, MAIN_N, w * span, 2**31 - 1)
         ms = time_ms(lambda: mw.multiway_merge(runs, w, lens))
         parts = merge_parts_ms(runs, None, MAIN_N, level)
@@ -690,7 +721,8 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
                   MAIN_N * math.log2(w))
         log(f"[time] K2 level (stride, span, nruns, w)={level}: "
             f"kernel {ms:.3f} ms (co-rank {parts['corank']:.3f}, of it "
-            f"coarse {parts['coarse']:.3f}; merge {parts['merge']:.3f}), "
+            f"coarse {parts['coarse']:.3f}, fine {parts['fine']:.3f}; merge "
+            f"{parts['merge']:.3f}), "
             f"plain {plain:.3f} ms, library {library:.3f} ms, bound "
             f"{bound_ms(8 * MAIN_N, MAIN_N * math.log2(w))[0]:.3f} ms")
         runs = want
@@ -1140,6 +1172,7 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
             record("K6", f"n={n} level={level}", got, want)
             del got
             if timed:
+                check_corank_rows("K6", rk, rp, n, level)
                 lib_in = padded_rows(sort_ops.pack_pairs(rk, rp), n,
                                      w * span, 2**63 - 1)
                 ms = time_ms(lambda: mw.multiway_merge(rk, w, lens, rp))
@@ -1151,8 +1184,9 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
                 times.add("K6", ms, plain, library, 16 * n, n * math.log2(w))
                 log(f"[time] K6 level (stride, span, nruns, w)={level}: "
                     f"kernel {ms:.3f} ms (co-rank {parts['corank']:.3f}, "
-                    f"of it coarse {parts['coarse']:.3f}; merge "
-                    f"{parts['merge']:.3f}), plain {plain:.3f} ms, library "
+                    f"of it coarse {parts['coarse']:.3f}, fine "
+                    f"{parts['fine']:.3f}; merge {parts['merge']:.3f}), "
+                    f"plain {plain:.3f} ms, library "
                     f"{library:.3f} ms, bound "
                     f"{bound_ms(16 * n, n * math.log2(w))[0]:.3f} ms")
             rk, rp = want
@@ -2469,21 +2503,28 @@ def phase_merge_resources() -> None:
         r"Function ([^\s:]+):?\n([^\n]*)", usage)
         if "multiway_merge_cu" in name
         and re.search(r"(corank|merge)_kernelI[ix]", name)]
-    # co-ranks with the windows in registers (fan-in <= 32) or in shared
-    # memory, and the tile merge: keys at the three tiles, pairs at one
-    if len(found) != 12:
+    # co-rank searches with the windows in registers (fan-in <= 32) or in
+    # shared memory, the sampled fine co-ranks, and the tile merge: keys
+    # at the three tiles, pairs at one
+    if len(found) != 16:
         raise AssertionError(f"cuobjdump: {len(found)} K2/K6 kernels")
     for name, line in found:
         res = dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
         kernel, elem = re.search(r"(corank_kernel|merge_kernel)I([ix])",
                                  name).groups()
-        if kernel == "corank_kernel":
+        sampled = "SampledPass" in name
+        if sampled:
+            kernel += " (fine, sampled, finished in shared memory)"
+        elif kernel == "corank_kernel":
             kernel += (" (windows in registers)" if "Lb1E" in name
                        else " (windows in shared memory)")
         tile = re.search(r"Li(\d+)E", name).group(1)
         log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel} tile {tile}: "
             f"REG {res.get('REG')}, STACK {res.get('STACK')}, SHARED "
             f"{res.get('SHARED')}, LOCAL {res.get('LOCAL')}")
+        if sampled and ("REG" not in res or int(res.get("LOCAL", 1)) or
+                        int(res.get("STACK", 1))):
+            raise AssertionError(f"{kernel} uses local memory: {res}")
     k1 = {int(b): dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
           for b, line in re.findall(
               r"Function [^\n]*block_sort_kernelILi(\d+)E[^\n]*\n([^\n]*)",
