@@ -28,7 +28,7 @@ from .run import sizes
 
 
 def lower_precision(keys: torch.Tensor) -> torch.Tensor:
-    """The keys as float32 holds them, back as int32."""
+    """The keys as float32 holds them, back in the keys' type."""
     out = torch.empty_like(keys)
     for lo in range(0, keys.numel(), reference.CHUNK):
         part = keys[lo:lo + reference.CHUNK]
@@ -41,7 +41,8 @@ def control_run(cell: spec.Cell, seed: int, device, tuples=None) -> dict:
     place, and the comparison's checks."""
     n_r, n_s = sizes(cell.config, tuples)
     rel = gen.make_relations(n_r, n_s, cell.traffic, seed, device,
-                             bool(cell.config["payload_columns"]))
+                             bool(cell.config["payload_columns"]),
+                             gen.key_bytes(cell.config, cell.traffic))
     rk, sk = lower_precision(rel.r_keys), lower_precision(rel.s_keys)
     if cell.entry.ANSWER == "rows":
         positions = check.sample_positions(n_s, seed, device)

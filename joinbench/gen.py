@@ -3,8 +3,11 @@ the device from ``--seed`` in the shapes of the reference's generators
 (Balkesen et al., src/datagen/generator.c and genzipf.c), and handed to
 both the program and the plain reference.
 
-Tuples are ``<int32 key, int32 payload>``; the payload is the row id the
-tuple had before the shuffle, as the reference's generators number them.
+Tuples are ``<key, payload>`` of the configuration's ``"key_bytes"`` (4
+when absent: int32 columns; 8: int64 columns, the reference's KEY_8B
+tuple, types.h:23-29, whose key values are those of KEY_4B); the payload
+is the row id the tuple had before the shuffle, as the reference's
+generators number them.
 
 * R: the keys 1..|R| shuffled (``random_unique_gen``, knuth shuffle).
 * S ``"tiling"``: the keys 1..|R| tiled to |S| and shuffled
@@ -35,6 +38,7 @@ _MASK32 = (1 << 32) - 1
 _MULS = (0x7FEB352D, 0x68E31DA5, 0x2C1B3C6D, 0x297A2D39)
 # stream tags: each relation's shuffle and draws get keys of their own
 STREAM_R, STREAM_S, STREAM_ALPHABET, STREAM_DRAWS = 1, 2, 3, 4
+KEY_DTYPES = {4: torch.int32, 8: torch.int64}  # key_bytes -> column type
 
 
 def stream_seed(seed: int, stream: int, words: int = 1) -> list[int]:
@@ -93,8 +97,9 @@ class Bijection:
 
 @dataclasses.dataclass
 class Relations:
-    """A cell's R and S on one device: flat int32 columns of ``n_r`` and
-    ``n_s`` rows; payload columns only where the cell holds them."""
+    """A cell's R and S on one device: flat int32 or int64 columns of
+    ``n_r`` and ``n_s`` rows; payload columns only where the cell holds
+    them."""
 
     n_r: int
     n_s: int
@@ -163,17 +168,34 @@ def _fill_zipf(n_s: int, n_r: int, z: float, seed: int, keys: torch.Tensor,
     del cdf
 
 
+def key_bytes(config: dict, traffic: dict) -> int:
+    """The configuration's tuple width: ``config["key_bytes"]``, 4 or 8
+    bytes a key and as many a payload, 4 when absent.  Row answers are
+    packed from int32 halves (``reference.pack``), so a traffic mix that
+    asks for rows takes 4 only."""
+    kb = int(config.get("key_bytes", 4))
+    if kb not in KEY_DTYPES:
+        raise ValueError(f"configuration {config.get('name')!r}: key_bytes "
+                         f"{kb}, not 4 or 8")
+    if kb != 4 and traffic["query"] == "rows":
+        raise ValueError(f"configuration {config.get('name')!r}: key_bytes "
+                         f"{kb} with {traffic.get('name')!r}, which asks for "
+                         "rows: rows are compared as int32 pairs only")
+    return kb
+
+
 def make_relations(n_r: int, n_s: int, traffic: dict, seed: int, device,
-                   payloads: bool) -> Relations:
+                   payloads: bool, key_bytes: int = 4) -> Relations:
     """R and S of a cell on ``device``.  ``traffic["s_keys"]`` is
     ``"tiling"`` or ``"zipf"`` (with ``traffic["zipf_z"]``); ``payloads``
-    says whether the payload columns are made."""
+    says whether the payload columns are made; ``key_bytes`` (4 or 8) the
+    columns' width.  The values are the same at either width."""
     if not 0 < n_r < 2**31 - 1 or not 0 < n_s < 2**31:
         raise ValueError(f"sizes |R| = {n_r}, |S| = {n_s}: int32 keys and "
                          "row ids need both in 1..2^31 - 2")
 
     def col(n):
-        return torch.empty(n, dtype=torch.int32, device=device)
+        return torch.empty(n, dtype=KEY_DTYPES[key_bytes], device=device)
 
     rk, sk = col(n_r), col(n_s)
     rp = col(n_r) if payloads else None

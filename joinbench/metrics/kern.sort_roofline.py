@@ -6,18 +6,19 @@ summed device time (torch.profiler) of the kernels whose names match
 (``csrc/block_sort.cu``) and K5 ``block_sort_pairs_kernel``
 (``csrc/block_sort_pairs.cu``).
 
-Bytes come from the cell's sizes alone: each relation read once and
-written once by its sort, 8 B a keys-only tuple and 16 B a (key, payload)
-pair, whatever the implementation reads again.  Nothing when no such
-kernel ran."""
+Bytes come from the cell's sizes and tuple width alone: each relation
+read once and written once by its sort, 2 * key_bytes a keys-only tuple
+and 4 * key_bytes a (key, payload) pair, whatever the implementation
+reads again.  Nothing when no such kernel ran."""
 
 from joinbench.peaks import HBM_BYTES_PER_S
 
 PATTERN = r"\bblock_sort(_pairs)?_kernel\b"
 
 
-def bytes_per_join(n_r: int, n_s: int, s_pairs: bool) -> int:
-    return 8 * n_r + (16 if s_pairs else 8) * n_s
+def bytes_per_join(n_r: int, n_s: int, s_pairs: bool,
+                   key_bytes: int = 4) -> int:
+    return 2 * key_bytes * n_r + (4 if s_pairs else 2) * key_bytes * n_s
 
 
 def read(run):
@@ -26,5 +27,6 @@ def read(run):
     seconds = run.trace.kernel_seconds(PATTERN)
     if seconds <= 0:
         return None
-    need = bytes_per_join(run.n_r, run.n_s, run.s_pairs) * run.n_joins
+    need = bytes_per_join(run.n_r, run.n_s, run.s_pairs,
+                          run.key_bytes) * run.n_joins
     return 100.0 * need / HBM_BYTES_PER_S / seconds

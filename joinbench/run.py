@@ -54,14 +54,16 @@ WARMUP_JOINS = 2
 
 @dataclasses.dataclass
 class Record:
-    """What a per-layer reader reads: the cell's sizes, each window join's
-    info from the entry, and the trace (None untraced or off the card)."""
+    """What a per-layer reader reads: the cell's sizes and tuple width,
+    each window join's info from the entry, and the trace (None untraced
+    or off the card)."""
 
     n_r: int
     n_s: int
     s_pairs: bool  # S goes through the sort with its payloads
     joins: list
     trace: object = None
+    key_bytes: int = 4  # bytes a key, and a payload (gen.key_bytes)
 
     @property
     def n_joins(self) -> int:
@@ -130,6 +132,7 @@ def main(argv=None, t0=None, root=None, out=None, err=None) -> int:
     if cell.entry.ANSWER != cell.traffic["query"]:
         raise ValueError(f"{cell.name}: entry answers {cell.entry.ANSWER!r}"
                          f", traffic asks {cell.traffic['query']!r}")
+    kb = gen.key_bytes(cell.config, cell.traffic)
     cuda = args.device == "cuda"
     if cuda and (not torch.cuda.is_available()
                  or torch.cuda.device_count() < cell.chips):
@@ -161,7 +164,7 @@ def main(argv=None, t0=None, root=None, out=None, err=None) -> int:
     lap("context_s")
     n_r, n_s = sizes(cell.config, args.tuples)
     rel = gen.make_relations(n_r, n_s, cell.traffic, args.seed, dev,
-                             bool(cell.config["payload_columns"]))
+                             bool(cell.config["payload_columns"]), kb)
     sync()
     lap("data_s")
     state = cell.entry.prepare(rel, cell.config,
@@ -219,7 +222,7 @@ def main(argv=None, t0=None, root=None, out=None, err=None) -> int:
     window_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     memory_peak = max(setup_peak, window_peak) if cuda else None
 
-    record = Record(n_r, n_s, rowed, infos)
+    record = Record(n_r, n_s, rowed, infos, key_bytes=kb)
     if args.trace and cuda:
         record.trace = trace_mod.reduce(prof)
     del state, prof

@@ -20,7 +20,8 @@ def test_lower_precision_merges_keys_past_2_24():
 
 @pytest.mark.parametrize("cell", ["wlB_128M.mway_count",
                                   "wlB_128M.mway_materialize",
-                                  "wlA_1600M.mway_zipf1"])
+                                  "wlA_1600M.mway_zipf1",
+                                  "wlB_128M.mpass_count"])
 def test_control_is_not_correct(cell):
     res = control.control_run(spec.load_cell(ROOT, cell), 4000000009,
                               torch.device("cpu"), N)

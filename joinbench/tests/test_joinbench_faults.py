@@ -16,7 +16,7 @@ from joinbench import run, spec
 
 ROOT = spec.default_root()
 COUNT_CELLS = ["wlB_128M.mway_count", "wlA_1600M.mway_uniform",
-               "wlA_1600M.mway_zipf1"]
+               "wlA_1600M.mway_zipf1", "wlB_128M.mpass_count"]
 ROW_CELLS = ["wlB_128M.mway_materialize"]
 SHARDED = ["wlA_1600M.mway_uniform", "wlA_1600M.mway_zipf1"]
 
@@ -35,6 +35,11 @@ def _unsorted_pair_blocks(keys, payloads, n, block=16384, descending=False):
 def _merge_unchanged(keys, n, level, payloads=None, tile=None):
     """A K2/K6 merge level returning its state unchanged."""
     return keys if payloads is None else (keys, payloads)
+
+
+def _merge_pass_unchanged(keys, payloads, uniform_lens, descending=False):
+    """A K4 pass returning its state unchanged."""
+    return keys, payloads
 
 
 def _walk_count(rk, sk, nR, nS):
@@ -60,13 +65,21 @@ def _walk_count(rk, sk, nR, nS):
 
 
 def sort_unchanged(mp):
-    """The sort's steps return their state unchanged: K1/K5 and the
-    uniform K2/K6 merge levels, with K3 counting as it does on the card.
-    (The plain merge level on the CPU sorts whole groups, so K1 alone
-    unchanged would not show there.)"""
+    """The sort's steps return their state unchanged: K1/K5, the uniform
+    K2/K6 merge levels and K4's passes, with K3 counting as it does on the
+    card.  (The plain merge level and pass on the CPU sort whole groups,
+    so K1 alone unchanged would not show there.)"""
     mp.setattr(sort_ops, "sort_blocks", _unsorted_blocks)
     mp.setattr(sort_ops, "sort_blocks_pairs", _unsorted_pair_blocks)
     mp.setattr(mw, "merge_level", _merge_unchanged)
+    mp.setattr(sort_ops, "merge_pass", _merge_pass_unchanged)
+    mp.setattr(mergejoin, "merge_join_count_fused", _walk_count)
+
+
+def merge_passes_unchanged(mp):
+    """K4's pairwise passes return their input unchanged, the blocks
+    sorted by K1 and counted by K3 as on the card: m-pass's own merge."""
+    mp.setattr(sort_ops, "merge_pass", _merge_pass_unchanged)
     mp.setattr(mergejoin, "merge_join_count_fused", _walk_count)
 
 
@@ -108,7 +121,8 @@ def answer_altered(mp):
 
 CASES = ([(f, c) for f in (sort_unchanged, half_of_s, answer_altered)
           for c in COUNT_CELLS + ROW_CELLS]
-         + [(exchange_skipped, c) for c in SHARDED])
+         + [(exchange_skipped, c) for c in SHARDED]
+         + [(merge_passes_unchanged, "wlB_128M.mpass_count")])
 
 
 def _run(cell, seed="4000000007"):
@@ -145,6 +159,15 @@ def test_unsorted_blocks_really_are_unsorted():
     keys = torch.randperm(40000).int()
     assert not torch.equal(_unsorted_blocks(keys, 40000)[:40000],
                            sort_ops.sort_blocks(keys, 40000)[:40000])
+
+
+def test_merge_pass_unchanged_leaves_runs_unmerged():
+    keys = sort_ops.sort_blocks(torch.randperm(40000).int(), 40000)
+    level = sort_ops.pair_levels(40000, 16384)[0]
+    out = _merge_pass_unchanged(keys, None, (level[0], 40000, level[1]))[0]
+    assert torch.equal(out, keys)
+    assert not torch.equal(out, sort_ops.merge_pass(
+        keys, None, (level[0], 40000, level[1]))[0])
 
 
 def test_walk_count_is_the_count_on_sorted_columns():

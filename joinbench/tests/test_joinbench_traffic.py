@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from joinbench import gen
+from joinbench import gen, reference
 
 BIG_SEED = 2**31 + 12345
 
@@ -87,3 +87,28 @@ def test_zipf_frequencies_follow_the_cdf(z):
 def test_zipf_hot_key_share_at_workload_a():
     h = np.log(1.6e9) + 0.5772156649 + 1 / (2 * 1.6e9)
     assert 0.045 < 1 / h < 0.047  # the configuration's "about 4.6% of S"
+
+
+@pytest.mark.parametrize("traffic", [{"s_keys": "tiling"},
+                                     {"s_keys": "zipf", "zipf_z": 1.0}])
+def test_8_byte_keys_are_the_4_byte_values_in_int64(traffic):
+    narrow = gen.make_relations(5000, 9000, traffic, BIG_SEED, "cpu", True)
+    wide = gen.make_relations(5000, 9000, traffic, BIG_SEED, "cpu", True, 8)
+    for col in ("r_keys", "s_keys", "r_payloads", "s_payloads"):
+        a, b = getattr(narrow, col), getattr(wide, col)
+        assert a.dtype == torch.int32 and b.dtype == torch.int64
+        assert torch.equal(a.long(), b)
+    assert reference.count(wide.r_keys, wide.s_keys) == reference.count(
+        narrow.r_keys, narrow.s_keys)
+
+
+def test_key_bytes_from_the_configuration():
+    count, rows = {"name": "c", "query": "count"}, {"name": "r",
+                                                   "query": "rows"}
+    assert gen.key_bytes({"name": "a"}, count) == 4
+    assert gen.key_bytes({"name": "a"}, rows) == 4
+    assert gen.key_bytes({"name": "a", "key_bytes": 8}, count) == 8
+    with pytest.raises(ValueError, match="'a'.*rows"):
+        gen.key_bytes({"name": "a", "key_bytes": 8}, rows)
+    with pytest.raises(ValueError, match="'a'"):
+        gen.key_bytes({"name": "a", "key_bytes": 2}, count)
