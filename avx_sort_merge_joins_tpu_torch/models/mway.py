@@ -13,6 +13,11 @@ is the span ``smj.join``:
   "mergerest" -- the remaining K2 levels (avx_multiway_merge, :463-556),
   "mergejoin" -- the K3 match count (merge_join, joincommon.c:239-312).
 
+Inside the sort and merge phases each relation's work is a span of its
+own, ``smj.mway.sort.r`` and ``smj.mway.sort.s`` (its K1 block sort, its
+first K2 level, its other K2 levels: one span a phase that sorts or merges
+it), and the counter ``smj.k2.levels`` adds the K2 levels launched.
+
 Both relations sort ascending: the TPU package sorts S negated so that its
 count kernel can read S back to front; the port drops that layout.
 ``--scalarsort`` swaps K1+K2 for ``torch.sort``; ``--scalarmerge`` swaps the
@@ -46,6 +51,8 @@ from . import common
 
 FANIN_DEFAULT = 16
 BLOCK_MWAY = BLOCKSIZE_DEFAULT
+SORT_SPAN_R, SORT_SPAN_S = "smj.mway.sort.r", "smj.mway.sort.s"
+K2_LEVELS = "smj.k2.levels"  # the counter of K2 levels launched
 
 
 def _sort_to_two_runs(keys: torch.Tensor, n: int, block: int, levels):
@@ -55,6 +62,19 @@ def _sort_to_two_runs(keys: torch.Tensor, n: int, block: int, levels):
     for level in levels:
         ks = mw.merge_level(ks, n, level)
     return ks
+
+
+def _merge_levels(span: str, keys: torch.Tensor, n: int, levels,
+                  tile: int) -> torch.Tensor:
+    """One relation's K2 ``levels`` in the span ``span``, added to the
+    counter ``K2_LEVELS``; no span opens when there are none."""
+    if not levels:
+        return keys
+    with profiling.span(span):
+        for level in levels:
+            keys = mw.merge_level(keys, n, level, tile=tile)
+    profiling.count(K2_LEVELS, len(levels))
+    return keys
 
 
 def _mway_count_device(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
@@ -151,24 +171,21 @@ def _sortmergejoin_multiway(R: Relation, S: Relation, config: JoinConfig,
     levels_s = mw.merge_levels(nS, block, fanin)
 
     def sort_phase(_):
-        return (mw.sort_blocks_phase(R.keys, nR, block),
-                mw.sort_blocks_phase(S.keys, nS, block))
+        with profiling.span(SORT_SPAN_R):
+            rks = mw.sort_blocks_phase(R.keys, nR, block)
+        with profiling.span(SORT_SPAN_S):
+            sks = mw.sort_blocks_phase(S.keys, nS, block)
+        return rks, sks
 
     def merge1_phase(pair):
         rks, sks = pair
-        if levels_r:
-            rks = mw.merge_level(rks, nR, levels_r[0], tile=tile)
-        if levels_s:
-            sks = mw.merge_level(sks, nS, levels_s[0], tile=tile)
-        return rks, sks
+        return (_merge_levels(SORT_SPAN_R, rks, nR, levels_r[:1], tile),
+                _merge_levels(SORT_SPAN_S, sks, nS, levels_s[:1], tile))
 
     def mergerest_phase(pair):
         rks, sks = pair
-        for level in levels_r[1:]:
-            rks = mw.merge_level(rks, nR, level, tile=tile)
-        for level in levels_s[1:]:
-            sks = mw.merge_level(sks, nS, level, tile=tile)
-        return rks, sks
+        return (_merge_levels(SORT_SPAN_R, rks, nR, levels_r[1:], tile),
+                _merge_levels(SORT_SPAN_S, sks, nS, levels_s[1:], tile))
 
     def join_phase(pair):
         return mergejoin.merge_join_count_fused(*pair, nR, nS)
