@@ -1,5 +1,5 @@
 """Design choices of K1 (block sort), K2/K6 (multiway merge: its
-co-ranks), K3 (match count), K4 (merge pass), K5 (pair block sort), K7
+co-ranks and tile merge), K3 (match count), K4 (merge pass), K5 (pair block sort), K7
 (64-bit match count), K8 (radix histogram) and K11 (remote-pull push and
 gated merge) of the PyTorch port, and the parts
 of K9 (chunk-gated merge) and K10 (two-run count), measured against each
@@ -43,6 +43,24 @@ and built there by the package's own builder:
                    alone): the sampled CTA stopping after its samples'
                    loads, after their order, after the brackets, or
                    staging the brackets without the search;
+  k2_part_merge_none, k2_part_merge_one  timing only, their columns are
+                   wrong where a round is left out (timed on 128M keys and
+                   the card16 level): the tile merge loading, staging and
+                   storing its tile with no merge round, or with the first
+                   round alone (the tile merge's parts on the committed
+                   co-ranks);
+  k2_pairwise      K2's and K6's tile merge in the branching pairwise
+                   rounds that K4 and K11 keep (merge_rounds; the committed
+                   K2/K6 take every output by selects,
+                   merge_rounds_select);
+  k2_rounds4       K2's keys in radix-4 rounds (bench/variants/
+                   merge_rounds4.cuh: four runs a round, each thread's first
+                   output split among them), a design measured and not
+                   taken;
+  k2_out32         K2's tile merge with 32 outputs a thread (128 threads at
+                   tiles of 4,096; committed: 16, 256 threads);
+  k2_ctas_5        K2's tile merge held to 5 CTAs an SM (up to 48 registers;
+                   committed: 6, 40 registers);
   k1_one_cta       K1 allowed 128 registers, one CTA of 512 threads an SM
                    (the committed K1 is capped at 64: two CTAs an SM);
   k1_16_keys       K1 with 16 keys a thread, 1,024 threads a CTA;
@@ -138,6 +156,26 @@ K4_PAIRS = "struct Shape<long long> : ShapeOf<{}> {{}};"
 # K7's shape (csrc/merge_join_count.cu), by its arguments
 K7_SHAPE = "struct Count64Shape : CountShape<{}> {{}};"
 
+# K2/K6's tile merge (csrc/multiway_merge.cu, csrc/merge_path.cuh): its
+# call, K2's threads a tile, the select rounds' loop, the note before
+# merge_tile and its call of the select rounds; and the radix-4 rounds that
+# k2_rounds4 puts before that note
+K2_TILE = "smj_mp::merge_tile<E, kThreads, kTileN, true>("
+K2_THREADS = ("constexpr int kMergeThreads = sizeof(E) == 8 ? 512 : "
+              "kTileN / 16;")
+K2_ROUNDS = ("  for (int s = 1; s < W; s <<= 1) {\n"
+             "    merge_pairs_select<")
+TILE_NOTE = ("// The whole CTA of kThreads threads (all of them call it): "
+             "merges the tile\n")
+SELECT_CALL = ("    return merge_rounds_select<E, kThreads, kTileN>(offs, W, "
+               "buf0, buf1);\n")
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "variants",
+                       "merge_rounds4.cuh")) as _f:
+    RADIX4 = _f.read()
+
+# keys of the card16 cell's S, whose first K2 level k2_shapes times
+CARD16_S = 2_048_000_000
+
 # the line after K8's counting loop
 K8_ROW = "  int* row = out + (per_tile ? blockIdx.x * (long long)fanout : 0);"
 
@@ -179,6 +217,25 @@ VARIANTS = {
          "      finish_candidates<E>(stk, stp, offs, W, lo, b,\n"
          "                           wfin + warp * fin_words(W), row, lane);",
          "")]),
+    "k2_part_merge_none": (("k2",), [
+        ("merge_path.cuh", K2_ROUNDS, K2_ROUNDS.replace("s = 1", "s = W"))]),
+    "k2_part_merge_one": (("k2",), [
+        ("merge_path.cuh", K2_ROUNDS, K2_ROUNDS.replace("s < W", "s < W && "
+                                                        "s < 2"))]),
+    "k2_pairwise": (("k2",), [
+        ("multiway_merge.cu", K2_TILE, K2_TILE.replace("true", "false"))]),
+    "k2_rounds4": (("k2",), [
+        ("merge_path.cuh", SELECT_CALL, "    if constexpr (sizeof(E) == 4)\n"
+         "      return merge_rounds4<E, kThreads, kTileN>(offs, W, buf0, "
+         "buf1);\n" + SELECT_CALL),
+        ("merge_path.cuh", TILE_NOTE, RADIX4 + "\n" + TILE_NOTE)]),
+    "k2_out32": (("k2",), [
+        ("multiway_merge.cu", K2_THREADS,
+         K2_THREADS.replace("/ 16", "/ 32"))]),
+    "k2_ctas_5": (("k2",), [
+        ("multiway_merge.cu", "constexpr int kMergeMinBlocks = sizeof(E) == 8 "
+         "? 3 : 6 * kTile / kTileN;", "constexpr int kMergeMinBlocks = "
+         "sizeof(E) == 8 ? 3 : 5 * kTile / kTileN;")]),
     "k1_one_cta": (("k1",), [
         ("block_sort.cu", "constexpr int kMinBlocks = 2;",
          "constexpr int kMinBlocks = 1;")]),
@@ -275,8 +332,9 @@ VARIANTS = {
          "    if (threadIdx.x == 0) out_k[a0 + d_begin] = (int)cor[0];\n"
          "    return;\n")]),
     "k4_part_no_merge": (("k4",), [
-        ("merge_path.cuh", "  for (int s = 1; s < W; s <<= 1) {",
-         "  for (int s = W; s < W; s <<= 1) {")]),
+        ("merge_path.cuh", "  for (int s = 1; s < W; s <<= 1) {\n"
+         "    if (p0 < n) {", "  for (int s = W; s < W; s <<= 1) {\n"
+         "    if (p0 < n) {")]),
     "k4_lanes_32": (("k4",), [
         ("merge_pass.cu", "constexpr int kLanes = 4;",
          "constexpr int kLanes = 32;")]),
@@ -417,9 +475,11 @@ def k2_shapes(cs, sort_ops, dev):
     (label, keys, payloads or None, n) as block-sorted runs, or (label,
     landing, lens, stride) for the varlen merge.  128M keys
     (workload B's sort: W = 16, 16, 16, 2), 128M (key, row id) pairs,
-    a 200M-key shard of workload A (W = 16, 16, 16, 4), and the varlen
-    W = 8 merge of a shard's received runs (8 runs of 25M at the stride
-    of slack 2, 50,003,968), uniform and Zipf 1.0 (zipf_keys)."""
+    the first W = 16 level of the card16 cell's S (2,048,000,000 keys
+    drawn from 1..128M, 16 a key on average), a 200M-key shard of
+    workload A (W = 16, 16, 16, 4), and the varlen W = 8 merge of a
+    shard's received runs (8 runs of 25M at the stride of slack 2,
+    50,003,968), uniform and Zipf 1.0 (zipf_keys)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -430,6 +490,13 @@ def k2_shapes(cs, sort_ops, dev):
     pays = torch.arange(n, dtype=torch.int32, device=dev)
     yield ("128M pairs", *sort_ops.sort_blocks_pairs(keys, pays, n), n)
     del keys, pays
+    big = CARD16_S
+    keys = torch.randint(1, n + 1, (big,), generator=gen, dtype=torch.int32,
+                         device=dev)
+    runs = sort_ops.sort_blocks(keys, big)
+    del keys
+    yield ("2048M keys", runs, None, big)
+    del runs
     shard = 200_000_000
     keys = torch.randint(1, 1_600_000_001, (shard,), generator=gen,
                          dtype=torch.int32, device=dev)
@@ -459,9 +526,11 @@ def k2_parts(cs, mw, sort_ops, name: str) -> None:
 
     dev = torch.device("cuda", 0)
     part = name.startswith("k2_part_")
+    merge_part = name.startswith("k2_part_merge_")
     plain_rows = None if part else getattr(mw, "corank_rows_plain", None)
     for label, keys, extra, size in k2_shapes(cs, sort_ops, dev):
-        if part and label != "128M keys":
+        if part and label not in (("128M keys", "2048M keys") if merge_part
+                                  else ("128M keys",)):
             continue
         if label.startswith("varlen"):
             lens, stride, w = extra, size, extra.numel()
@@ -477,20 +546,28 @@ def k2_parts(cs, mw, sort_ops, name: str) -> None:
             continue
         runs, rp, n = keys, extra, size
         del keys, extra
-        for level in mw.merge_levels(n, cs.BLOCK, 16):
+        levels = mw.merge_levels(n, cs.BLOCK, 16)
+        for level in levels[:1] if n == CARD16_S else levels:
             _, span, nruns, w = level
             ul = (nruns, n, span)
             want = mw.multiway_merge_plain(runs, w, ul, rp)
-            if not part:
+            # a merge part's output is wrong wherever it leaves out a round
+            # the level needs: every level without rounds, a level past the
+            # first round's fan-in of 4 with one round
+            wrong = merge_part and (name == "k2_part_merge_none" or w > 4)
+            if not part or wrong:
                 got = mw.multiway_merge(runs, w, ul, rp)[0]
-                if not all(torch.equal(g, x) for g, x in zip(
+                if all(torch.equal(g, x) for g, x in zip(
                         got if rp is not None else (got,),
-                        want if rp is not None else (want,))):
-                    raise AssertionError(f"{name}: K2 {label} {level}")
+                        want if rp is not None else (want,))) == wrong:
+                    raise AssertionError(f"{name}: K2 {label} {level} "
+                                         f"exact={not wrong}")
                 del got
+            # (the plain rows of 2.048e9 keys would not fit the card)
             k2_time(cs, mw, name, f"{label} W={w} span={span}", runs, rp,
                     ("smj_multiway_merge", sort_ops.cdiv(nruns, w), span, w,
-                     n, span), plain_rows, dict(uniform_lens=ul))
+                     n, span), None if n == CARD16_S else plain_rows,
+                    dict(uniform_lens=ul))
             runs, rp = want if rp is not None else (want, None)
         del runs, rp
 
@@ -506,8 +583,10 @@ def k2_time(cs, mw, name: str, label: str, runs, pays, call, plain_rows,
         return mw._launch(entry, runs, pays, ngroups, stride, w, *args,
                           parts=mask, scratch=scratch)
 
-    # a timing-only variant's rows are wrong: no tile merge on them
-    masks = (1, 2) if name.startswith("k2_part_") else (1, 2, 3, 4)
+    # a co-rank part's rows are wrong: no tile merge on them; a merge part
+    # times the tile merge on the committed co-ranks
+    masks = ((3, 4) if name.startswith("k2_part_merge_") else (1, 2)
+             if name.startswith("k2_part_") else (1, 2, 3, 4))
     ms = {m: cs.time_ms(lambda m=m: part(m), 10) for m in masks}
     rows = ""
     if plain_rows is not None:
@@ -519,8 +598,10 @@ def k2_time(cs, mw, name: str, label: str, runs, pays, call, plain_rows,
         rows = ", rows = plain"
     more = (f", co-rank {ms[3]:.4f}, merge {ms[4]:.4f}" if 4 in ms
             else "")
+    first = (f"coarse {ms[1]:.4f} ms, fine {ms[2]:.4f}" if 1 in ms
+             else "ms")
     print(f"[{name}] K2 {label}{' pairs' if pays is not None else ''}: "
-          f"coarse {ms[1]:.4f} ms, fine {ms[2]:.4f}{more}{rows}", flush=True)
+          f"{first}{more}{rows}", flush=True)
 
 
 def worker(name: str, kernels: list[str]) -> None:
@@ -552,7 +633,9 @@ def worker(name: str, kernels: list[str]) -> None:
              "remote_pull_kernel": "K11",
              "corank_kernelIiLi4096EEEvNS_11SampledPass": "K2 sampled co-rank",
              "corank_kernelIxLi4096EEEvNS_11SampledPass": "K6 sampled co-rank",
-             "corank_kernelIiLb1ELi4096E": "K2 co-rank search"}
+             "corank_kernelIiLb1ELi4096E": "K2 co-rank search",
+             "merge_kernelIiLi4096E": "K2 tile merge",
+             "merge_kernelIxLi4096E": "K6 tile merge"}
     for fn, line in re.findall(r"Function ([^\s:]+):?\n([^\n]*)", usage):
         for pattern, kernel in kinds.items():
             if pattern in fn:

@@ -1,8 +1,8 @@
 // The merge-path tile of K2/K6 (multiway_merge.cu, whose varlen mode K9,
 // chunk_gated_merge.cu, runs) and K11 (remote_pull.cu): the W-way co-rank
-// search of one tile boundary, run by one warp, and the pairwise merge of
-// one tile in shared memory, run by the whole CTA, which K4
-// (merge_pass.cu) takes at W = 2.  W ascending runs (strips) lie `stride`
+// search of one tile boundary, run by one warp, and the merge of one tile
+// in shared memory, run by the whole CTA, which K4 (merge_pass.cu) takes
+// at W = 2.  W ascending runs (strips) lie `stride`
 // slots apart in int32 columns; an element is a key (E = int) or a (key,
 // payload) pair packed into one int64 whose signed order is the pairs'
 // lexicographic order (E = long long, smj_pack).
@@ -39,7 +39,11 @@
 // two buffers (each thread finds its co-rank by binary search,
 // then merges kTile / threads outputs serially, the two heads in
 // registers; the lower runs win ties, so the rounds keep run order among
-// equal elements).
+// equal elements).  K2/K6 take merge_rounds_select instead: the same
+// rounds, each output taken by selects, with no divergent branch and, in a
+// warp whose threads stay inside one pair, no check an output.  The merge
+// is bound by instruction issue (a 128M-key W = 16 level on an H100: 1.08
+// ms in merge_rounds, 0.90 in merge_rounds_select).
 #pragma once
 
 #include "smj_common.cuh"
@@ -404,22 +408,132 @@ __device__ const E* merge_rounds(const int* offs, int W, E* buf0, E* buf1) {
   return from;
 }
 
+// An element above every live one: a spent run's head in
+// merge_pairs_select (a live key is below INT32_MAX, and a live pair below
+// the pad pair, which packs to LLONG_MAX).
+template <typename E>
+__device__ __forceinline__ E elem_inf() {
+  if constexpr (sizeof(E) == 8) {
+    return LLONG_MAX;
+  } else {
+    return INT_MAX;
+  }
+}
+
+// One round of merge_rounds (merge the pairs of s-segment runs of `from`
+// into `to`; the caller syncs), every output taken by selects, not
+// branches: each run's head slot and end and its head value (elem_inf
+// once the run is spent) stay in registers, and an output picks the
+// smaller head (the lower run on ties), stores it, and reloads that run's
+// head, one load and no divergence an output.  A thread's outputs p0 ..
+// p0 + kPerThread - 1 lie in one padded row (sw(p0 + q) = sw(p0) + q).  A
+// warp whose threads all stay inside one pair and the tile's live outputs
+// merges without a check an output; a warp with a thread that runs into
+// the next pair or past the tile checks each output.
+template <typename E, int kThreads, int kTileN>
+__device__ __forceinline__ void merge_pairs_select(const int* offs, int W,
+                                                   int s, const E* from,
+                                                   E* to) {
+  constexpr int kPerThread = kTileN / kThreads;
+  static_assert((sizeof(E) == 8 ? 16 : 32) % kPerThread == 0,
+                "a thread's outputs must share a padded row");
+  const E inf = elem_inf<E>();
+  const int n = offs[W];
+  const int p0 = threadIdx.x * kPerThread;
+  const bool live = p0 < n;
+  int j = 0, pa = 0, ea = 0, pb = 0, eb = 0;
+  E va = inf, vb = inf;
+  if (live) {
+    // the pair j holding output p0: the first whose end is past it
+    int jhi = W / (2 * s) - 1;
+    while (j < jhi) {
+      const int mid = (j + jhi) >> 1;
+      if (offs[(mid + 1) * 2 * s] > p0) jhi = mid; else j = mid + 1;
+    }
+    pa = offs[j * 2 * s];
+    ea = offs[j * 2 * s + s];
+    eb = offs[(j + 1) * 2 * s];
+    const int ia = merge_co_rank(from, pa, ea - pa, ea, eb - ea, p0 - pa);
+    pb = ea + (p0 - pa - ia);
+    pa += ia;
+    va = pa < ea ? from[sw<E>(pa)] : inf;
+    vb = pb < eb ? from[sw<E>(pb)] : inf;
+  }
+  E* const out = to + sw<E>(p0);
+  const auto step = [&](int q) {
+    const bool tb = vb < va;
+    out[q] = tb ? vb : va;
+    const int np = (tb ? pb : pa) + 1;
+    const E nv = np < (tb ? eb : ea) ? from[sw<E>(np)] : inf;
+    pa = tb ? pa : np;
+    pb = tb ? np : pb;
+    va = tb ? va : nv;
+    vb = tb ? nv : vb;
+  };
+  const int stop = n < eb ? n : eb;
+  if (__all_sync(kFullWarp, !live || p0 + kPerThread <= stop)) {
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < kPerThread; ++q) step(q);
+    }
+    return;
+  }
+  if (!live) return;
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int p = p0 + q;
+    if (p < n) {
+      while (p >= eb) {  // into the next pair
+        ++j;
+        pa = eb;
+        ea = offs[j * 2 * s + s];
+        pb = ea;
+        eb = offs[(j + 1) * 2 * s];
+        va = pa < ea ? from[sw<E>(pa)] : inf;
+        vb = pb < eb ? from[sw<E>(pb)] : inf;
+      }
+      step(q);
+    }
+  }
+}
+
+// merge_rounds in merge_pairs_select's rounds.
+template <typename E, int kThreads, int kTileN = kTile>
+__device__ const E* merge_rounds_select(const int* offs, int W, E* buf0,
+                                        E* buf1) {
+  E* from = buf0;
+  E* to = buf1;
+  for (int s = 1; s < W; s <<= 1) {
+    merge_pairs_select<E, kThreads, kTileN>(offs, W, s, from, to);
+    __syncthreads();
+    E* x = from;
+    from = to;
+    to = x;
+  }
+  return from;
+}
+
 // The whole CTA of kThreads threads (all of them call it): merges the tile
 // whose segment r is [src[r], src[r] + offs[r + 1] - offs[r]) of the
 // columns, offs[W] <= kTileN outputs (kTile unless the caller names
-// another), W a power of two: load_tile, stage_tile into buf0,
-// merge_rounds.  src and offs lie in shared memory; buf0 and buf1 are
-// buffers of buf_elems<E, kTileN>() elements.  Returns the
-// buffer that holds the merged tile, position p at sw<E>(p); the caller
-// writes it out.
-template <typename E, int kThreads, int kTileN = kTile, class C>
+// another), W a power of two: load_tile, stage_tile into buf0, then
+// merge_rounds_select (kSelect) or merge_rounds.  src and offs lie in
+// shared memory; buf0 and buf1 are buffers of buf_elems<E, kTileN>()
+// elements.  Returns the buffer that holds the merged tile, position p at
+// sw<E>(p); the caller writes it out.
+template <typename E, int kThreads, int kTileN = kTile, bool kSelect = false,
+          class C>
 __device__ const E* merge_tile(const C& cols, const long long* src,
                                const int* offs, int W, E* buf0, E* buf1) {
   E v[kTileN / kThreads];
   load_tile<E, kThreads, kTileN>(cols, src, offs, W, v);
   stage_tile<E, kThreads, kTileN>(v, offs[W], buf0);
   __syncthreads();
-  return merge_rounds<E, kThreads, kTileN>(offs, W, buf0, buf1);
+  if constexpr (kSelect) {
+    return merge_rounds_select<E, kThreads, kTileN>(offs, W, buf0, buf1);
+  } else {
+    return merge_rounds<E, kThreads, kTileN>(offs, W, buf0, buf1);
+  }
 }
 
 }  // namespace smj_mp

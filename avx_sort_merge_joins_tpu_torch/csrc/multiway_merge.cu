@@ -19,8 +19,9 @@
 //
 // What bounds it on the H100: each element is read and written once in
 // device memory (8 B a key, 16 B a pair), plus the co-rank scratch (one
-// int64 a run a tile boundary).  The merge is bound by shared memory and
-// instruction issue, log2(W) merge steps an element.  The coarse co-rank
+// int64 a run a tile boundary).  The merge is bound by instruction issue,
+// log2(W) merge steps an element, each taken by selects
+// (merge_path.cuh's merge_rounds_select).  The coarse co-rank
 // search is a chain of dependent loads over whole runs (one wave of
 // warps, so its latency); the sampled fine co-ranks read about a quarter
 // of the keys' sectors (a sample every 32 keys, 32-byte sectors) and
@@ -685,7 +686,7 @@ merge_kernel(Runs runs, const long long* __restrict__ c,
   }
   if (end > cap) end = cap;
   if (n > 0) {  // the same branch for the whole CTA
-    const E* merged = smj_mp::merge_tile<E, kThreads, kTileN>(
+    const E* merged = smj_mp::merge_tile<E, kThreads, kTileN, true>(
         runs.cols(), src, offs, W, buf0, buf1);
     for (int p = tid; p < n; p += kThreads)
       store_elem<E>(out_k, out_p, out0 + p, merged[smj_mp::sw<E>(p)]);
@@ -775,6 +776,17 @@ int launch(const Runs& runs, int* out_k, int* out_p, long long* c,
   return (int)cudaGetLastError();
 }
 
+template <typename E, int kTileN>
+int merge_occupancy(int* ctas) {
+  const size_t smem = merge_smem<E, kTileN>(16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      merge_kernel<E, kTileN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, merge_kernel<E, kTileN>, kMergeThreads<E, kTileN>, smem);
+}
+
 // tile: outputs a merge tile, kTile for pairs; 2,048, 4,096 or 8,192 for
 // keys.  Pairs merge at fan-in kMaxPairFanin at most.
 int launch_any(const Runs& runs, int* out_k, int* out_p, long long* c,
@@ -821,6 +833,26 @@ SMJ_API long long smj_corank_fallbacks(int reset) {
       return -1;
   }
   return (long long)n;
+}
+
+// The CTAs an SM holds of the tile merge at `tile` outputs, keys only
+// (pairs 0; 2,048, 4,096 or 8,192) or pairs (tile 4,096), at fan-in 16,
+// into *ctas (a host int).
+SMJ_API int smj_multiway_merge_occupancy(int tile, int pairs, int* ctas) {
+  if (pairs) {
+    return tile == kTile ? merge_occupancy<long long, kTile>(ctas)
+                         : (int)cudaErrorInvalidValue;
+  }
+  switch (tile) {
+    case kTile / 2:
+      return merge_occupancy<int, kTile / 2>(ctas);
+    case kTile:
+      return merge_occupancy<int, kTile>(ctas);
+    case kTile * 2:
+      return merge_occupancy<int, kTile * 2>(ctas);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Elements (int64) of the co-rank scratch a merge of ngroups groups of

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "smj_multiway_merge_varlen": (_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I,
                                   _I, _I, _P),
     "smj_multiway_merge_scratch": (_L, _L, _I, _I),
+    "smj_multiway_merge_occupancy": (_I, _I, _IP),
     "smj_corank_fallbacks": (_I,),
     "smj_chunk_gated_merge": (_P, _P, _P, _P, _P, _L, _P, _L, _L, _L, _I,
                               _I, _I, _P),

@@ -2488,7 +2488,8 @@ def phase_merge_resources() -> None:
     """Registers, stack and static shared memory of K2's and K6's kernels
     (cuobjdump -res-usage of the built library, the recipe of phase 19);
     the tile merge's buffers and the co-rank windows are dynamic shared
-    memory on top.  K1's registers, local memory and stack, and the CTAs
+    memory on top.  The tile merges' CTAs an SM (at fan-in 16); a tile
+    merge or a sampled co-rank with local memory or stack fails the run.  K1's registers, local memory and stack, and the CTAs
     an SM it keeps at each block size: its keys live in registers, and a
     key array in local memory (LOCAL or STACK above 0) fails the run.  The
     same for K5, whose packed pairs live in registers too, and for K4's,
@@ -2519,11 +2520,19 @@ def phase_merge_resources() -> None:
             kernel += (" (windows in registers)" if "Lb1E" in name
                        else " (windows in shared memory)")
         tile = re.search(r"Li(\d+)E", name).group(1)
+        ctas = ""
+        if kernel == "merge_kernel":  # its rounds' heads live in registers
+            c = ctypes.c_int(0)
+            _build.check("smj_multiway_merge_occupancy",
+                         _build.library().smj_multiway_merge_occupancy(
+                             int(tile), int(elem == "x"), ctypes.byref(c)))
+            ctas = f"; {c.value} CTAs an SM"
         log(f"[sass] {'K6' if elem == 'x' else 'K2'} {kernel} tile {tile}: "
             f"REG {res.get('REG')}, STACK {res.get('STACK')}, SHARED "
-            f"{res.get('SHARED')}, LOCAL {res.get('LOCAL')}")
-        if sampled and ("REG" not in res or int(res.get("LOCAL", 1)) or
-                        int(res.get("STACK", 1))):
+            f"{res.get('SHARED')}, LOCAL {res.get('LOCAL')}{ctas}")
+        if (sampled or kernel == "merge_kernel") and (
+                "REG" not in res or int(res.get("LOCAL", 1)) or
+                int(res.get("STACK", 1))):
             raise AssertionError(f"{kernel} uses local memory: {res}")
     k1 = {int(b): dict(re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line))
           for b, line in re.findall(
