@@ -53,10 +53,6 @@ and built there by the package's own builder:
                    rounds that K4 and K11 keep (merge_rounds; the committed
                    K2/K6 take every output by selects,
                    merge_rounds_select);
-  k2_rounds4       K2's keys in radix-4 rounds (bench/variants/
-                   merge_rounds4.cuh: four runs a round, each thread's first
-                   output split among them), a design measured and not
-                   taken;
   k2_out32         K2's tile merge with 32 outputs a thread (128 threads at
                    tiles of 4,096; committed: 16, 256 threads);
   k2_ctas_5        K2's tile merge held to 5 CTAs an SM (up to 48 registers;
@@ -157,21 +153,12 @@ K4_PAIRS = "struct Shape<long long> : ShapeOf<{}> {{}};"
 K7_SHAPE = "struct Count64Shape : CountShape<{}> {{}};"
 
 # K2/K6's tile merge (csrc/multiway_merge.cu, csrc/merge_path.cuh): its
-# call, K2's threads a tile, the select rounds' loop, the note before
-# merge_tile and its call of the select rounds; and the radix-4 rounds that
-# k2_rounds4 puts before that note
+# call, K2's threads a tile and the select rounds' loop
 K2_TILE = "smj_mp::merge_tile<E, kThreads, kTileN, true>("
 K2_THREADS = ("constexpr int kMergeThreads = sizeof(E) == 8 ? 512 : "
               "kTileN / 16;")
 K2_ROUNDS = ("  for (int s = 1; s < W; s <<= 1) {\n"
              "    merge_pairs_select<")
-TILE_NOTE = ("// The whole CTA of kThreads threads (all of them call it): "
-             "merges the tile\n")
-SELECT_CALL = ("    return merge_rounds_select<E, kThreads, kTileN>(offs, W, "
-               "buf0, buf1);\n")
-with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "variants",
-                       "merge_rounds4.cuh")) as _f:
-    RADIX4 = _f.read()
 
 # keys of the card16 cell's S, whose first K2 level k2_shapes times
 CARD16_S = 2_048_000_000
@@ -224,11 +211,6 @@ VARIANTS = {
                                                         "s < 2"))]),
     "k2_pairwise": (("k2",), [
         ("multiway_merge.cu", K2_TILE, K2_TILE.replace("true", "false"))]),
-    "k2_rounds4": (("k2",), [
-        ("merge_path.cuh", SELECT_CALL, "    if constexpr (sizeof(E) == 4)\n"
-         "      return merge_rounds4<E, kThreads, kTileN>(offs, W, buf0, "
-         "buf1);\n" + SELECT_CALL),
-        ("merge_path.cuh", TILE_NOTE, RADIX4 + "\n" + TILE_NOTE)]),
     "k2_out32": (("k2",), [
         ("multiway_merge.cu", K2_THREADS,
          K2_THREADS.replace("/ 16", "/ 32"))]),

@@ -30,11 +30,12 @@ import sys
 import numpy as np
 import torch
 
+from .kernels import _build
+
 ENTRY_N = 1 << 16  # 64K ⋈ 64K tuples
 DRYRUN_NR, DRYRUN_NS = 4096, 8192
 
-# The kernels each leg must launch on the card (launch counters of
-# ops.sort, ops.multiwaymerge, ops.mergejoin and parallel.remote_fifo):
+# The kernels each leg must launch on the card (kernels._build.launches()):
 # a leg that took a plain route would launch none.  dist_join counts with
 # the torch.sort baseline and has none.
 LEG_KERNELS = {
@@ -109,33 +110,16 @@ def dryrun_inputs():
     return rk, rp, sk, sp, sk_z
 
 
-def launch_counts() -> dict[str, int]:
-    """Every kernel's launch counter, by kernel id."""
-    from .ops import mergejoin, partition
-    from .ops import multiwaymerge as mw
-    from .ops import sort as sort_ops
-    from .parallel import remote_fifo
-
-    return {"K1": sort_ops.LAUNCHES, "K2": mw.LAUNCHES,
-            "K3": mergejoin.LAUNCHES, "K4": sort_ops.MERGE_PASS_LAUNCHES,
-            "K5": sort_ops.PAIR_SORT_LAUNCHES, "K6": mw.PAIR_LAUNCHES,
-            "K7": mergejoin.LAUNCHES64, "K8": partition.LAUNCHES,
-            "K9": remote_fifo.LAUNCHES, "K10": mergejoin.LAUNCHES2,
-            "K11": remote_fifo.PULL_LAUNCHES}
-
-
 def _leg(name: str, run, expected: int, on_card: bool) -> dict:
     """Run one leg: ``run()`` returns ``(count, overflow)``.  Raises, the
     leg named, unless the overflow is 0, the count ``expected`` and, on
     the card, every kernel of ``LEG_KERNELS[name]`` launched.  Returns the
     leg's count and launches."""
-    before = launch_counts()
+    before = _build.launches()
     cnt, overflow = run()
     if on_card:
         torch.cuda.synchronize()
-    after = launch_counts()
-    launched = {k: after[k] - before[k] for k in after
-                if after[k] != before[k]}
+    launched = dict(_build.launches() - before)
     if overflow != 0:
         raise AssertionError(f"{name}: bucket overflow {overflow}")
     if cnt != expected:

@@ -15,10 +15,13 @@ turns a non-zero code into an exception.  Two exceptions:
 ``smj_multiway_merge_scratch`` returns a size and
 ``smj_corank_fallbacks`` returns a count (``_RESTYPES``); the
 ``*_occupancy`` entry points write a count into a host int (``_IP``).
+Every kernel launch goes through :func:`launch`, which counts it by kernel
+id (:func:`launches`).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import hashlib
@@ -70,6 +73,9 @@ _RESTYPES = {"smj_multiway_merge_scratch": ctypes.c_int64,
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# launches by kernel id ("K1" .. "K11"), and K2's tiles ("K2.tile<t>") and
+# searched fine co-ranks ("K2.search"), since the last reset_launches()
+_launches: collections.Counter = collections.Counter()
 build_seconds: float | None = None  # wall time of the last nvcc build
 
 
@@ -164,11 +170,26 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name} failed with cudaError {code}: {text}")
 
 
-@contextlib.contextmanager
-def launching_on(t):
-    """Make tensor ``t``'s card the current device for a launch, as
-    PyTorch's own kernels do, and yield that card's current stream."""
+def launch(keys, entry: str, t, *args) -> None:
+    """Launch the kernel entry point ``entry`` on tensor ``t``'s card, as
+    PyTorch's own kernels do: that card made current, ``args`` then its
+    current stream.  Raises through :func:`check`; when the launch
+    succeeded, counts 1 under each of ``keys``, a kernel id or a tuple of
+    them."""
     import torch
 
     with torch.cuda.device(t.device):
-        yield torch.cuda.current_stream().cuda_stream
+        code = getattr(library(), entry)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    check(entry, code)
+    _launches.update((keys,) if isinstance(keys, str) else keys)
+
+
+def launches() -> collections.Counter:
+    """A copy of the launch count by key (0 for a key never counted)."""
+    return collections.Counter(_launches)
+
+
+def reset_launches() -> None:
+    """Empty the launch count."""
+    _launches.clear()

@@ -30,12 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..utils import profiling
 from . import sort as sort_ops
-
-LAUNCHES = 0  # K3 kernel launches since the last reset
-LAUNCHES64 = 0  # K7
-LAUNCHES2 = 0  # K10
 
 
 def merge_join_count_fused_plain(rk: torch.Tensor, sk: torch.Tensor,
@@ -60,14 +57,8 @@ def merge_join_count_fused(rk: torch.Tensor, sk: torch.Tensor,
     out = torch.zeros((), dtype=torch.int64, device=rk.device)
     if nR == 0 or nS == 0:
         return out
-    from ..kernels import _build
-
-    global LAUNCHES
-    with _build.launching_on(rk) as stream:
-        code = _build.library().smj_merge_join_count(
-            rk.data_ptr(), nR, sk.data_ptr(), nS, out.data_ptr(), stream)
-    _build.check("smj_merge_join_count", code)
-    LAUNCHES += 1
+    _build.launch("K3", "smj_merge_join_count", rk, rk.data_ptr(), nR,
+                  sk.data_ptr(), nS, out.data_ptr())
     return out
 
 
@@ -100,15 +91,9 @@ def merge_join_count_fused64(rhi: torch.Tensor, rlo: torch.Tensor,
     out = torch.zeros((), dtype=torch.int64, device=rhi.device)
     if nR == 0 or nS == 0:
         return out
-    from ..kernels import _build
-
-    global LAUNCHES64
-    with _build.launching_on(rhi) as stream:
-        code = _build.library().smj_merge_join_count64(
-            rhi.data_ptr(), rlo.data_ptr(), nR, shi.data_ptr(),
-            slo.data_ptr(), nS, out.data_ptr(), stream)
-    _build.check("smj_merge_join_count64", code)
-    LAUNCHES64 += 1
+    _build.launch("K7", "smj_merge_join_count64", rhi, rhi.data_ptr(),
+                  rlo.data_ptr(), nR, shi.data_ptr(), slo.data_ptr(), nS,
+                  out.data_ptr())
     return out
 
 
@@ -154,15 +139,8 @@ def merge_join_count_fused2(rk: torch.Tensor, sk: torch.Tensor, nR: int,
     out = torch.zeros((), dtype=torch.int64, device=rk.device)
     if nR == 0 or nS == 0:
         return out
-    from ..kernels import _build
-
-    global LAUNCHES2
-    with _build.launching_on(rk) as stream:
-        code = _build.library().smj_merge_join_count2(
-            rk.data_ptr(), nR, sk.data_ptr(), nS, span_r, span_s,
-            out.data_ptr(), stream)
-    _build.check("smj_merge_join_count2", code)
-    LAUNCHES2 += 1
+    _build.launch("K10", "smj_merge_join_count2", rk, rk.data_ptr(), nR,
+                  sk.data_ptr(), nS, span_r, span_s, out.data_ptr())
     return out
 
 

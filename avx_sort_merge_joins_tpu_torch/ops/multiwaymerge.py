@@ -43,23 +43,15 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import _build
 from ..params import BLOCKSIZE_DEFAULT
-from ..utils import profiling
 from . import sort as sort_ops
 
-LAUNCHES = 0  # K2 wrapper calls that launched the kernel since the last reset
-PAIR_LAUNCHES = 0  # K6
 MAX_FANIN = 2048  # the keys' largest fan-in (kMaxFanin)
 MAX_PAIR_FANIN = 1024  # the pairs' (kMaxPairFanin)
 MERGE_TILE = 4096  # outputs a merge tile (smj_mp::kTile): K6 and the default
 MERGE_TILES = (2048, 4096, 8192)  # the tiles of the keys-only K2
-# K2 launches a tile since the last reset (a part of LAUNCHES)
-TILE_LAUNCHES = {t: 0 for t in MERGE_TILES}
-COARSE = 32  # tiles between two coarse co-rank boundaries (kCoarse)
 SAMPLED_MAX_FANIN = 32  # the sampled fine co-ranks' largest fan-in
-# K2/K6 calls whose fine co-ranks kept the search in device memory (fan-in
-# above SAMPLED_MAX_FANIN) since the last reset
-CORANK_SEARCH_LAUNCHES = 0
 
 
 def merge_smem_bytes(tile: int, fanin: int) -> int:
@@ -187,8 +179,6 @@ def corank_fallbacks(device, reset: bool = False) -> int:
     overflowed their shared-memory stage since the last reset (the
     kernel's bound says none can), ``reset`` zeroing the count.  It
     synchronises: for the tests and the smoke, never the join's path."""
-    from ..kernels import _build
-
     with torch.cuda.device(device):
         n = _build.library().smj_corank_fallbacks(int(reset))
     if n < 0:
@@ -200,8 +190,6 @@ def corank_scratch(keys: torch.Tensor, ngroups: int, stride: int,
                    fanin: int, tile: int = MERGE_TILE) -> torch.Tensor:
     """The co-rank scratch of one K2 or K6 call on the keys' card, at tiles
     of ``tile`` outputs."""
-    from ..kernels import _build
-
     size = _build.library().smj_multiway_merge_scratch(ngroups, stride,
                                                        fanin, tile)
     return torch.empty(size, dtype=torch.int64, device=keys.device)
@@ -215,10 +203,9 @@ def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
     the fan-in.  ``parts``, a mask of 1 (coarse co-ranks), 2 (fine
     co-ranks) and 4 (the tile merge, on the co-ranks ``scratch`` holds),
     picks the launches, for timing each; ``tile`` the outputs a merge
-    tile."""
-    from ..kernels import _build
-
-    global LAUNCHES, PAIR_LAUNCHES, CORANK_SEARCH_LAUNCHES
+    tile.  Counted as "K2" and "K2.tile<tile>", or "K6", and "K2.search"
+    when the fine co-ranks keep the search in device memory (fan-in above
+    ``SAMPLED_MAX_FANIN``)."""
     most = MAX_FANIN if payloads is None else MAX_PAIR_FANIN
     if fanin > most:
         raise ValueError(f"multiway_merge: the kernel takes a fanin of at "
@@ -227,27 +214,16 @@ def _launch(entry: str, keys: torch.Tensor, payloads, ngroups: int,
         scratch = corank_scratch(keys, ngroups, stride, fanin, tile)
     out_k = torch.empty_like(keys)
     out_p = None if payloads is None else torch.empty_like(payloads)
-    with _build.launching_on(keys) as stream:
-        code = getattr(_build.library(), entry)(
-            keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
-            out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
-            scratch.data_ptr(), scratch.numel(), keys.numel(), *layout, fanin,
-            tile, parts, stream)
-    _build.check(entry, code)
-    tpg = sort_ops.cdiv(fanin * stride, tile)
-    coarse = ngroups * (sort_ops.cdiv(tpg, COARSE) + 1)
-    searched = ((coarse if parts & 1 else 0) +
-                (ngroups * (tpg + 1) - coarse if parts & 2 else 0))
-    if searched:
-        profiling.count("smj.k2.coranks", searched)
+    ids = ("K2", f"K2.tile{tile}") if payloads is None else ("K6",)
     if parts & 2 and fanin > SAMPLED_MAX_FANIN:
-        CORANK_SEARCH_LAUNCHES += 1
-    if payloads is None:
-        LAUNCHES += 1
-        TILE_LAUNCHES[tile] += 1
-        return out_k
-    PAIR_LAUNCHES += 1
-    return out_k, out_p
+        ids += ("K2.search",)
+    _build.launch(ids, entry, keys, keys.data_ptr(),
+                  None if payloads is None else payloads.data_ptr(),
+                  out_k.data_ptr(),
+                  None if out_p is None else out_p.data_ptr(),
+                  scratch.data_ptr(), scratch.numel(), keys.numel(), *layout,
+                  fanin, tile, parts)
+    return out_k if payloads is None else (out_k, out_p)
 
 
 def _multiway_merge_varlen(keys: torch.Tensor, fanin: int,

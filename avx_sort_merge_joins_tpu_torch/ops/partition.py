@@ -35,6 +35,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels import _build
 from . import mxu_permute
 from . import sort as sort_ops
 
@@ -42,8 +43,6 @@ HIST_TILE = 65536  # keys per histogram tile: the JAX package's 512 x 128
 MAX_RADIX_BITS = 16  # the reference bench's largest fanout, 2^16
 ALIGN_DEFAULT = 128  # partition starts: one 128-lane row, as in JAX
 MAX_PARTITION_N = 64_000_000  # partition_relation's input limit
-
-LAUNCHES = 0  # K8 kernel launches since the last reset
 
 
 def hash_bit_modulo(keys: torch.Tensor, mask: int, nbits: int) -> torch.Tensor:
@@ -110,15 +109,8 @@ def _hist(keys: torch.Tensor, nradixbits: int, bitshift: int,
         shape, dtype=torch.int32, device=keys.device)
     if n == 0:
         return out
-    from ..kernels import _build
-
-    global LAUNCHES
-    with _build.launching_on(keys) as stream:
-        code = _build.library().smj_radix_hist(
-            keys.data_ptr(), n, nradixbits, bitshift, int(per_tile),
-            out.data_ptr(), stream)
-    _build.check("smj_radix_hist", code)
-    LAUNCHES += 1
+    _build.launch("K8", "smj_radix_hist", keys, keys.data_ptr(), n,
+                  nradixbits, bitshift, int(per_tile), out.data_ptr())
     return out
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import _build
 from ..params import BLOCKSIZE_DEFAULT
 from .bitonic import KEY_NEG_INF, KEY_POS_INF
 
@@ -46,10 +47,6 @@ from .bitonic import KEY_NEG_INF, KEY_POS_INF
 SUPPORTED_BLOCKS = (1024, 2048, 4096, 8192, 16384)
 
 _LOW_HALF = 1 << 32  # the payload half of a packed pair
-
-LAUNCHES = 0  # K1 kernel launches since the last reset
-PAIR_SORT_LAUNCHES = 0  # K5
-MERGE_PASS_LAUNCHES = 0  # K4
 
 
 def cdiv(a: int, b: int) -> int:
@@ -217,16 +214,10 @@ def sort_blocks(keys: torch.Tensor, n: int,
     _check_block(block, "sort_blocks")
     if keys.device.type == "cpu":
         return sort_blocks_plain(keys, n, block)
-    from ..kernels import _build
-
-    global LAUNCHES
     nblocks = max(1, cdiv(n, block))
     out = torch.empty(nblocks * block, dtype=torch.int32, device=keys.device)
-    with _build.launching_on(keys) as stream:
-        code = _build.library().smj_block_sort(
-            keys.data_ptr(), out.data_ptr(), n, block, nblocks, stream)
-    _build.check("smj_block_sort", code)
-    LAUNCHES += 1
+    _build.launch("K1", "smj_block_sort", keys, keys.data_ptr(),
+                  out.data_ptr(), n, block, nblocks)
     return out
 
 
@@ -263,19 +254,13 @@ def sort_blocks_pairs(keys: torch.Tensor, payloads: torch.Tensor, n: int,
     _check_block(block, "sort_blocks_pairs")
     if keys.device.type == "cpu":
         return sort_blocks_pairs_plain(keys, payloads, n, block, descending)
-    from ..kernels import _build
-
-    global PAIR_SORT_LAUNCHES
     nblocks = max(1, cdiv(n, block))
     out_k = torch.empty(nblocks * block, dtype=torch.int32,
                         device=keys.device)
     out_p = torch.empty_like(out_k)
-    with _build.launching_on(keys) as stream:
-        code = _build.library().smj_block_sort_pairs(
-            keys.data_ptr(), payloads.data_ptr(), out_k.data_ptr(),
-            out_p.data_ptr(), n, block, nblocks, int(descending), stream)
-    _build.check("smj_block_sort_pairs", code)
-    PAIR_SORT_LAUNCHES += 1
+    _build.launch("K5", "smj_block_sort_pairs", keys, keys.data_ptr(),
+                  payloads.data_ptr(), out_k.data_ptr(), out_p.data_ptr(), n,
+                  block, nblocks, int(descending))
     return out_k, out_p
 
 
@@ -352,29 +337,17 @@ def merge_pass(keys: torch.Tensor, payloads: torch.Tensor | None,
     if keys.device.type == "cpu":
         return merge_pass_plain(keys, payloads, uniform_lens, descending,
                                 lens=lens, stride=stride)
-    from ..kernels import _build
-
-    global MERGE_PASS_LAUNCHES
     out_k = torch.empty_like(keys)
     out_p = None if payloads is None else torch.empty_like(payloads)
-    in_p = None if payloads is None else payloads.data_ptr()
-    dst_p = None if out_p is None else out_p.data_ptr()
-    with _build.launching_on(keys) as stream:
-        if lens is None:
-            _, total, span = uniform_lens
-            entry = "smj_merge_pass"
-            code = _build.library().smj_merge_pass(
-                keys.data_ptr(), in_p, out_k.data_ptr(), dst_p, keys.numel(),
-                total, span, int(descending), stream)
-        else:
-            entry = "smj_merge_pass_varlen"
-            code = _build.library().smj_merge_pass_varlen(
-                keys.data_ptr(), in_p, out_k.data_ptr(), dst_p,
-                lens.data_ptr(), lens.numel(), stride, stream)
-    _build.check(entry, code)
-    MERGE_PASS_LAUNCHES += 1
+    cols = (keys.data_ptr(), None if payloads is None else payloads.data_ptr(),
+            out_k.data_ptr(), None if out_p is None else out_p.data_ptr())
     if lens is None:
+        _, total, span = uniform_lens
+        _build.launch("K4", "smj_merge_pass", keys, *cols, keys.numel(),
+                      total, span, int(descending))
         return out_k, out_p
+    _build.launch("K4", "smj_merge_pass_varlen", keys, *cols,
+                  lens.data_ptr(), lens.numel(), stride)
     return out_k, out_p, lens.view(-1, 2).clamp(0, stride).sum(
         1, dtype=torch.int32)
 

@@ -40,10 +40,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..ops.bitonic import KEY_POS_INF
-
-LAUNCHES = 0  # K9 kernel launches since the last reset
-PULL_LAUNCHES = 0  # K11 kernel launches since the last reset
 
 # Output keys per merge tile: the kernel's (K2's merge-path tile;
 # smj_chunk_gated_merge_tile reports it on the card), and the tiles the
@@ -284,27 +282,20 @@ def _gated_launch(landing: torch.Tensor, lens: torch.Tensor, stride: int,
     ``parts``, a mask of 1 (coarse co-ranks), 2 (fine co-ranks), 8 (the
     gate) and 4 (the tile merge), picks the launches, the gate and the
     merge on the co-ranks ``scratch`` holds, for timing each."""
-    from ..kernels import _build
     from ..ops import multiwaymerge as mw
 
-    global LAUNCHES
     W, max_chunks = arrive.shape
     if scratch is None:
         scratch = mw.corank_scratch(landing, 1, stride, W)
     out = torch.empty_like(landing)
     stats = torch.empty(W + 1, dtype=torch.int32, device=landing.device)
-    lib = _build.library()
-    if lib.smj_chunk_gated_merge_tile() != GATE_TILE:
+    if _build.library().smj_chunk_gated_merge_tile() != GATE_TILE:
         raise RuntimeError("chunk_gated_merge: the kernel's tile is not "
                            f"GATE_TILE = {GATE_TILE}")
-    with _build.launching_on(landing) as stream:
-        code = lib.smj_chunk_gated_merge(
-            landing.data_ptr(), lens.data_ptr(), arrive.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), scratch.numel(),
-            stats.data_ptr(), landing.numel(), stride, chunk_elems, W,
-            max_chunks, parts, stream)
-    _build.check("smj_chunk_gated_merge", code)
-    LAUNCHES += 1
+    _build.launch("K9", "smj_chunk_gated_merge", landing, landing.data_ptr(),
+                  lens.data_ptr(), arrive.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), scratch.numel(), stats.data_ptr(),
+                  landing.numel(), stride, chunk_elems, W, max_chunks, parts)
     return out, stats[:W], stats[W]
 
 
@@ -430,8 +421,6 @@ def _enable_peers(cards: list) -> None:
     one-word copy each way, which enables it in PyTorch's caching allocator
     too (so that memory it maps later stays reachable), then by the
     library, which takes access already enabled as done."""
-    from ..kernels import _build
-
     for a in cards:
         for b in cards:
             if a != b and (a.index, b.index) not in _PEERS:
@@ -465,9 +454,6 @@ def _pull_launch(mesh, bflat, recv_counts, cap: int, chunk_elems: int,
     ``landing`` (a full launch's) no push runs and every arrival flag is
     set before the launch, so the launch times the gated merge alone; the
     result is the full launch's."""
-    from ..kernels import _build
-
-    global PULL_LAUNCHES
     n, chunks = mesh.n, cap // chunk_elems
     merge_only = landing is not None
     if not merge_only:
@@ -503,12 +489,10 @@ def _pull_launch(mesh, bflat, recv_counts, cap: int, chunk_elems: int,
         _enable_peers(cards)
         _join_streams(cards)
     for c in cards:
-        with _build.launching_on(scratch[c]) as stream:
-            code = _build.library().smj_remote_pull(
-                tables[c].data_ptr(), scratch[c].data_ptr(), len(local[c]),
-                cap, chunk_elems, n, window, int(merge_only), stream)
-        _build.check("smj_remote_pull", code)
-        PULL_LAUNCHES += 1
+        _build.launch("K11", "smj_remote_pull", scratch[c],
+                      tables[c].data_ptr(), scratch[c].data_ptr(),
+                      len(local[c]), cap, chunk_elems, n, window,
+                      int(merge_only))
     if len(cards) > 1:
         _join_streams(cards)
     status = [scratch[c][2:4].tolist() for c in cards]

@@ -968,24 +968,17 @@ def results_of(stdout: str) -> int:
 
 
 def reset_launches() -> None:
-    from avx_sort_merge_joins_tpu_torch.ops import mergejoin
-    from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
-    from avx_sort_merge_joins_tpu_torch.ops import partition
-    from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
 
-    from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo
-
-    sort_ops.LAUNCHES = mw.LAUNCHES = mergejoin.LAUNCHES = 0
-    sort_ops.MERGE_PASS_LAUNCHES = sort_ops.PAIR_SORT_LAUNCHES = 0
-    mw.PAIR_LAUNCHES = mergejoin.LAUNCHES64 = 0
-    partition.LAUNCHES = mergejoin.LAUNCHES2 = remote_fifo.LAUNCHES = 0
-    remote_fifo.PULL_LAUNCHES = 0
+    _build.reset_launches()
 
 
 def launches() -> dict[str, int]:
-    from avx_sort_merge_joins_tpu_torch.graft_entry import launch_counts
+    """Every kernel's launches since the last reset, by kernel id."""
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
 
-    return launch_counts()
+    counts = _build.launches()
+    return {k: counts[k] for k in KERNELS}
 
 
 def check_launched(path: str, counts: dict, need) -> None:
@@ -1445,12 +1438,13 @@ def phase_merge_tiles(dev: torch.device) -> None:
     run over many tiles; then fan-in 2,048 (MAX_FANIN) at every tile,
     uniform and varlen.  Each tile's launches are counted apart; the four
     K2 levels of a 128M sort are timed at every tile."""
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(43)
     rng = np.random.default_rng(43)
-    before = dict(mw.TILE_LAUNCHES)
+    before = _build.launches()
     for tile in NEW_MERGE_TILES:
         for case in ("uniform", "domain_ends"):
             for fanin in (2, 4, 8, 16):
@@ -1504,7 +1498,9 @@ def phase_merge_tiles(dev: torch.device) -> None:
         merge_check(f"varlen fanin={fanin} stride={stride}", lk, None, fanin,
                     lens=tl, stride=stride, tile=tile)
     torch.cuda.synchronize()
-    launched = {t: mw.TILE_LAUNCHES[t] - before[t] for t in mw.MERGE_TILES}
+    after = _build.launches()
+    launched = {t: after[f"K2.tile{t}"] - before[f"K2.tile{t}"]
+                for t in mw.MERGE_TILES}
     if min(launched.values()) <= 0:
         raise AssertionError(f"K2 tiles launched {launched}")
     # the four K2 levels of a 128M sort at each tile
@@ -1535,6 +1531,7 @@ def phase_cli_m() -> dict[str, int]:
     """``-a m-way -m BYTES`` through the CLI at 128M for a budget that
     names each tile (MWAY_M_BUDGETS): ``Results = 128000000``, the tile
     line, and every K2 launch of the run at that tile."""
+    from avx_sort_merge_joins_tpu_torch.kernels import _build
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
 
     total = {k: 0 for k in KERNELS}
@@ -1544,12 +1541,11 @@ def phase_cli_m() -> dict[str, int]:
         argv = ["-a", "m-way", "-m", str(budget), "-r", str(MAIN_N), "-s",
                 str(MAIN_N)]
         reset_launches()
-        before = dict(mw.TILE_LAUNCHES)
         t0 = time.perf_counter()
         rc, stdout, stderr = run_cli_full(argv)
         torch.cuda.synchronize()
         counts = launches()
-        at = {t: mw.TILE_LAUNCHES[t] - before[t] for t in mw.MERGE_TILES}
+        at = {t: _build.launches()[f"K2.tile{t}"] for t in mw.MERGE_TILES}
         rec = re.search(r"^\[STATS\] NUMTUPLES \d+, TOTAL-TIME-USECS "
                         r"([\d.]+)", stderr, re.M)
         log(f"[-m] cli.main({argv}) -> rc {rc} in "

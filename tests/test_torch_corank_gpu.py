@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from avx_sort_merge_joins_tpu_torch.kernels import _build
 from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as tmw
 from avx_sort_merge_joins_tpu_torch.ops import sort as tsort
 
@@ -90,9 +91,9 @@ def test_keys_rows_equal_plain(cuda, kind, fanin, tile):
     n = span * fanin * 3 + 5 * span + 1234
     keys = torch.from_numpy(_values(kind, n, rng).astype(np.int32)).to(cuda)
     runs = tsort.sort_blocks(keys, n, span)
-    before = tmw.CORANK_SEARCH_LAUNCHES
+    before = _build.launches()["K2.search"]
     _check_uniform(runs, None, fanin, -(-n // span), n, span, tile)
-    assert tmw.CORANK_SEARCH_LAUNCHES == before
+    assert _build.launches()["K2.search"] == before
     assert tmw.corank_fallbacks(cuda) == 0
 
 
@@ -105,10 +106,10 @@ def test_keys_rows_equal_plain_at_the_largest_fanins(cuda, fanin, span):
     keys = torch.from_numpy(_values("zipf", n, rng).astype(np.int32)).to(
         cuda)
     runs = tsort.sort_blocks_plain(keys, n, span)
-    before = tmw.CORANK_SEARCH_LAUNCHES
+    before = _build.launches()["K2.search"]
     for tile in (2048, 4096, 8192):
         _check_uniform(runs, None, fanin, -(-n // span), n, span, tile)
-    assert tmw.CORANK_SEARCH_LAUNCHES >= before + 3
+    assert _build.launches()["K2.search"] >= before + 3
 
 
 @pytest.mark.parametrize("fanin", [2, 8, 16, 1024])
@@ -168,7 +169,7 @@ def test_no_fallback_at_the_cells_scaled_down_shapes(cuda, cell):
     n = 1 << 23 if cell == "wlB_128M" else 1 << 25
     keys = torch.from_numpy(rng.integers(
         1, n + 1, n).astype(np.int32)).to(cuda)
-    before = tmw.CORANK_SEARCH_LAUNCHES
+    before = _build.launches()["K2.search"]
     runs = tsort.sort_blocks(keys, n, 16384)
     for _, span, nruns, w in tmw.merge_levels(n, 16384, 16):
         _check_uniform(runs, None, w, nruns, n, span, 4096)
@@ -185,33 +186,28 @@ def test_no_fallback_at_the_cells_scaled_down_shapes(cuda, cell):
                     np.int32)).to(cuda)
                 land[r * stride:r * stride + v.numel()] = torch.sort(v).values
             _check_varlen(land, None, 8, lens, stride, 4096)
-    assert tmw.CORANK_SEARCH_LAUNCHES == before
+    assert _build.launches()["K2.search"] == before
     assert tmw.corank_fallbacks(cuda) == 0
 
 
 @pytest.mark.parametrize("fanin", [2, 16, 1024])
 def test_corank_counter_counts_the_boundaries_without_a_sync(cuda, fanin):
-    """``smj.k2.coranks`` counts every tile boundary a K2 call searches,
-    from the shapes on the host: the call makes no host sync."""
+    """A K2 call, traced, is counted as one "K2" launch and makes no host
+    sync."""
     from torch.profiler import ProfilerActivity, profile
-
-    from avx_sort_merge_joins_tpu_torch.utils import profiling
 
     span = 16384 if fanin <= 16 else 64
     n = span * fanin * 2 + 999
     runs = tsort.sort_blocks_plain(torch.from_numpy(np.random.default_rng(
         fanin).integers(0, 1000, n).astype(np.int32)).to(cuda), n, span)
     nruns = -(-n // span)
-    ngroups = -(-nruns // fanin)
     tmw.multiway_merge(runs, fanin, (nruns, n, span))  # built and warm
     torch.cuda.synchronize()
-    profiling.reset()
+    before = _build.launches()
     with profile(activities=[ProfilerActivity.CPU]):
         torch.cuda.set_sync_debug_mode("error")
         try:
             tmw.multiway_merge(runs, fanin, (nruns, n, span))
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        counted = profiling.span_totals()["smj.k2.coranks"].calls
-    tpg = -(-fanin * span // tmw.MERGE_TILE)
-    assert counted == ngroups * (tpg + 1)
+    assert _build.launches()["K2"] == before["K2"] + 1

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from avx_sort_merge_joins_tpu_torch.datagen import generator as tgen
+from avx_sort_merge_joins_tpu_torch.kernels import _build
 from avx_sort_merge_joins_tpu_torch.models import mpass, mpsm, mway
 from avx_sort_merge_joins_tpu_torch.ops import join64 as tj
 from avx_sort_merge_joins_tpu_torch.ops import merge as tmg
@@ -38,10 +39,10 @@ def _keys(n, seed, low=-(2**31 - 2), high=2**31 - 2):
 @pytest.mark.parametrize("block", [1024, 16384])
 def test_block_sort_kernel_equals_plain(cuda, n, block):
     keys = _keys(max(n, 1), n, -50, 50).to(cuda)
-    before = tsort.LAUNCHES
+    before = _build.launches()
     got = tsort.sort_blocks(keys, n, block)
     torch.cuda.synchronize()
-    assert tsort.LAUNCHES == before + 1
+    assert _build.launches()["K1"] == before["K1"] + 1
     assert torch.equal(got, tsort.sort_blocks_plain(keys, n, block))
 
 
@@ -84,10 +85,11 @@ def test_multiway_merge_kernel_equals_plain(cuda, n, span, fanin):
     runs = tsort.sort_blocks_plain(_keys(n, fanin, -1000, 1000).to(cuda), n,
                                    span)
     lens = (max(1, -(-n // span)), n, span)
-    before = tmw.LAUNCHES, tmw.PAIR_LAUNCHES
+    before = _build.launches()
     got, new_lens = tmw.multiway_merge(runs, fanin, lens)
     torch.cuda.synchronize()
-    assert (tmw.LAUNCHES, tmw.PAIR_LAUNCHES) == (before[0] + 1, before[1])
+    after = _build.launches()
+    assert (after["K2"], after["K6"]) == (before["K2"] + 1, before["K6"])
     assert torch.equal(got, tmw.multiway_merge_plain(runs, fanin, lens))
     assert sum(new_lens) == n
 
@@ -152,10 +154,10 @@ def test_count_kernel_at_tile_edges(cuda, kind):
     key, the domain's ends, no match, and nR + nS at a tile's and a CTA's
     size - 1, + 0 and + 1."""
     rk, sk = (t.to(cuda) for t in _k3_case(kind))
-    before = tmj.LAUNCHES
+    before = _build.launches()
     got = tmj.merge_join_count_fused(rk, sk, rk.numel(), sk.numel())
     torch.cuda.synchronize()
-    assert tmj.LAUNCHES == before + 1
+    assert _build.launches()["K3"] == before["K3"] + 1
     assert int(got) == int(tmj.merge_join_count_fused_plain(
         rk, sk, rk.numel(), sk.numel()))
 
@@ -206,10 +208,10 @@ def _pairs(n, seed, kmax, pmax):
 @pytest.mark.parametrize("descending", [False, True])
 def test_pair_block_sort_kernel_equals_plain(cuda, n, block, descending):
     k, p = (t.to(cuda) for t in _pairs(max(n, 1), n, 40, 3))
-    before = tsort.PAIR_SORT_LAUNCHES
+    before = _build.launches()
     got = tsort.sort_blocks_pairs(k, p, n, block, descending)
     torch.cuda.synchronize()
-    assert tsort.PAIR_SORT_LAUNCHES == before + 1
+    assert _build.launches()["K5"] == before["K5"] + 1
     want = tsort.sort_blocks_pairs_plain(k, p, n, block, descending)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
@@ -262,10 +264,10 @@ def test_merge_pass_kernel_equals_plain(cuda, n, span, mode):
     runs = tsort.sorted_groups(packed, n, span, desc)
     rk, rp = tsort.unpack_pairs(runs)
     pay = None if mode == "keys" else rp
-    before = tsort.MERGE_PASS_LAUNCHES
+    before = _build.launches()
     got = tsort.merge_pass(rk, pay, (nruns, n, span), desc)
     torch.cuda.synchronize()
-    assert tsort.MERGE_PASS_LAUNCHES == before + 1
+    assert _build.launches()["K4"] == before["K4"] + 1
     want = tsort.merge_pass_plain(rk, pay, (nruns, n, span), desc)
     assert torch.equal(got[0], want[0])
     if pay is not None:
@@ -278,7 +280,7 @@ K4_CTA = 7 * K4_TILE  # outputs a CTA of it: 7 tiles
 
 def _merge_pass_both(keys, pays, desc=False, **kw):
     """K4 and its plain version on the same runs, one launch checked."""
-    before = tsort.MERGE_PASS_LAUNCHES
+    before = _build.launches()
     if "lens" in kw:
         got = tsort.merge_pass(keys, pays, **kw)
         want = tsort.merge_pass_plain(keys, pays, **kw)
@@ -286,7 +288,7 @@ def _merge_pass_both(keys, pays, desc=False, **kw):
         got = tsort.merge_pass(keys, pays, kw["uniform_lens"], desc)
         want = tsort.merge_pass_plain(keys, pays, kw["uniform_lens"], desc)
     torch.cuda.synchronize()
-    assert tsort.MERGE_PASS_LAUNCHES == before + 1
+    assert _build.launches()["K4"] == before["K4"] + 1
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         assert g is None or torch.equal(g, w)
@@ -423,13 +425,13 @@ def test_mpass_and_mpsm_joins_on_the_card(cuda, algo):
     R = Relation.from_numpy(rk, device=cuda)
     S = Relation.from_numpy(sk, device=cuda)
     if algo == "m-pass":
-        before = tsort.MERGE_PASS_LAUNCHES
+        before = _build.launches()
         res = mpass.sortmergejoin_multipass(R, S, block=1024)
-        assert tsort.MERGE_PASS_LAUNCHES - before == 9 + 8
+        assert _build.launches()["K4"] - before["K4"] == 9 + 8
     else:
-        before = tmj.LAUNCHES
+        before = _build.launches()
         res = mpsm.sortmergejoin_mpsm(R, S, nchunks=3)
-        assert tmj.LAUNCHES - before == 3
+        assert _build.launches()["K3"] - before["K3"] == 3
     assert res.totalresults == tmj.merge_join_count_numpy(rk, sk)
 
 
@@ -445,10 +447,11 @@ def test_pair_multiway_merge_kernel_equals_plain(cuda, n, span, fanin, kmax,
     nruns = max(1, -(-n // span))
     rk, rp = tsort.unpack_pairs(tsort.sorted_groups(tsort.pack_pairs(k, p),
                                                     n, span))
-    before = tmw.LAUNCHES, tmw.PAIR_LAUNCHES
+    before = _build.launches()
     (gk, gp), new_lens = tmw.multiway_merge(rk, fanin, (nruns, n, span), rp)
     torch.cuda.synchronize()
-    assert (tmw.LAUNCHES, tmw.PAIR_LAUNCHES) == (before[0], before[1] + 1)
+    after = _build.launches()
+    assert (after["K2"], after["K6"]) == (before["K2"], before["K6"] + 1)
     wk, wp = tmw.multiway_merge_plain(rk, fanin, (nruns, n, span), rp)
     assert torch.equal(gk, wk) and torch.equal(gp, wp)
     assert sum(new_lens) == n
@@ -582,10 +585,10 @@ def test_count64_kernel_equals_plain(cuda, kind, moved):
         for q, p in enumerate((*tj.split64(rk), *tj.split64(sk)))]
     if moved is not None and planes[moved].numel():
         assert planes[moved].data_ptr() % 16 == 4
-    before = tmj.LAUNCHES64
+    before = _build.launches()
     got = tmj.merge_join_count_fused64(rhi, rlo, shi, slo, nR, nS)
     torch.cuda.synchronize()
-    assert tmj.LAUNCHES64 == before + (nR > 0 and nS > 0)
+    assert _build.launches()["K7"] == before["K7"] + (nR > 0 and nS > 0)
     assert got.dtype == torch.int64 and got.device.type == "cuda"
     assert int(got) == int(tmj.merge_join_count_fused64_plain(
         rhi, rlo, shi, slo, nR, nS)) == tj.merge_join_count_numpy64(rk, sk)
@@ -611,14 +614,14 @@ def test_key8b_join_on_the_card(cuda, pallas_sort):
     rng = np.random.default_rng(11)
     rk = rng.integers(-40_000, 40_000, 300_000).astype(np.int32)
     sk = rng.integers(-40_000, 40_000, 200_001).astype(np.int32)
-    before = tsort.PAIR_SORT_LAUNCHES, tmw.PAIR_LAUNCHES, tmj.LAUNCHES64
+    before = _build.launches()
     (rhi, rlo), (shi, slo), count = tj.key8b_join_count(
         torch.from_numpy(rk).to(cuda), torch.from_numpy(sk).to(cuda),
         len(rk), len(sk), pallas_sort=pallas_sort)
-    after = tsort.PAIR_SORT_LAUNCHES, tmw.PAIR_LAUNCHES, tmj.LAUNCHES64
+    after = _build.launches()
     # 19 and 13 blocks: K5 per side, two K6 levels for R and one for S,
     # one K7
-    assert [a - b for a, b in zip(after, before)] == \
+    assert [after[k] - before[k] for k in ("K5", "K6", "K7")] == \
         ([2, 3, 1] if pallas_sort else [0, 0, 0])
     assert tj.finish_count64(count) == tmj.merge_join_count_numpy(rk, sk)
     np.testing.assert_array_equal(
@@ -662,11 +665,11 @@ def test_radix_hist_kernel_equals_plain(cuda, nbits):
     three whole tiles and a ragged fourth."""
     keys = _domain_keys(3 * tpt.HIST_TILE + 4321, nbits).to(cuda)
     for shift in sorted({0, (31 - nbits) // 2, 31 - nbits}):
-        before = tpt.LAUNCHES
+        before = _build.launches()
         tiles = tpt.radix_hist(keys, nbits, shift)
         total = tpt.radix_hist_any(keys, nbits, shift)
         torch.cuda.synchronize()
-        assert tpt.LAUNCHES == before + 2
+        assert _build.launches()["K8"] == before["K8"] + 2
         want = tpt.radix_hist_plain(keys, nbits, shift)
         assert tiles.shape == (4, 1 << nbits)
         assert torch.equal(tiles, want), shift
@@ -712,11 +715,11 @@ def test_radix_hist_kernel_2_16_packed(cuda, n, shift):
     upper = keys | (1 << (15 + shift))
     lower = keys & ~(1 << (15 + shift))
     for k in (keys[:n], keys[1:], upper[:n] + 1, lower[:n] + 1):
-        before = tpt.LAUNCHES
+        before = _build.launches()
         tiles = tpt.radix_hist(k, 16, shift)
         total = tpt.radix_hist_any(k, 16, shift)
         torch.cuda.synchronize()
-        assert tpt.LAUNCHES == before + 2
+        assert _build.launches()["K8"] == before["K8"] + 2
         want = tpt.radix_hist_plain(k, 16, shift)
         assert torch.equal(tiles, want)
         assert torch.equal(total, want.sum(0, dtype=torch.int32))
@@ -781,10 +784,10 @@ def _two_run_column(n, span, seed, width):
 def test_count2_kernel_equals_plain(cuda, nR, span_r, nS, span_s, width):
     rk = _two_run_column(nR, span_r, 1, width).to(cuda)
     sk = _two_run_column(nS, span_s, 2, width).to(cuda)
-    before = tmj.LAUNCHES2
+    before = _build.launches()
     got = tmj.merge_join_count_fused2(rk, sk, nR, nS, span_r, span_s)
     torch.cuda.synchronize()
-    assert tmj.LAUNCHES2 == before + 1
+    assert _build.launches()["K10"] == before["K10"] + 1
     assert got.dtype == torch.int64 and got.device.type == "cuda"
     assert int(got) == int(tmj.merge_join_count_fused2_plain(
         rk, sk, nR, nS, span_r, span_s))
@@ -856,13 +859,14 @@ def test_mway_count2_route_on_the_card(cuda, monkeypatch):
     rng = np.random.default_rng(6)
     rk = rng.integers(0, 50_000, 300_000).astype(np.int32)
     sk = rng.integers(0, 50_000, 300_001).astype(np.int32)
-    before = tmj.LAUNCHES, tmj.LAUNCHES2, tmw.LAUNCHES
+    before = _build.launches()
     got = mway._mway_count_device(torch.from_numpy(rk).to(cuda),
                                   torch.from_numpy(sk).to(cuda), len(rk),
                                   len(sk), 16, 16384)
     torch.cuda.synchronize()
-    assert (tmj.LAUNCHES, tmj.LAUNCHES2, tmw.LAUNCHES) == (
-        before[0], before[1] + 1, before[2] + 2)
+    after = _build.launches()
+    assert (after["K3"], after["K10"], after["K2"]) == (
+        before["K3"], before["K10"] + 1, before["K2"] + 2)
     assert int(got) == tmj.merge_join_count_numpy(rk, sk)
 
 
@@ -904,10 +908,10 @@ def test_chunk_gated_merge_kernel_equals_plain(cuda, W, whole_strip):
     land = _landing(lens, stride, W, kmax=1000, extra=777).to(cuda)
     tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     for case, arrive in _gate_schedules(W, stride // chunk).items():
-        before = trf.LAUNCHES
+        before = _build.launches()
         got = trf.chunk_gated_merge(land, tlens, stride, chunk, arrive)
         torch.cuda.synchronize()
-        assert trf.LAUNCHES == before + 1
+        assert _build.launches()["K9"] == before["K9"] + 1
         want = trf.chunk_gated_merge_plain(land, tlens, stride, chunk,
                                            arrive)
         for g, w in zip(got, want):
@@ -975,10 +979,11 @@ def test_varlen_multiway_merge_kernel_equals_plain(cuda, fanin, stride):
     lens[0], lens[1] = 0, stride
     land = _landing(lens, stride, fanin, kmax=500, extra=99).to(cuda)
     tlens = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    before = tmw.LAUNCHES
+    before = _build.launches()
     got, glens = tmw.multiway_merge(land, fanin, lens=tlens, stride=stride)
     torch.cuda.synchronize()
-    assert tmw.LAUNCHES == before + 1 and glens.device.type == "cuda"
+    assert _build.launches()["K2"] == before["K2"] + 1
+    assert glens.device.type == "cuda"
     want, wlens = tmw.multiway_merge_varlen_plain(land, fanin, tlens, stride)
     assert torch.equal(got, want) and torch.equal(glens, wlens)
 
@@ -1014,7 +1019,7 @@ def _varlen_runs(lens, stride, k, p):
 def _merge_both(keys, pays, fanin, **kw):
     """The kernel's and the plain version's merge, with the launch counts
     checked: one K2 or K6 launch a call."""
-    before = tmw.LAUNCHES, tmw.PAIR_LAUNCHES
+    before = _build.launches()
     if "lens" in kw:
         got, glens = tmw.multiway_merge(keys, fanin, payloads=pays, **kw)
         want, wlens = tmw.multiway_merge_varlen_plain(
@@ -1025,8 +1030,9 @@ def _merge_both(keys, pays, fanin, **kw):
         want = tmw.multiway_merge_plain(keys, fanin, kw["uniform_lens"], pays)
     torch.cuda.synchronize()
     step = (1, 0) if pays is None else (0, 1)
-    assert (tmw.LAUNCHES, tmw.PAIR_LAUNCHES) == (before[0] + step[0],
-                                                  before[1] + step[1])
+    after = _build.launches()
+    assert (after["K2"], after["K6"]) == (before["K2"] + step[0],
+                                          before["K6"] + step[1])
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
@@ -1155,11 +1161,11 @@ def test_remote_pull_kernel_equals_plain(cuda, n, cap, chunk, case):
     assert torch.equal(want[3], mesh.all_to_all(bflat))
     waits = (rcounts + chunk - 1) // chunk
     for window in (1, 4, 8, 32, n * cap // chunk):
-        before = trf.PULL_LAUNCHES
+        before = _build.launches()
         got = trf.remote_pull_exchange_merge(mesh, bflat, rcounts, cap, chunk,
                                              window=window)
         torch.cuda.synchronize()
-        assert trf.PULL_LAUNCHES == before + 1
+        assert _build.launches()["K11"] == before["K11"] + 1
         for g, w in zip(got, want):
             assert torch.equal(g, w), window
         assert torch.equal(got[1], waits) and int(got[2].sum()) == 0
@@ -1285,18 +1291,18 @@ def test_dist_mway_join_on_the_card(cuda, remote_pull):
     nR, nS = 300_007, 200_003
     rk = rng.integers(0, 50_000, nR).astype(np.int32)
     sk = rng.integers(0, 50_000, nS).astype(np.int32)
-    before = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES,
-              trf.PULL_LAUNCHES)
+    before = _build.launches()
     got = tdm.dist_mway_join_count(rk, sk, nR, nS, make_mesh(8, cuda),
                                    remote_pull=remote_pull, pull_rate=3)
     torch.cuda.synchronize()
     assert got == (tmj.merge_join_count_numpy(rk, sk), 0)
-    after = (tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES, trf.LAUNCHES,
-             trf.PULL_LAUNCHES)
-    assert after[0] - before[0] == 16 and after[2] - before[2] == 8
-    assert after[3] - before[3] == (16 if remote_pull == "emulate" else 0)
-    assert after[4] - before[4] == (2 if remote_pull == "dma" else 0)
-    assert after[1] > before[1]
+    after = _build.launches()
+    assert after["K1"] - before["K1"] == 16
+    assert after["K3"] - before["K3"] == 8
+    assert after["K9"] - before["K9"] == (16 if remote_pull == "emulate"
+                                          else 0)
+    assert after["K11"] - before["K11"] == (2 if remote_pull == "dma" else 0)
+    assert after["K2"] > before["K2"]
 
 
 @pytest.mark.parametrize("route", ["m-pass", "m-pass overlap", "mpsm",
@@ -1322,18 +1328,13 @@ def test_dist_joins_on_the_card(cuda, route):
                                           torch.sort(sk).values, nR, nS))
     mesh = make_mesh(8, cuda)
 
-    def counters():
-        return {"K1": tsort.LAUNCHES, "K2": tmw.LAUNCHES, "K3": tmj.LAUNCHES,
-                "K4": tsort.MERGE_PASS_LAUNCHES,
-                "K5": tsort.PAIR_SORT_LAUNCHES, "K6": tmw.PAIR_LAUNCHES}
-
-    before = counters()
+    before = _build.launches()
     if route == "materialize":
         sp = torch.arange(nS, dtype=torch.int32, device=cuda)
         k, p, count, ov = dist_materialize.dist_join_materialize(
             rk, None, sk, sp, nR, nS, mesh)
         torch.cuda.synchronize()
-        ran = {n: c - before[n] for n, c in counters().items()}
+        ran = _build.launches() - before
         k0, p0, count0, ov0 = dist_materialize.dist_join_materialize(
             rk, None, sk, sp, nR, nS, mesh, use_kernels=False)
         assert torch.equal(torch.sort(tsort.pack_pairs(k, p)).values,
@@ -1349,7 +1350,7 @@ def test_dist_joins_on_the_card(cuda, route):
             kw = {"overlap": route == "m-pass overlap"}
         count, ov = join(rk, sk, nR, nS, mesh, **kw)
         torch.cuda.synchronize()
-        ran = {n: c - before[n] for n, c in counters().items()}
+        ran = _build.launches() - before
         count0, ov0 = join(rk, sk, nR, nS, mesh, use_kernels=False)
         assert ran["K1"] == 16 and ran["K2"] > 0
         if route == "mpsm":
@@ -1416,11 +1417,13 @@ def test_workload_a_on_the_card(cuda):
         n, n, make_mesh(8, torch.device("cpu")))
     assert torch.equal(rk.cpu(), cpu_r)
     assert int(sk.min()) >= 1 and int(sk.max()) <= n
-    before = (tsort.LAUNCHES, tmj.LAUNCHES)
+    before = _build.launches()
     for skew, slack in ((0.0, 2.0), (1.0, 4.0)):
         assert tscale.workload_a_join_count(n, n, mesh, skew=skew,
                                             slack=slack) == (n, 0)
-    assert (tsort.LAUNCHES - before[0], tmj.LAUNCHES - before[1]) == (32, 16)
+    after = _build.launches()
+    assert (after["K1"] - before["K1"], after["K3"] - before["K3"]) == (32,
+                                                                        16)
 
 
 NEW_TILES = (2048, 8192)  # the keys-only K2's tiles besides MERGE_TILE
@@ -1439,7 +1442,7 @@ def test_multiway_merge_new_tile_edges(cuda, tile, fanin, rel):
     span = -(-per_group // fanin)
     rk, _ = _sorted_runs_uniform(k, None, per_group, span)
     ul = (-(-per_group // span), per_group, span)
-    before = tmw.TILE_LAUNCHES[tile]
+    before = _build.launches()
     got, _ = tmw.multiway_merge(rk, fanin, ul, tile=tile)
     assert torch.equal(got, tmw.multiway_merge_plain(rk, fanin, ul))
     rng = np.random.default_rng(per_group + fanin)
@@ -1454,7 +1457,8 @@ def test_multiway_merge_new_tile_edges(cuda, tile, fanin, rel):
     want, wlens = tmw.multiway_merge_varlen_plain(lk, fanin, tl, per_group)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(glens, wlens)
-    assert tmw.TILE_LAUNCHES[tile] == before + 2
+    key = f"K2.tile{tile}"
+    assert _build.launches()[key] == before[key] + 2
 
 
 @pytest.mark.parametrize("tile", tmw.MERGE_TILES)
@@ -1511,13 +1515,15 @@ def test_mway_m_budget_runs_its_tile(cuda, budget):
     R = tgen.parallel_create_relation(n, n, device=cuda)
     S = tgen.parallel_create_relation(n, n, device=cuda)
     tile = tmw.merge_tile_for(budget, mway.FANIN_DEFAULT)
-    before = dict(tmw.TILE_LAUNCHES), tmw.LAUNCHES
+    before = _build.launches()
     res = mway.sortmergejoin_multiway(R, S,
                                       JoinConfig(mwaybufsize_bytes=budget))
     torch.cuda.synchronize()
     assert res.totalresults == n
-    k2 = tmw.LAUNCHES - before[1]
-    assert k2 > 0 and tmw.TILE_LAUNCHES[tile] - before[0][tile] == k2
+    after = _build.launches()
+    k2 = after["K2"] - before["K2"]
+    key = f"K2.tile{tile}"
+    assert k2 > 0 and after[key] - before[key] == k2
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
@@ -1530,10 +1536,10 @@ def test_dryrun_legs_launch_their_kernels(cuda, n):
         assert all(leg["launches"].get(k, 0) > 0
                    for k in tentry.LEG_KERNELS[name]), (name, leg)
     forward, inputs = tentry.entry(cuda)
-    before = tsort.LAUNCHES, tmw.LAUNCHES, tmj.LAUNCHES
+    before = _build.launches()
     assert int(forward(*inputs)) == 65536
-    assert (tsort.LAUNCHES - before[0], tmw.LAUNCHES - before[1],
-            tmj.LAUNCHES - before[2]) == (2, 2, 1)
+    after = _build.launches()
+    assert [after[k] - before[k] for k in ("K1", "K2", "K3")] == [2, 2, 1]
 
 
 def test_results_grid_algo_cell_at_16m(cuda, tmp_path):
@@ -1610,11 +1616,11 @@ def test_remote_pull_per_card_launch_equals_plain(cuda, spread, case):
     want = trf.remote_pull_exchange_merge(one, bflat, rcounts, cap, chunk)
     plain = trf.remote_pull_exchange_merge_plain(cards, rows, rc, cap, chunk)
     for window in (1, n * cap // chunk):
-        before = trf.PULL_LAUNCHES
+        before = _build.launches()
         got = trf.remote_pull_exchange_merge(cards, rows, rc, cap, chunk,
                                              window=window)
         torch.cuda.synchronize()
-        assert trf.PULL_LAUNCHES == before + len(cards.cards)
+        assert _build.launches()["K11"] == before["K11"] + len(cards.cards)
         for g, p, w in zip(got, plain, want):
             for me in range(n):
                 assert g[me].device == devices[me]

@@ -21,6 +21,7 @@ import torch
 from avx_sort_merge_joins_tpu.ops.mergejoin import merge_join_count_numpy
 from avx_sort_merge_joins_tpu.parallel import dist_mway as jdm
 from avx_sort_merge_joins_tpu.parallel import remote_fifo as jrf
+from avx_sort_merge_joins_tpu_torch.kernels import _build
 from avx_sort_merge_joins_tpu_torch.parallel import dist_mway as tdm
 from avx_sort_merge_joins_tpu_torch.parallel import remote_fifo as trf
 from avx_sort_merge_joins_tpu_torch.parallel.mesh import (make_mesh,
@@ -254,11 +255,11 @@ def test_dist_dma_equals_oracle(n, kind, monkeypatch):
         return out
 
     monkeypatch.setattr(trf, "remote_pull_exchange_merge", spy)
-    before = trf.PULL_LAUNCHES
+    before = _build.launches()
     got = tdm.dist_mway_join_count(rk, sk, nR, nS, make_mesh(n, "cpu"),
                                    remote_pull="dma")
     assert got == (merge_join_count_numpy(rk, sk), 0)
-    assert trf.PULL_LAUNCHES == before  # the plain version launches nothing
+    assert _build.launches() == before  # the plain version launches nothing
     assert len(calls) % 2 == 0 and calls
     for cap, chunk in calls:
         assert chunk == trf.pick_chunk_elems(cap, tdm.TILE_ELEMS, n)
