@@ -14,8 +14,11 @@ those alone beside ``final``; each runs twice, in order and then in
 reverse).  K2 and K6 are timed
 in parts (coarse co-ranks, fine co-ranks, tile merge) at the benchmark's
 shapes: 128M keys, 128M pairs, a 200M-key shard and the W = 8 merge of
-a shard's received runs, uniform and Zipf.  K4 is timed on 128M keys
-in one pass of span 16,384 and one of span 2^26, and on 128M pairs at
+a shard's received runs, uniform and Zipf; outside the ``k2_part_*``
+variants also one level at each fan-in W = 2-32 over 128M keys and
+pairs, and whole merges (every level of a sort) greedy at fan-in 16 and
+in the default plan at 128M, 200M and 2,048M keys and 128M pairs.  K4 is timed on 128M
+keys in one pass of span 16,384 and one of span 2^26, and on 128M pairs at
 span 16,384; K7 at 128M x 128M widened int32 keys, beside K3 on the same
 int32 keys (the committed K3 in every variant: a yardstick that does not
 change); K8 on 128M keys at bits 7, 14 and 16, uniform and Zipf (z = 1.0
@@ -455,9 +458,10 @@ def k11_device_ms(rf, mesh, bflat, rcounts, cap: int, chunk: int,
 def k2_shapes(cs, sort_ops, dev):
     """K2's and K6's inputs at the benchmark's shapes, one at a time:
     (label, keys, payloads or None, n) as block-sorted runs, or (label,
-    landing, lens, stride) for the varlen merge.  128M keys
-    (workload B's sort: W = 16, 16, 16, 2), 128M (key, row id) pairs,
-    the first W = 16 level of the card16 cell's S (2,048,000,000 keys
+    landing, lens, stride) for the varlen merge, whose levels k2_parts
+    takes from the default plan.  128M keys (workload B's sort: W = 32,
+    16, 16), 128M (key, row id) pairs, the first (W = 32) level of the
+    card16 cell's S (2,048,000,000 keys
     drawn from 1..128M, 16 a key on average), a 200M-key shard of
     workload A (W = 16, 16, 16, 4), and the varlen W = 8 merge of a
     shard's received runs (8 runs of 25M at the stride of slack 2,
@@ -528,7 +532,7 @@ def k2_parts(cs, mw, sort_ops, name: str) -> None:
             continue
         runs, rp, n = keys, extra, size
         del keys, extra
-        levels = mw.merge_levels(n, cs.BLOCK, 16)
+        levels = mw.merge_levels(n, cs.BLOCK)
         for level in levels[:1] if n == CARD16_S else levels:
             _, span, nruns, w = level
             ul = (nruns, n, span)
@@ -552,6 +556,104 @@ def k2_parts(cs, mw, sort_ops, name: str) -> None:
                     dict(uniform_lens=ul))
             runs, rp = want if rp is not None else (want, None)
         del runs, rp
+
+
+def k2_fanins(cs, mw, sort_ops, name: str) -> None:
+    """One K2 and one K6 level at fan-in W = 2, 4, 8, 16, 32 over 128M
+    block-sorted keys and (key, row id) pairs (runs of 16,384), in parts
+    (k2_time) and whole (mask 7: coarse and fine co-ranks, then the tile
+    merge), each level's columns checked against the plain version."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = cs.MAIN_N
+    keys = torch.randint(1, n + 1, (n,), generator=gen, dtype=torch.int32,
+                         device=dev)
+    pays = torch.arange(n, dtype=torch.int32, device=dev)
+    nruns = sort_ops.cdiv(n, cs.BLOCK)
+    for label, runs, rp in (
+            ("128M keys", sort_ops.sort_blocks(keys, n), None),
+            ("128M pairs", *sort_ops.sort_blocks_pairs(keys, pays, n))):
+        for w in (2, 4, 8, 16, 32):
+            ul = (nruns, n, cs.BLOCK)
+            got = mw.multiway_merge(runs, w, ul, rp)[0]
+            want = mw.multiway_merge_plain(runs, w, ul, rp)
+            if not all(torch.equal(g, x) for g, x in zip(
+                    got if rp is not None else (got,),
+                    want if rp is not None else (want,))):
+                raise AssertionError(f"{name}: {label} level W={w}")
+            del got, want
+            call = ("smj_multiway_merge", sort_ops.cdiv(nruns, w), cs.BLOCK,
+                    w, n, cs.BLOCK)
+            k2_time(cs, mw, name, f"{label} level W={w} span={cs.BLOCK}",
+                    runs, rp, call, None, dict(uniform_lens=ul))
+            whole = cs.time_ms(lambda: mw.multiway_merge(runs, w, ul, rp), 10)
+            print(f"[{name}] K2 {label} level W={w}: whole {whole:.4f} ms",
+                  flush=True)
+        del runs, rp
+    del keys, pays
+
+
+def k2_plans(cs, mw, sort_ops, name: str) -> None:
+    """Whole K2 merges (every level of a sort after its block sort) in
+    each candidate plan, at 128M keys (workload B's sort), a 200M-key
+    shard (workload A's local sort) and 2,048M keys (the card16 cell's
+    S), and whole K6 merges of 128M (key, row id) pairs (the
+    materializing join's S): greedy at fan-in 16 (the JAX package's
+    schedule) and the default plan (``merge_levels`` with no fan-in),
+    timed once where the two are one plan.  CUDA events, 5 calls a plan;
+    the default plan's columns equal to greedy 16's, whose keys are
+    ascending with the input's sum."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for label, n, hi, pairs in (
+            ("128M keys", cs.MAIN_N, cs.MAIN_N, False),
+            ("200M shard", 200_000_000, 1_600_000_000, False),
+            ("2048M keys", CARD16_S, cs.MAIN_N, False),
+            ("128M pairs", cs.MAIN_N, cs.MAIN_N, True)):
+        keys = torch.randint(1, hi + 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        total = int(keys.sum(dtype=torch.int64))
+        if pairs:
+            runs, rp = sort_ops.sort_blocks_pairs(
+                keys, torch.arange(n, dtype=torch.int32, device=dev), n)
+        else:
+            runs, rp = sort_ops.sort_blocks(keys, n), None
+        del keys
+        nruns = sort_ops.cdiv(n, cs.BLOCK)
+        plans = {}
+        for fanin in (16, mw.FANIN_DEFAULT):
+            levels = mw.merge_levels(n, cs.BLOCK, fanin)
+            plans.setdefault(tuple(w for *_, w in levels), levels)
+        ref = None
+        for fanins, levels in plans.items():
+            def merge(levels=levels):
+                ks, ps = runs, rp
+                for level in levels:
+                    out = mw.merge_level(ks, n, level, ps)
+                    ks, ps = out if pairs else (out, None)
+                return (ks, ps) if pairs else (ks,)
+
+            out = merge()
+            if ref is None:
+                live = out[0][:n]
+                if not (bool((live[1:] >= live[:-1]).all()) and
+                        int(live.sum(dtype=torch.int64)) == total):
+                    raise AssertionError(f"{name}: {label} {fanins} unsorted")
+                ref = out
+            elif not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f"{name}: {label} {fanins} != "
+                                     f"{next(iter(plans))}")
+            del out
+            ms = cs.time_ms(merge, 5)
+            rounds = sum(w.bit_length() - 1 for w in fanins)
+            print(f"[{name}] K2 plan {label} ({nruns} runs) fan-ins "
+                  f"{list(fanins)}: {len(fanins)} levels, {rounds} rounds, "
+                  f"{ms:.4f} ms", flush=True)
+        del runs, rp, ref
 
 
 def k2_time(cs, mw, name: str, label: str, runs, pays, call, plain_rows,
@@ -753,6 +855,9 @@ def worker(name: str, kernels: list[str]) -> None:
         del keys, pays
     if "k2" in what:
         k2_parts(cs, mw, sort_ops, name)
+        if not name.startswith("k2_part_"):
+            k2_fanins(cs, mw, sort_ops, name)
+            k2_plans(cs, mw, sort_ops, name)
     if "k9" in what:
         landings, cap, _, buckets = cs.dist_landings(dev)
         del buckets

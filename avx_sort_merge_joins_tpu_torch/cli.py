@@ -97,8 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the torch.sort baseline for sorting")
     p.add_argument("--scalarmerge", action="store_true",
                    help="use the torch.sort baseline for merging/counting")
-    p.add_argument("-f", "--partfanout", type=int, default=16,
-                   help="multiway merge fan-in (reference PARTFANOUT)")
+    p.add_argument("-f", "--partfanout", type=int, default=None,
+                   help="multiway merge fan-in (reference PARTFANOUT): "
+                        "every merge level greedily at it; default: each "
+                        "sort's planned levels, fan-ins up to 32 (KEY_8B: "
+                        "16)")
     p.add_argument("-S", "--numastrategy", default="NEXT",
                    choices=["NEXT", "RING", "RANDOM"],
                    help="exchange schedule of the multi-shard shuffle")
@@ -313,9 +316,11 @@ def run_join(args, R, S):
         from .ops.multiwaymerge import merge_tile_for
         from .utils.log import info
 
+        fanin = ("the planned fan-ins" if args.partfanout is None
+                 else f"fan-in {args.partfanout}")
         info(f"-m {args.mwaybufsize}: K2 merge tile "
              f"{merge_tile_for(args.mwaybufsize, args.partfanout)} outputs "
-             f"at fan-in {args.partfanout}")
+             f"at {fanin}")
     return sortmergejoin_multiway(R, S, config, fanin=args.partfanout)
 
 
@@ -332,9 +337,10 @@ def _run_key8b(args, R, S):
 
     nR, nS = R.num_tuples, S.num_tuples
     t0 = time.perf_counter()
+    named = {} if args.partfanout is None else {"fanin": args.partfanout}
     _, _, count = join64.key8b_join_count(
-        R.keys, S.keys, nR, nS, fanin=args.partfanout,
-        pallas_sort=not (args.scalarsort or args.scalarmerge))
+        R.keys, S.keys, nR, nS,
+        pallas_sort=not (args.scalarsort or args.scalarmerge), **named)
     cnt = join64.finish_count64(count)
     dt = time.perf_counter() - t0
     return JoinResult(totalresults=cnt, resultlist=[], phases={"total": dt},
@@ -344,16 +350,19 @@ def _run_key8b(args, R, S):
 def _validate(args) -> str | None:
     """Parameter checks of the JAX CLI's ``_validate`` (cli.py:344-370,
     after main.c:860-886): the error that refuses this run, if any."""
+    from .ops.multiwaymerge import greedy_fanin
     from .utils.log import warn
 
-    if args.partfanout < 2 or args.partfanout & (args.partfanout - 1):
+    fanin = args.partfanout
+    if fanin is not None and (fanin < 2 or fanin & (fanin - 1)):
         return "partfanout must be a power of 2"
     if args.nchunks < 1:
         return "--nchunks must be >= 1"
     if args.nthreads < 1:
         return f"-n {args.nthreads}: need at least one shard"
-    if args.nthreads > 1 and args.partfanout < args.nthreads:
-        # the reference requires fanout >= nthreads (main.c:866-869)
+    if args.nthreads > 1 and greedy_fanin(fanin) < args.nthreads:
+        # the reference requires fanout >= nthreads (main.c:866-869); with
+        # no -f the received runs merge at greedy_fanin's 16
         warn("raising partfanout to the shard count")
         args.partfanout = 1 << (args.nthreads - 1).bit_length()
     if args.materialize and args.algo != "m-way" and not args.key8b \

@@ -16,7 +16,12 @@ is the span ``smj.join``:
 Inside the sort and merge phases each relation's work is a span of its
 own, ``smj.mway.sort.r`` and ``smj.mway.sort.s`` (its K1 block sort, its
 first K2 level, its other K2 levels: one span a phase that sorts or merges
-it), and the counter ``smj.k2.levels`` adds the K2 levels launched.
+it), and the counter ``smj.k2.levels`` adds the K2 levels launched
+(``multiwaymerge.merge_level`` counts them, in every multiway sort).
+
+Without a named ``fanin`` each relation merges in the default plan of its
+run count (``multiwaymerge.plan_fanins``: workload B's 7,813 runs at 32,
+16, 16); a named one merges greedily at it, as the JAX package does.
 
 Both relations sort ascending: the TPU package sorts S negated so that its
 count kernel can read S back to front; the port drops that layout.
@@ -49,10 +54,10 @@ from ..types import JoinConfig, JoinResult, Relation, ThreadResult
 from ..utils import profiling
 from . import common
 
-FANIN_DEFAULT = 16
+FANIN_DEFAULT = mw.FANIN_DEFAULT
 BLOCK_MWAY = BLOCKSIZE_DEFAULT
 SORT_SPAN_R, SORT_SPAN_S = "smj.mway.sort.r", "smj.mway.sort.s"
-K2_LEVELS = "smj.k2.levels"  # the counter of K2 levels launched
+K2_LEVELS = mw.K2_LEVELS  # the counter of K2 levels launched
 
 
 def _sort_to_two_runs(keys: torch.Tensor, n: int, block: int, levels):
@@ -66,19 +71,19 @@ def _sort_to_two_runs(keys: torch.Tensor, n: int, block: int, levels):
 
 def _merge_levels(span: str, keys: torch.Tensor, n: int, levels,
                   tile: int) -> torch.Tensor:
-    """One relation's K2 ``levels`` in the span ``span``, added to the
-    counter ``K2_LEVELS``; no span opens when there are none."""
+    """One relation's K2 ``levels`` in the span ``span``; no span opens
+    when there are none."""
     if not levels:
         return keys
     with profiling.span(span):
         for level in levels:
             keys = mw.merge_level(keys, n, level, tile=tile)
-    profiling.count(K2_LEVELS, len(levels))
     return keys
 
 
 def _mway_count_device(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
-                       fanin: int, block: int, scalar_sort: bool = False,
+                       fanin: int | None, block: int,
+                       scalar_sort: bool = False,
                        scalar_merge: bool = False) -> torch.Tensor:
     """Count-only m-way join in one go: keys-only sorts and the fused count
     (an int64 0-d tensor).  ``scalar_sort``/``scalar_merge`` swap in the
@@ -110,8 +115,9 @@ def _mway_count_device(rk: torch.Tensor, sk: torch.Tensor, nR: int, nS: int,
 
 
 def _mway_materialize_device(rk: torch.Tensor, sk: torch.Tensor,
-                             sp: torch.Tensor, nR: int, nS: int, fanin: int,
-                             block: int, tile: int = mw.MERGE_TILE):
+                             sp: torch.Tensor, nR: int, nS: int,
+                             fanin: int | None, block: int,
+                             tile: int = mw.MERGE_TILE):
     """Materializing m-way join: sort R keys (K2 at merge tiles of
     ``tile``), sort S tuples, emit matched S tuples (<S-key, S-RID>,
     joincommon.c:272-284)."""
@@ -122,7 +128,7 @@ def _mway_materialize_device(rk: torch.Tensor, sk: torch.Tensor,
 
 def sortmergejoin_multiway(R: Relation, S: Relation,
                            config: JoinConfig | None = None,
-                           fanin: int = FANIN_DEFAULT,
+                           fanin: int | None = FANIN_DEFAULT,
                            block: int = BLOCK_MWAY) -> JoinResult:
     with profiling.span("smj.join"):
         return _sortmergejoin_multiway(R, S, config or JoinConfig(), fanin,
@@ -130,7 +136,7 @@ def sortmergejoin_multiway(R: Relation, S: Relation,
 
 
 def _sortmergejoin_multiway(R: Relation, S: Relation, config: JoinConfig,
-                            fanin: int, block: int) -> JoinResult:
+                            fanin: int | None, block: int) -> JoinResult:
     nR, nS = R.num_tuples, S.num_tuples
     dev = R.keys.device
     tile = mw.merge_tile_for(config.mwaybufsize_bytes, fanin)

@@ -30,6 +30,13 @@ or varlen, it also takes ``tile=`` 2,048 or 8,192 (``MERGE_TILES``): the
 tile changes only how the kernel splits the work: every tile gives the
 same columns.
 
+The multiway sort's merge levels follow a named fan-in greedily, as the
+JAX package's do; without one (``FANIN_DEFAULT``), keys and pairs alike,
+the default plan of :func:`plan_fanins`, which takes one level fewer than
+greedy at 16 where a first W = 32 level can take the place of a last
+W = 2 one.  ``merge_level`` counts every level it runs under the
+profiler counter ``K2_LEVELS``.
+
 Every function takes the payload column as ``payloads=``; without it the
 result is one key column, with it a ``(keys, payloads)`` tuple of columns.
 
@@ -45,6 +52,7 @@ import torch
 
 from ..kernels import _build
 from ..params import BLOCKSIZE_DEFAULT
+from ..utils import profiling
 from . import sort as sort_ops
 
 MAX_FANIN = 2048  # the keys' largest fan-in (kMaxFanin)
@@ -52,6 +60,23 @@ MAX_PAIR_FANIN = 1024  # the pairs' (kMaxPairFanin)
 MERGE_TILE = 4096  # outputs a merge tile (smj_mp::kTile): K6 and the default
 MERGE_TILES = (2048, 4096, 8192)  # the tiles of the keys-only K2
 SAMPLED_MAX_FANIN = 32  # the sampled fine co-ranks' largest fan-in
+JAX_FANIN = 16  # the JAX package's fan-in: the default plan's greedy base
+FANIN_DEFAULT = None  # no fan-in named: each sort's levels from plan_fanins
+K2_LEVELS = "smj.k2.levels"  # the counter of the levels merge_level runs
+
+
+def greedy_fanin(fanin: int | None) -> int:
+    """The fan-in of a greedy merge where ``fanin`` may be None: the named
+    one, else ``JAX_FANIN``.  The merges that keep the JAX package's
+    schedule whatever the default (the varlen merges of received runs, the
+    two-run schedule) take their fan-in from here."""
+    return JAX_FANIN if fanin is None else fanin
+
+
+def widest_fanin(fanin: int | None) -> int:
+    """The widest level's fan-in of a multiway sort at ``fanin``: the named
+    one, else the default plan's widest, ``SAMPLED_MAX_FANIN``."""
+    return SAMPLED_MAX_FANIN if fanin is None else fanin
 
 
 def merge_smem_bytes(tile: int, fanin: int) -> int:
@@ -63,7 +88,7 @@ def merge_smem_bytes(tile: int, fanin: int) -> int:
     return 2 * 4 * (tile + tile // 32) + 8 * fanin + 4 * (fanin + 1)
 
 
-def merge_tile_for(mwaybufsize_bytes: int, fanin: int) -> int:
+def merge_tile_for(mwaybufsize_bytes: int, fanin: int | None) -> int:
     """The K2 merge tile that a ``-m`` budget of ``mwaybufsize_bytes``
     names at fan-in ``fanin``: the largest tile of ``MERGE_TILES`` whose
     footprint, :func:`merge_smem_bytes` (one merge CTA's shared memory),
@@ -71,11 +96,13 @@ def merge_tile_for(mwaybufsize_bytes: int, fanin: int) -> int:
     (the flag's default: derived).  This is the map the JAX m-way makes
     from the same budget to its FIFO tile (models/mway.py:206-216: the
     largest tile whose ring buffers fit, the smallest otherwise); only
-    the tile changes, never the result."""
+    the tile changes, never the result.  ``fanin`` None (the planned
+    levels) sizes the footprint at their widest (:func:`widest_fanin`)."""
     if not mwaybufsize_bytes:
         return MERGE_TILE
+    widest = widest_fanin(fanin)
     fits = [t for t in MERGE_TILES
-            if merge_smem_bytes(t, fanin) <= mwaybufsize_bytes]
+            if merge_smem_bytes(t, widest) <= mwaybufsize_bytes]
     return fits[-1] if fits else MERGE_TILES[0]
 
 
@@ -298,38 +325,41 @@ def sort_blocks_phase(keys: torch.Tensor, n: int,
     return sort_ops.sort_blocks_pairs(keys, payloads, n, block)
 
 
-def merge_levels(n: int, block: int, fanin: int):
-    """Static ``(stride, span, nruns, w)`` schedule of the k-way merge
-    levels of an n-key multiway sort, in keys (the TPU package gives
-    ``stride`` in 128-key rows; here ``stride == span``)."""
-    nruns = max(1, sort_ops.cdiv(n, block))
-    stride, span = block, block
-    levels = []
+def _greedy_fanins(nruns: int, fanin: int) -> list[int]:
+    """Fan-in ``fanin`` a level until one run is left, the last level no
+    wider than the runs it merges (the JAX package's schedule)."""
+    fanins = []
     while nruns > 1:
         w = min(fanin, 1 << (nruns - 1).bit_length())
-        levels.append((stride, span, nruns, w))
-        stride *= w
-        span *= w
+        fanins.append(w)
         nruns = -(-nruns // w)
-    return levels
+    return fanins
 
 
-def merge_levels_2runs(n: int, block: int, fanin: int):
-    """The level schedule that stops at TWO runs instead of one (counterpart
-    of ``avx_sort_merge_joins_tpu/ops/multiwaymerge.py:698-717``): the
-    last merge is left to the two-run count (K10,
-    ``mergejoin.merge_join_count_fused2``).  Where a level's fan-in would
-    finish at one run, it is halved so that two groups remain.  Returns
-    ``(levels, final_span, final_nruns)``, sizes in keys, with
-    ``final_nruns`` 1 (a single block: the caller takes the one-run count)
-    or 2."""
-    nruns = max(1, sort_ops.cdiv(n, block))
+def plan_fanins(nruns: int) -> list[int]:
+    """The fan-ins of the default plan of a sort of ``nruns`` runs: the
+    greedy plan at ``JAX_FANIN``, except that where it would end in a W = 2
+    level after others, that round joins the first level, which merges
+    ``SAMPLED_MAX_FANIN`` runs: the same ceil(log2 nruns) rounds in one
+    level fewer.  Every level pays one read and write of the column and a
+    co-rank pass before its rounds; a W = 32 level pays more co-rank and
+    one more round than a W = 16 one, which one W = 2 level saved pays
+    back and a second W = 32 level does not (``PERF.md`` §6, keys and
+    pairs alike): 7,813 runs (128M) merge at 32, 16, 16, 125,000 at 32,
+    16, 16, 16, and 12,208 (a 200M-key shard) at 16, 16, 16, 4, as
+    greedily at 16."""
+    fanins = _greedy_fanins(nruns, JAX_FANIN)
+    if len(fanins) > 1 and fanins[-1] == 2:
+        fanins = [2 * fanins[0], *fanins[1:-1]]
+    return fanins
+
+
+def _levels(nruns: int, block: int, fanins):
+    """The ``(stride, span, nruns, w)`` levels that merge ``nruns`` runs of
+    ``block`` at ``fanins`` in turn, the span and the runs left."""
     stride, span = block, block
     levels = []
-    while nruns > 2:
-        w = min(fanin, 1 << (nruns - 1).bit_length())
-        if w >= nruns:
-            w = max(2, (1 << (nruns - 1).bit_length()) // 2)
+    for w in fanins:
         levels.append((stride, span, nruns, w))
         stride *= w
         span *= w
@@ -337,25 +367,63 @@ def merge_levels_2runs(n: int, block: int, fanin: int):
     return levels, span, nruns
 
 
+def merge_levels(n: int, block: int, fanin: int | None = FANIN_DEFAULT):
+    """Static ``(stride, span, nruns, w)`` schedule of the k-way merge
+    levels of an n-key multiway sort, in keys (the TPU package gives
+    ``stride`` in 128-key rows; here ``stride == span``): greedy at a
+    named ``fanin``, the JAX package's schedule; without one the default
+    plan, :func:`plan_fanins`."""
+    nruns = max(1, sort_ops.cdiv(n, block))
+    fanins = (plan_fanins(nruns) if fanin is None
+              else _greedy_fanins(nruns, fanin))
+    return _levels(nruns, block, fanins)[0]
+
+
+def merge_levels_2runs(n: int, block: int,
+                       fanin: int | None = FANIN_DEFAULT):
+    """The level schedule that stops at TWO runs instead of one (counterpart
+    of ``avx_sort_merge_joins_tpu/ops/multiwaymerge.py:698-717``): the
+    last merge is left to the two-run count (K10,
+    ``mergejoin.merge_join_count_fused2``).  Where a level's fan-in would
+    finish at one run, it is halved so that two groups remain; greedy at
+    :func:`greedy_fanin`.  Returns ``(levels, final_span, final_nruns)``,
+    sizes in keys, with ``final_nruns`` 1 (a single block: the caller takes
+    the one-run count) or 2."""
+    fanin = greedy_fanin(fanin)
+    nruns = max(1, sort_ops.cdiv(n, block))
+    fanins, left = [], nruns
+    while left > 2:
+        w = min(fanin, 1 << (left - 1).bit_length())
+        if w >= left:
+            w = max(2, (1 << (left - 1).bit_length()) // 2)
+        fanins.append(w)
+        left = -(-left // w)
+    return _levels(nruns, block, fanins)
+
+
 def merge_level(keys: torch.Tensor, n: int, level,
                 payloads: torch.Tensor | None = None,
                 tile: int = MERGE_TILE):
-    """One k-way merge level over the uniform-lens layout."""
+    """One k-way merge level over the uniform-lens layout, counted under
+    ``K2_LEVELS``."""
     _, span, nruns, w = level
+    profiling.count(K2_LEVELS)
     merged, _ = multiway_merge(keys, w, (nruns, n, span), payloads,
                                tile=tile)
     return merged
 
 
 def multiway_sort(keys: torch.Tensor, n: int | None = None,
-                  block: int = BLOCKSIZE_DEFAULT, fanin: int = 16,
+                  block: int = BLOCKSIZE_DEFAULT,
+                  fanin: int | None = FANIN_DEFAULT,
                   payloads: torch.Tensor | None = None,
                   tile: int = MERGE_TILE):
     """Full ascending sort of ``keys[:n]``, or of the first ``n`` (key,
-    payload) pairs in lexicographic order: block sort, then
-    log_fanin(#blocks) k-way merge levels (avxsort_multiway.c:96-152), keys
-    only at merge tiles of ``tile`` outputs.  Returns the flat padded
-    column(s); the live prefix is ``[:n]``."""
+    payload) pairs in lexicographic order: block sort, then the k-way merge
+    levels of :func:`merge_levels` (avxsort_multiway.c:96-152), greedy at
+    a named ``fanin``, else the default plan; keys only at merge tiles of
+    ``tile`` outputs.  Returns the flat padded column(s); the live prefix
+    is ``[:n]``."""
     if n is None:
         n = int(keys.numel())
     if payloads is None:

@@ -52,7 +52,7 @@ LAST_RETRIES = 0
 
 
 def _join(rkeys, skeys, spayloads, n_r: int, n_s: int, mesh: Mesh,
-          slack: float, block: int, fanin: int, use_kernels: bool):
+          slack: float, block: int, fanin: int | None, use_kernels: bool):
     """One run of the pipeline at one slack: ``(rows, overflow)``, rows
     the ``(keys, payloads)`` output columns of each shard."""
     n = mesh.n
@@ -109,7 +109,7 @@ def _join(rkeys, skeys, spayloads, n_r: int, n_s: int, mesh: Mesh,
 def dist_join_materialize(rkeys, rpayloads, skeys, spayloads, n_r: int,
                           n_s: int, mesh: Mesh, slack: float = 2.0,
                           block: int = BLOCKSIZE_DEFAULT,
-                          fanin: int = FANIN_DEFAULT,
+                          fanin: int | None = FANIN_DEFAULT,
                           use_kernels: bool = True,
                           stream_to: Optional[str] = None):
     """Materialized distributed equi-join over ``mesh``.

@@ -103,7 +103,7 @@ def _overlap_receive_merge(mesh: Mesh, bflat, counts, cap: int):
 
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
-          block: int, fanin: int, use_kernels: bool, overlap_ok: bool):
+          block: int, fanin: int | None, use_kernels: bool, overlap_ok: bool):
     """One run of the pipeline at one slack: ``(count, overflow)``."""
     n = mesh.n
     hier = host_shape(mesh) if is_2d(mesh) else None
@@ -140,7 +140,7 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
 
 def dist_mpass_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
                           slack: float = 2.0, block: int = BLOCKSIZE_DEFAULT,
-                          fanin: int = FANIN_DEFAULT,
+                          fanin: int | None = FANIN_DEFAULT,
                           use_kernels: bool = True, overlap: bool = False):
     """Distributed m-pass equi-join match count over ``mesh``.
 

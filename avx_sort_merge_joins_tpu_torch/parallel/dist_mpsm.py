@@ -88,7 +88,7 @@ def _ring_count(mesh: Mesh, recv, rlens: list, cap: int, s_cur, s_cnt,
 
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
-          block: int, fanin: int, use_kernels: bool):
+          block: int, fanin: int | None, use_kernels: bool):
     """One run of the pipeline at one slack: ``(count, overflow)``."""
     n = mesh.n
     shard_r, cap_r, nv_r = _shape(n_r, n, slack)
@@ -115,7 +115,7 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
 
 def dist_mpsm_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
                          slack: float = 2.0, block: int = BLOCKSIZE_DEFAULT,
-                         fanin: int = FANIN_DEFAULT,
+                         fanin: int | None = FANIN_DEFAULT,
                          use_kernels: bool = True):
     """MPSM equi-join match count over a flat ``mesh``.
 

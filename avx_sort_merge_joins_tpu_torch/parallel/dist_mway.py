@@ -71,7 +71,10 @@ from . import remote_fifo as rf
 from .mesh import (Mesh, chips_per_host_of, host_shape, is_2d,
                    shuffle_order)
 
-FANIN_DEFAULT = 16
+# no fan-in named: the local sorts merge in their default plan
+# (multiwaymerge.plan_fanins), the received runs greedily at
+# multiwaymerge.greedy_fanin's (the JAX package's 16)
+FANIN_DEFAULT = mw.FANIN_DEFAULT
 # Bucket capacities align to the JAX package's merge tile (128 x 128 keys)
 # so that they, and with them overflow and the retry, equal its own.
 TILE_ELEMS = 128 * 128
@@ -86,7 +89,7 @@ def _pow2_runs(n: int) -> int:
     return n if n & (n - 1) == 0 else 1 << (n - 1).bit_length()
 
 
-def _local_sorted(keys: torch.Tensor, block: int, fanin: int,
+def _local_sorted(keys: torch.Tensor, block: int, fanin: int | None,
                   use_kernels: bool) -> torch.Tensor:
     """One shard's keys ascending, pads (INT32_MAX) last: the multiway sort
     (K1 + K2), or ``torch.sort`` on the baseline route.  The live prefix is
@@ -104,7 +107,7 @@ def _at_least_one_slot(col: torch.Tensor) -> torch.Tensor:
 
 
 def _local_sorted_pair(keys: torch.Tensor, payloads: torch.Tensor,
-                       block: int, fanin: int, use_kernels: bool):
+                       block: int, fanin: int | None, use_kernels: bool):
     """One shard's (key, payload) pairs in lexicographic order, pads
     (INT32_MAX, INT32_MAX) last: the multiway sort with payloads (K5 + K6),
     or one ``torch.sort`` of the packed pairs on the baseline route.
@@ -187,11 +190,13 @@ def _exchange(mesh: Mesh, bflat, cap: int, schedule, hier=None):
 
 
 def _merge_levels_varlen(keys: torch.Tensor, lens: torch.Tensor,
-                         stride: int, nruns: int, fanin: int,
+                         stride: int, nruns: int, fanin: int | None,
                          payloads: torch.Tensor | None = None):
     """k-way merge levels of the varlen K2 (K6 with ``payloads``) until one
-    run is left.  Returns ``(merged, lens)``, ``merged`` a column or a
-    ``(keys, payloads)`` tuple, as ``multiway_merge`` returns it."""
+    run is left, at ``mw.greedy_fanin(fanin)``.  Returns ``(merged,
+    lens)``, ``merged`` a column or a ``(keys, payloads)`` tuple, as
+    ``multiway_merge`` returns it."""
+    fanin = mw.greedy_fanin(fanin)
     while nruns > 1:
         w = min(max(2, fanin), nruns)
         merged, lens = mw.multiway_merge(keys, w, payloads=payloads,
@@ -222,7 +227,7 @@ def _pad_runs(recv: torch.Tensor, counts: torch.Tensor, n: int, cap: int,
 
 
 def _merge_received(recv: torch.Tensor, counts: torch.Tensor, n: int,
-                    cap: int, fanin: int,
+                    cap: int, fanin: int | None,
                     use_kernels: bool) -> torch.Tensor:
     """One shard's received runs (run s at ``[s*cap, s*cap + counts[s])``)
     k-way merged into one ascending column: the varlen K2 with fan-in
@@ -238,7 +243,7 @@ def _merge_received(recv: torch.Tensor, counts: torch.Tensor, n: int,
 
 
 def _landing_merged(mesh: Mesh, bflat, rcounts, me: int, n: int, cap: int,
-                    fanin: int, use_kernels: bool) -> torch.Tensor:
+                    fanin: int | None, use_kernels: bool) -> torch.Tensor:
     """Shard ``me``'s landing of the bulk all-to-all (span
     ``smj.dist.exchange``), merged."""
     with span("smj.dist.exchange"):
@@ -247,8 +252,8 @@ def _landing_merged(mesh: Mesh, bflat, rcounts, me: int, n: int, cap: int,
 
 
 def _merge_received_pair(recv_k: torch.Tensor, recv_p: torch.Tensor,
-                         counts: torch.Tensor, n: int, cap: int, fanin: int,
-                         use_kernels: bool):
+                         counts: torch.Tensor, n: int, cap: int,
+                         fanin: int | None, use_kernels: bool):
     """:func:`_merge_received` of (key, payload) runs in lexicographic
     order: the varlen K6, or one ``torch.sort`` of the packed pairs on the
     baseline route.  Returns ``(keys, payloads)``; the live prefix is the
@@ -292,7 +297,7 @@ def _arrivals(mesh: Mesh, bflat, counts, cap: int):
         yield piece, cnt
 
 
-def _overlap_receive(mesh: Mesh, bflat, counts, cap: int, fanin: int,
+def _overlap_receive(mesh: Mesh, bflat, counts, cap: int, fanin: int | None,
                      ngroups: int = 2):
     """Permute-round delivery (:func:`_arrivals`) with group merges as the
     groups fill: the runs of each ``n / ngroups`` consecutive rounds k-way
@@ -443,7 +448,7 @@ def _count_owned(mesh: Mesh, merged_r: list, merged_s: list, totals_r,
 
 
 def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
-          block: int, fanin: int, use_kernels: bool, schedule,
+          block: int, fanin: int | None, use_kernels: bool, schedule,
           pre_sharded: bool, overlap_ok: bool, remote_pull, pull_rate: int,
           timed: bool = False):
     """One run of the pipeline at one slack: (count, overflow, phases).
@@ -547,8 +552,8 @@ def _join(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh, slack: float,
     return count, overflow, phases
 
 
-def _check_fanin(fanin: int) -> None:
-    if fanin < 2 or fanin & (fanin - 1):
+def _check_fanin(fanin: int | None) -> None:
+    if fanin is not None and (fanin < 2 or fanin & (fanin - 1)):
         raise ValueError(
             f"fanin must be a power of two >= 2, got {fanin} (the k-way "
             "merge's group math requires it)")
@@ -577,7 +582,7 @@ def _check_remote_pull(remote_pull, mesh: Mesh, use_kernels: bool,
 
 def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
                          slack: float = 2.0, block: int = BLOCKSIZE_DEFAULT,
-                         fanin: int = FANIN_DEFAULT,
+                         fanin: int | None = FANIN_DEFAULT,
                          use_kernels: bool = True,
                          numa_strategy: Optional[str] = None,
                          pre_sharded: bool = False,
@@ -663,7 +668,7 @@ def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
 def dist_mway_join_phased(rkeys, skeys, n_r: int, n_s: int, mesh: Mesh,
                           slack: float = 2.0,
                           block: int = BLOCKSIZE_DEFAULT,
-                          fanin: int = FANIN_DEFAULT,
+                          fanin: int | None = FANIN_DEFAULT,
                           use_kernels: bool = True,
                           numa_strategy: Optional[str] = None,
                           pre_sharded: bool = False):

@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.multiwaymerge import FANIN_DEFAULT
 from ..utils.log import info
 from .mesh import Mesh, make_mesh
 
@@ -133,7 +134,8 @@ def make_workload_a_sharded(n_r: int, n_s: int, mesh: Mesh, seed: int = 42,
 
 
 def join_sharded(rk, sk, n_r: int, n_s: int, mesh: Mesh,
-                 use_kernels: bool = True, fanin: int = 16,
+                 use_kernels: bool = True,
+                 fanin: int | None = FANIN_DEFAULT,
                  slack: float = 2.0, phased: bool = False):
     """The distributed m-way count join of :func:`make_workload_a_sharded`'s
     columns: ``(count, overflow)``, or ``(count, overflow, phases)`` with
@@ -148,7 +150,8 @@ def join_sharded(rk, sk, n_r: int, n_s: int, mesh: Mesh,
 
 def workload_a_join_count(n_r: int, n_s: int, mesh: Optional[Mesh] = None,
                           seed: int = 42, use_kernels: bool = True,
-                          fanin: int = 16, skew: float = 0.0,
+                          fanin: int | None = FANIN_DEFAULT,
+                          skew: float = 0.0,
                           slack: float = 2.0, s_seed: Optional[int] = None,
                           phased: bool = False):
     """The workload-A m-way count join: per-shard generation on the

@@ -19,7 +19,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    a CTA's size - 1, + 0 and + 1, nR >> nS, nS >> nR, a side of length
    1, keys at +-(2^31 - 2)).  Then each kernel, its plain version
    and its one-call library yardstick are timed with CUDA events at the
-   main path's shapes (128M keys); each K2 level also in its parts: the
+   main path's shapes (128M keys; K2 at the default plan's levels, fan-in
+   32, 16, 16); each K2 level also in its parts: the
    co-rank passes (the coarse one and the sampled fine one alone) and the
    tile merge, and its co-rank rows held to ``corank_rows_plain`` bit for
    bit, with no sampled bracket falling back to the search (so each K6
@@ -58,8 +59,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 8. Kernel vs plain, pair merges and 64-bit counts, exact: K6 (pair
    multiway merge) at fan-in 2, 4 and 16 over two levels with ragged
    totals, identical pairs in several runs and pad-valued payloads, then
-   at every level of a 128M-pair sort (fan-in 16, 16, 16, 2; timed, also
-   in its parts, as K2's) and of a 32M-pair one (16, 16, 8); K7 (64-bit
+   at every level of a 128M-pair sort's default plan (fan-in 32, 16, 16;
+   timed, also in its parts, as K2's) and of a 32M-pair one (16, 16, 8);
+   K7 (64-bit
    match count) on keys whose hi plane varies (also with each of the four
    planes a view at a 4-byte offset: the 4-byte copy path), on equal hi
    planes with different lo planes, on one hot key whose product passes
@@ -234,7 +236,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    outputs against its plain version, exact, at group totals T - 1, T,
    T + 1, 3T + 7 for fan-in 2, 4, 8, 16, uniform and varlen, at the
    domain's ends and on a hot key over many tiles; fan-in 2,048 at every
-   tile; the four K2 levels of a 128M sort timed at each tile; then ``-a
+   tile; the K2 levels of a 128M sort's default plan (32, 16, 16) timed
+   at each tile; then ``-a
    m-way -m BYTES`` through the CLI at 128M for a budget naming each tile
    (``Results = 128000000``, every K2 launch at that tile, the join's
    time printed).
@@ -703,7 +706,7 @@ def phase_kernels(dev: torch.device, times: Timings) -> None:
         f"{times.entry('K1')}")
     runs = sort_ops.sort_blocks(keys, MAIN_N)
     record("K1", "main_shape", runs, sort_ops.sort_blocks_plain(keys, MAIN_N))
-    for level in mw.merge_levels(MAIN_N, BLOCK, 16):
+    for level in mw.merge_levels(MAIN_N, BLOCK):
         _, span, nruns, w = level
         lens = (nruns, MAIN_N, span)
         got = mw.multiway_merge(runs, w, lens)[0]
@@ -1157,7 +1160,7 @@ def phase_pair_merge_kernels(dev: torch.device, times: Timings) -> None:
                              dtype=torch.int32, device=dev)
         rk, rp = sort_ops.sort_blocks_pairs(keys, pays, n)
         del keys, pays
-        for level in mw.merge_levels(n, BLOCK, 16):
+        for level in mw.merge_levels(n, BLOCK):
             _, span, nruns, w = level
             lens = (nruns, n, span)
             got = mw.multiway_merge(rk, w, lens, rp)[0]
@@ -1503,13 +1506,13 @@ def phase_merge_tiles(dev: torch.device) -> None:
                 for t in mw.MERGE_TILES}
     if min(launched.values()) <= 0:
         raise AssertionError(f"K2 tiles launched {launched}")
-    # the four K2 levels of a 128M sort at each tile
+    # the K2 levels of a 128M sort's default plan at each tile
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
     keys = torch.randint(-DOMAIN_MAX, DOMAIN_MAX + 1, (MAIN_N,),
                          generator=gen, dtype=torch.int32, device=dev)
     blocks = sort_ops.sort_blocks(keys, MAIN_N, BLOCK)
-    levels = mw.merge_levels(MAIN_N, BLOCK, 16)
+    levels = mw.merge_levels(MAIN_N, BLOCK)
     want = None
     for tile in mw.MERGE_TILES:
         def sort_levels(tile=tile):
@@ -3245,7 +3248,7 @@ def scale_launches() -> dict[str, int]:
     uniform = len(mw.merge_levels(shard, BLOCK, dm.FANIN_DEFAULT))
     varlen, nruns = 0, dm._pow2_runs(n)
     while nruns > 1:  # dm._merge_levels_varlen's levels
-        nruns = -(-nruns // min(dm.FANIN_DEFAULT, nruns))
+        nruns = -(-nruns // min(mw.greedy_fanin(dm.FANIN_DEFAULT), nruns))
         varlen += 1
     return {"K1": 2 * n, "K2": 2 * n * (uniform + varlen), "K3": n}
 

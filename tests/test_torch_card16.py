@@ -63,8 +63,8 @@ def test_phased_count_at_each_ratio_is_the_histogram_count(ratio, zipf):
 
 
 @pytest.mark.parametrize("n,fanins,runs", [
-    (2_048_000_000, [16, 16, 16, 16, 2], [125_000, 7_813, 489, 31, 2]),
-    (128_000_000, [16, 16, 16, 2], [7_813, 489, 31, 2])],
+    (2_048_000_000, [32, 16, 16, 16], [125_000, 3_907, 245, 16]),
+    (128_000_000, [32, 16, 16], [7_813, 245, 16])],
     ids=["S", "R"])
 def test_schedule_of_the_card16_deployment(n, fanins, runs):
     levels = mw.merge_levels(n, mway.BLOCK_MWAY, mway.FANIN_DEFAULT)
@@ -79,11 +79,15 @@ def test_schedule_of_the_card16_deployment(n, fanins, runs):
 
 
 def test_k2_levels_a_join_read_9_here_and_8_at_workload_b():
-    def levels(n):
-        return len(mw.merge_levels(n, mway.BLOCK_MWAY, mway.FANIN_DEFAULT))
+    """9 and 8 at the JAX package's fan-in of 16; the default plan takes
+    one level fewer a sort, 7 and 6."""
+    def levels(n, fanin):
+        return len(mw.merge_levels(n, mway.BLOCK_MWAY, fanin))
 
-    assert levels(128_000_000) + levels(2_048_000_000) == 9
-    assert 2 * levels(128_000_000) == 8
+    for fanin, here, wlb in ((16, 9, 8), (mway.FANIN_DEFAULT, 7, 6)):
+        assert levels(128_000_000, fanin) + levels(2_048_000_000,
+                                                   fanin) == here
+        assert 2 * levels(128_000_000, fanin) == wlb
 
 
 @pytest.mark.parametrize("n_r,ratio,calls_r,calls_s,levels", [

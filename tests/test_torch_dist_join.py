@@ -120,6 +120,23 @@ def test_cli_dist_raises_fanin_to_the_shard_count(capsys):
     assert "raising partfanout" in err and "Results = 3000" in out
 
 
+@pytest.mark.parametrize("nthreads,raised", [(8, None), (16, None),
+                                             (32, 32), (40, 64)])
+def test_cli_without_f_raises_the_fanin_past_16_shards(nthreads, raised,
+                                                       capsys):
+    """Without ``-f`` the received runs merge at fan-in 16, so past 16
+    shards the fan-out is raised to the shard count's power of two, with
+    the warning, as the JAX CLI raises its default of 16 (main.c:866-869);
+    at 16 shards or fewer it stays
+    unnamed (each local sort's planned levels)."""
+    argv = ["-n", str(nthreads), "-r", "3000", "-s", "3000"]
+    args = tcli.build_parser().parse_args(argv)
+    assert tcli._validate(args) is None
+    assert args.partfanout == raised
+    _, err = capsys.readouterr()
+    assert ("raising partfanout" in err) == (raised is not None)
+
+
 def test_cli_dist_without_a_card_runs_only_when_told_cpu(monkeypatch,
                                                          capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

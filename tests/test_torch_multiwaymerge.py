@@ -11,6 +11,7 @@ import torch
 
 from avx_sort_merge_joins_tpu.ops import multiwaymerge as jmw
 from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as tmw
+from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
 ROWS = 8  # JAX block/stride/tile rows: 8 x 128 = 1,024 keys
 SPAN = ROWS * 128
@@ -31,6 +32,36 @@ def test_merge_levels_match_jax(n, block_rows, fanin):
     want = [(stride * 128, span, nruns, w) for stride, span, nruns, w
             in jmw.merge_levels(n, block_rows, fanin)]
     assert tmw.merge_levels(n, block_rows * 128, fanin) == want
+
+
+@pytest.mark.parametrize("n,fanins", [
+    (128_000_000, [32, 16, 16]),        # workload B: 7,813 runs
+    (200_000_000, [16, 16, 16, 4]),     # a workload-A shard: 12,208 runs
+    (2_048_000_000, [32, 16, 16, 16]),  # the card16 cell's S: 125,000
+], ids=["128M", "200M", "2048M"])
+def test_default_plan(n, fanins):
+    block = 16384
+    nruns = -(-n // block)
+    levels = tmw.merge_levels(n, block)
+    ws = [w for *_, w in levels]
+    assert ws == fanins == tmw.plan_fanins(nruns)
+    assert all(w & (w - 1) == 0 and 2 <= w <= tmw.SAMPLED_MAX_FANIN
+               for w in ws)
+    assert int(np.prod(ws)) >= nruns
+    assert sum(w.bit_length() - 1 for w in ws) == (nruns - 1).bit_length()
+    # one level fewer than greedy at 16 where that ends in a W = 2 level
+    greedy = tmw.merge_levels(n, block, 16)
+    assert len(levels) == len(greedy) - (greedy[-1][3] == 2)
+    # a named fan-in of 16 is the JAX schedule, as before
+    assert greedy == [(stride * 128, span, nr, w) for stride, span, nr, w
+                      in jmw.merge_levels(n, block // 128, 16)]
+    # the two-run schedule without a fan-in: greedy at 16, one round
+    # fewer, 2 runs
+    levels2, span2, left = tmw.merge_levels_2runs(n, block)
+    assert (levels2, span2, left) == tmw.merge_levels_2runs(n, block, 16)
+    assert left == 2 and span2 * 2 >= n
+    assert sum(w.bit_length() - 1 for *_, w in levels2) == \
+        (nruns - 1).bit_length() - 1
 
 
 def _sorted_runs(n, seed, low=-(2**31 - 2), high=2**31 - 2):
@@ -188,6 +219,34 @@ def test_multiway_sort_pairs_against_numpy(n, block, fanin):
     ek, ep = _lex_sorted(k, p)
     np.testing.assert_array_equal(got_k[:n].numpy(), ek)
     np.testing.assert_array_equal(got_p[:n].numpy(), ep)
+
+
+@pytest.mark.parametrize("pairs", [False, True], ids=["keys", "pairs"])
+def test_multiway_sort_default_plan_with_a_w32_level(pairs):
+    """500 runs of 1,024: the default plan merges them at 32 and 16 (greedy
+    at 16 would take 16, 16, 2), counting each level under K2_LEVELS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from avx_sort_merge_joins_tpu_torch.utils import profiling
+
+    n, block = 500 * 1024 - 77, 1024
+    assert [w for *_, w in tmw.merge_levels(n, block)] == [32, 16]
+    k, p = _pairs(n, 32, 2**31 - 2, 2**31 - 2)
+    k[::7] = -3  # one hot key across every block
+    kt = torch.from_numpy(k)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tmw.multiway_sort(kt, n, block, payloads=torch.from_numpy(p)
+                                if pairs else None)
+    assert profiling.span_totals()[tmw.K2_LEVELS].calls == 2
+    profiling.reset()
+    if pairs:
+        want = torch.sort(sort_ops.pack_pairs(kt, torch.from_numpy(p)))
+        want_k, want_p = sort_ops.unpack_pairs(want.values)
+        assert torch.equal(got[0][:n], want_k)
+        assert torch.equal(got[1][:n], want_p)
+    else:
+        assert torch.equal(got[:n], torch.sort(kt).values)
 
 
 def test_multiway_merge_rejects_mismatched_payloads():

@@ -302,15 +302,19 @@ def test_multiway_merge_tiles_on_the_cpu():
                                          (1 << 20, 8192)])
 def test_cli_m_gives_the_jax_cli_count(budget, tile, capsys):
     """``-m`` on one device: the count of the JAX CLI under the same flag
-    (its lax.sort route), tolerance 0, and the tile it names."""
+    (its lax.sort route), tolerance 0, and the tile it names, at the
+    planned fan-ins (no ``-f``) and at ``-f 16``."""
     argv = ["-r", "20000", "-s", "20000", "-x", "7", "-y", "8",
             "--non-unique", "-m", str(budget)]
     assert jcli.main(["-a", "m-way", *argv, "--scalarmerge"]) == 0
     want = capsys.readouterr().out.split("Results = ")[1].split()[0]
-    assert tcli.main(["-a", "m-way", *argv, "--device", "cpu"]) == 0
-    out, err = capsys.readouterr()
-    assert out.split("Results = ")[1].split()[0] == want
-    assert f"-m {budget}: K2 merge tile {tile} outputs at fan-in 16" in err
+    for flags, at in (([], "the planned fan-ins"), (["-f", "16"],
+                                                     "fan-in 16")):
+        assert tcli.main(["-a", "m-way", *argv, *flags, "--device",
+                          "cpu"]) == 0
+        out, err = capsys.readouterr()
+        assert out.split("Results = ")[1].split()[0] == want
+        assert f"-m {budget}: K2 merge tile {tile} outputs at {at}" in err
 
 
 def test_cli_m_on_a_mesh_warns_and_is_ignored(capsys):
