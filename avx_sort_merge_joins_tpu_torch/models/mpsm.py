@@ -8,8 +8,18 @@ database systems").  The reference registers mpsm but ships only a stub
                  ``nchunks`` chunks and each chunk is sorted on its own,
                  never merged globally (mpsm's trade: no S shuffle),
   "mergejoin" -- one K3 count of all of R against each sorted S chunk,
-                 summed.  R is re-read per chunk: that scan of every S run
-                 is mpsm's defining cost.
+                 summed on the device and read once.
+
+This is the paper's basic variant (B-MPSM): every private S run is joined
+against the whole of R, so R is read once a chunk.  Its P-MPSM
+range-partitions the private input and searches each public run for the
+matching range, reading about |R| + |S| in all; the JAX package, and so
+the port, does not.
+
+The join is the span ``smj.join``; R's sort is the span ``smj.mpsm.sort.r``
+and the sorts of all the S chunks one span ``smj.mpsm.sort.s``; the counter
+``smj.mpsm.runs`` adds the live S chunks a join.  They record only under a
+profiler session (``utils/profiling.py``).
 
 Keys only and ascending: the TPU package sorts the S chunks negated for
 its count kernel, and the port drops that layout.  ``--scalarsort`` swaps
@@ -25,11 +35,14 @@ import torch
 from ..ops import mergejoin, multiwaymerge as mw
 from ..params import BLOCKSIZE_DEFAULT
 from ..types import JoinConfig, JoinResult, Relation
+from ..utils import profiling
 from . import common
 
 NCHUNKS_DEFAULT = 4
 FANIN_DEFAULT = 16
 BLOCK_MPSM = BLOCKSIZE_DEFAULT
+SORT_SPAN_R, SORT_SPAN_S = "smj.mpsm.sort.r", "smj.mpsm.sort.s"
+RUNS = "smj.mpsm.runs"  # the counter of live S chunks
 
 
 def _chunks(nS: int, nchunks: int):
@@ -48,22 +61,31 @@ def _chunks(nS: int, nchunks: int):
 def _sort_chunks(rk, sk, nR: int, chunks, fanin: int, block: int,
                  scalar: bool):
     """R sorted once and each S chunk of ``chunks`` on its own: K1 + K2,
-    or ``torch.sort`` when ``scalar``."""
-    if scalar:
-        return (torch.sort(rk[:nR]).values,
-                [torch.sort(sk[lo:lo + ln]).values for lo, ln in chunks])
-    return (mw.multiway_sort(rk, nR, block, fanin),
-            [mw.multiway_sort(sk[lo:lo + ln], ln, block, fanin)
-             for lo, ln in chunks])
+    or ``torch.sort`` when ``scalar``.  R's sort is the span
+    ``SORT_SPAN_R``, the chunks' sorts together the span ``SORT_SPAN_S``."""
+    def sort(keys, n):
+        if scalar:
+            return torch.sort(keys[:n]).values
+        return mw.multiway_sort(keys, n, block, fanin)
+
+    with profiling.span(SORT_SPAN_R):
+        rks = sort(rk, nR)
+    with profiling.span(SORT_SPAN_S):
+        sks = [sort(sk[lo:lo + ln], ln) for lo, ln in chunks]
+    return rks, sks
 
 
 def _count_chunks(sorted_, nR: int, chunks, scalar_merge: bool):
     """One count of all of sorted R against each sorted S chunk (K3, or
-    the ``torch.sort`` count baseline): a list of int64 0-d tensors."""
+    the ``torch.sort`` count baseline), summed on the device: an int64 0-d
+    tensor, so that the host reads the count once whatever the chunks."""
     rks, schunks = sorted_
     count = (mergejoin.merge_join_count_torch if scalar_merge
              else mergejoin.merge_join_count_fused)
-    return [count(rks, sks, nR, ln) for sks, (_, ln) in zip(schunks, chunks)]
+    counts = [count(rks, sks, nR, ln) for sks, (_, ln) in zip(schunks, chunks)]
+    if not counts:
+        return torch.zeros((), dtype=torch.int64, device=rks.device)
+    return torch.stack(counts).sum()
 
 
 def _mpsm_count_device(rk, sk, nR: int, nS: int,
@@ -72,8 +94,8 @@ def _mpsm_count_device(rk, sk, nR: int, nS: int,
                        scalar_sort: bool = False,
                        scalar_merge: bool = False):
     """Count-only mpsm join in one go, the phased join's pipeline without
-    its syncs: a list of per-chunk int64 0-d tensors, summed by the
-    caller."""
+    its syncs: the chunks' counts summed on the device, an int64 0-d
+    tensor."""
     chunks = _chunks(nS, nchunks)
     return _count_chunks(
         _sort_chunks(rk, sk, nR, chunks, fanin, block,
@@ -91,8 +113,15 @@ def sortmergejoin_mpsm(R: Relation, S: Relation,
             "--materialize: the JAX package materializes on m-way only")
     if nchunks < 1:
         raise ValueError(f"mpsm: nchunks {nchunks} < 1")
+    with profiling.span("smj.join"):
+        return _sortmergejoin_mpsm(R, S, config, nchunks, fanin, block)
+
+
+def _sortmergejoin_mpsm(R: Relation, S: Relation, config: JoinConfig,
+                        nchunks: int, fanin: int, block: int) -> JoinResult:
     nR, nS = R.num_tuples, S.num_tuples
     chunks = _chunks(nS, nchunks)
+    profiling.count(RUNS, len(chunks))
     scalar = config.scalar_sort or config.scalar_merge
 
     def sort_phase(_):
@@ -101,17 +130,17 @@ def sortmergejoin_mpsm(R: Relation, S: Relation,
     def join_phase(sorted_):
         return _count_chunks(sorted_, nR, chunks, config.scalar_merge)
 
-    counts, timings = common.run_phases({"sort": sort_phase,
-                                         "mergejoin": join_phase},
-                                        R.keys.device)
-    result = common.make_result(sum(mergejoin.finish_count_fused(c)
-                                    for c in counts), nR, nS, timings)
+    count, timings = common.run_phases({"sort": sort_phase,
+                                        "mergejoin": join_phase},
+                                       R.keys.device)
+    result = common.make_result(mergejoin.finish_count_fused(count), nR, nS,
+                                timings)
     chunk = -(-nS // nchunks)
     levels = len(mw.merge_levels(nR, block, fanin)) + 1
     levels_s = len(mw.merge_levels(chunk, block, fanin)) + 1
     result.bytes_moved = {
         "sort": 2 * 4 * (nR * levels + nS * levels_s),
-        # every S chunk's count re-reads all of R (the scan-all-runs shape)
+        # every S chunk's count re-reads all of R (B-MPSM's scan of all runs)
         "mergejoin": 4 * (nR * len(chunks) + nS),
     }
     return result

@@ -209,10 +209,7 @@ def _mpsm_thunks(R, S, nR: int, nS: int, scalar: bool, nchunks: int = 1):
         return mpsm._mpsm_count_device(R.keys, S.keys, nR, nS, nchunks,
                                        FANIN, mpsm.BLOCK_MPSM, scalar, scalar)
 
-    def finish(out):
-        return sum(mergejoin.finish_count_fused(c) for c in out)
-
-    return run, finish
+    return run, mergejoin.finish_count_fused
 
 
 THUNKS = {"m-way": _mway_thunks, "m-pass": _mpass_thunks,

@@ -42,8 +42,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    directions, keys and pairs; and the varlen mode with random, empty,
    full and padding runs at strides 1, T + 1, 100,003 and 4,014,080.)
 5. Kernel vs plain, exact, at the other shapes the paths of phases 6-7
-   give the kernels: one 32M mpsm S chunk (K1; K2 at each of its levels,
-   fan-in 16, 16, 8; K3 of 128M R against it, also timed), and the 16M
+   give the kernels: one 32M mpsm S chunk of the CLI's 4 and one 2M
+   chunk of the benchmark's 64 (K1; K2 at each of its levels, fan-in 16,
+   16, 8 and 16, 8; K3 of 128M R against it, also timed), and the 16M
    pair inputs of phase 7 (K5 and every K4 pair-mode pass of ``sort``
    and ``sort_descending``, and the tag-merge count's two-run K4 merges).
 6. Join paths, each through the CLI with the launch counts set to 0 just
@@ -283,6 +284,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 MAIN_N = 128_000_000
+MPSM_CHUNKS = (4, 64)  # the CLI's mpsm run and the benchmark cell's
 NONUNIQUE_N = 16_000_000
 PAIR_N = 16_000_000
 CHECK_N = (1 << 22) + 12_345  # ragged: not a multiple of any block
@@ -900,27 +902,31 @@ def phase_path_shapes(dev: torch.device) -> None:
     from avx_sort_merge_joins_tpu_torch.ops import multiwaymerge as mw
     from avx_sort_merge_joins_tpu_torch.ops import sort as sort_ops
 
-    # mpsm: one S chunk of the 4-chunk run, foreign keys over R
-    _, chunk = mpsm._chunks(MAIN_N, 4)[0]
-    gen = torch.Generator(device=dev).manual_seed(17)
-    sk = torch.randint(1, MAIN_N + 1, (chunk,), generator=gen,
-                       dtype=torch.int32, device=dev)
-    runs = sort_ops.sort_blocks_plain(sk, chunk)
-    record("K1", f"mpsm chunk n={chunk}", sort_ops.sort_blocks(sk, chunk),
-           runs)
-    for level in mw.merge_levels(chunk, BLOCK, mpsm.FANIN_DEFAULT):
-        _, span, nruns, w = level
-        lens = (nruns, chunk, span)
-        want = mw.multiway_merge_plain(runs, w, lens)
-        record("K2", f"mpsm chunk level={level}",
-               mw.multiway_merge(runs, w, lens)[0], want)
-        runs = want
+    # mpsm: one S chunk of the CLI's 4-chunk run and of the benchmark's
+    # 64 private runs, foreign keys over R
     rk = torch.arange(1, MAIN_N + 1, dtype=torch.int32, device=dev)
-    record("K3", f"mpsm {MAIN_N} x {chunk}",
-           mergejoin.merge_join_count_fused(rk, runs, MAIN_N, chunk),
-           mergejoin.merge_join_count_fused_plain(rk, runs, MAIN_N, chunk))
-    log_k3_time("an mpsm chunk", rk, runs, MAIN_N, chunk)
-    del sk, runs, want, rk
+    for nchunks in MPSM_CHUNKS:
+        _, chunk = mpsm._chunks(MAIN_N, nchunks)[0]
+        gen = torch.Generator(device=dev).manual_seed(17)
+        sk = torch.randint(1, MAIN_N + 1, (chunk,), generator=gen,
+                           dtype=torch.int32, device=dev)
+        runs = sort_ops.sort_blocks_plain(sk, chunk)
+        record("K1", f"mpsm chunk n={chunk}",
+               sort_ops.sort_blocks(sk, chunk), runs)
+        for level in mw.merge_levels(chunk, BLOCK, mpsm.FANIN_DEFAULT):
+            _, span, nruns, w = level
+            lens = (nruns, chunk, span)
+            want = mw.multiway_merge_plain(runs, w, lens)
+            record("K2", f"mpsm chunk n={chunk} level={level}",
+                   mw.multiway_merge(runs, w, lens)[0], want)
+            runs = want
+        record("K3", f"mpsm {MAIN_N} x {chunk}",
+               mergejoin.merge_join_count_fused(rk, runs, MAIN_N, chunk),
+               mergejoin.merge_join_count_fused_plain(rk, runs, MAIN_N,
+                                                      chunk))
+        log_k3_time(f"an mpsm chunk of {nchunks}", rk, runs, MAIN_N, chunk)
+        del sk, runs, want
+    del rk
 
     # the pair phase: K5 and each K4 pass of sort / sort_descending
     keys, pays, rk, sk = pair_inputs(dev)
